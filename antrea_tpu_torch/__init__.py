@@ -5,9 +5,12 @@ has an obvious counterpart:
 
   apis/, utils/ip.py, compiler/, packet.py, simulator/
                host-side numpy code, kept as this package's own copies
-  ops/         the classifier (match.py), the FNV hashes (hashing.py) and
-               the hand-written CUDA consumer kernel's wrapper (consumer.py)
-  models/      the synchronous, v4, fused pipeline step (pipeline.py)
+  ops/         the classifier with its aggregate-pruned walk (match.py),
+               the FNV hashes (hashing.py) and the wrappers of the
+               hand-written CUDA kernels: B1 (consumer.py), B2
+               (pruned_consumer.py) and B3 (onepass.py)
+  models/      the synchronous, v4 pipeline step, staged or one-pass
+               (pipeline.py)
   csrc/        CUDA C++ sources for sm_90a, built on first use by _build.py
   utils/timing.py
                CUDA-event timing

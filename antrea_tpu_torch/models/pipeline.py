@@ -1,5 +1,6 @@
-"""The staged datapath pipeline step: the PyTorch port of
-antrea_tpu/models/pipeline.py for the synchronous, v4, fused regime.
+"""The datapath pipeline step: the PyTorch port of
+antrea_tpu/models/pipeline.py for the synchronous, v4 regime, staged or
+one-pass.
 
 One step takes a packet batch through a direct-mapped flow cache in front
 of the full classifier:
@@ -16,6 +17,11 @@ of the full classifier:
     classification of the post-DNAT tuple (ops/match, through the B1 CUDA
     kernel when fused), and the commit of the forward and reply entries
     with deterministic last-writer-wins on slot collisions.
+  ONE-PASS SLOW PATH (meta.onepass: fused over an aggregate-pruned world):
+    ServiceLB over the whole batch, then kernel B3 (ops/onepass) decodes the
+    probe, prunes, matches, resolves and packs the commit rows of every lane
+    in one launch; lanes with more than K candidate superblocks are re-walked
+    at full width (B1), and one interleaved scatter commits the batch.
 
 Unlike the JAX step, this one updates the state's tensors IN PLACE (the
 flow cache is ~0.2 GB at 2**22 slots) and returns the same state object;
@@ -24,7 +30,9 @@ bit the JAX step's: lookups see the state at batch start, inserts land in
 lane order, affinity lookups see the start-of-batch table in every round.
 The step reads one small vector back to the host (which conditional phases
 run, and the miss count that sizes the round loop), and one more to list
-the miss lanes when there are misses.
+the miss lanes when there are misses.  Under pruning each classify reads
+back whether any lane has a candidate and lists its fallback lanes; the
+one-pass slow path lists its fallback lanes once.
 
 All tensors are int32 words; u32 quantities keep their bits in int32.
 """
@@ -39,10 +47,11 @@ import torch
 from ..apis.controlplane import PROTO_TCP
 from ..compiler.compile import ACT_ALLOW, ACT_REJECT, CompiledPolicySet
 from ..compiler.services import ServiceTables
-from ..ops import hashing
-from ..ops.match import (DeviceRuleSet, StaticMeta, _refuse, classify_batch,
-                         from_numpy, resolve_device, ruleset_from_numpy,
-                         to_host)
+from ..ops import consumer, hashing, onepass
+from ..ops.match import (PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
+                         _dim_index, _refuse, _resolve, _svcref_key,
+                         classify_batch, from_numpy, resolve_device,
+                         ruleset_from_numpy, to_host)
 
 MISS = -1
 # Generation tag reserved for conntrack-committed (ALLOW) entries; rule
@@ -92,6 +101,19 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 def _pair16(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """(hi << 16) | lo in int32, wrapping into the sign bit like JAX."""
     return _wrap32((hi.to(torch.int64) << 16) | lo.to(torch.int64))
+
+
+def _prune_bucket_counts(cand: torch.Tensor, mask: torch.Tensor):
+    """Per-lane candidate-superblock counts -> per-bucket counts plus a
+    trailing value-sum element, (len(PRUNE_HIST_BOUNDS) + 2,) int32.  The
+    bucket of a count is bisect_left over PRUNE_HIST_BOUNDS."""
+    bounds = torch.tensor(PRUNE_HIST_BOUNDS, dtype=_I32, device=cand.device)
+    idx = (cand[:, None] > bounds[None, :]).sum(dim=1)
+    mi = mask.to(_I32)
+    counts = torch.zeros(len(PRUNE_HIST_BOUNDS) + 1, dtype=_I32,
+                         device=cand.device).index_add_(0, idx, mi)
+    vsum = (cand * mi).sum(dtype=_I32)
+    return torch.cat([counts, vsum[None]])
 
 
 def reject_kind_of(code, proto):
@@ -174,8 +196,12 @@ class PipelineMeta(NamedTuple):
     ct_syn_timeout_s: Optional[int] = None
     ct_other_new_s: Optional[int] = None
     ct_other_est_s: Optional[int] = None
-    # Classify misses through the B1 consumer (the CUDA kernel on the card).
+    # Classify misses through the B1 consumer (the CUDA kernel on the card),
+    # or B2 under pruning.
     fused: bool = False
+    # The one-pass slow path (kernel B3 over the whole batch) instead of
+    # the miss rounds; needs the aggregate layer (match.prune_budget > 0).
+    onepass: bool = False
 
     @property
     def timeouts(self) -> tuple[int, int, int, int]:
@@ -287,6 +313,39 @@ def _unpack_rules(rp):
     return (rp & 0xFFFF) - 1, ((rp >> 16) & 0xFFFF) - 1
 
 
+def _fused_pack_rows(src_f, dst_f, proto, sport, dport, pp, f_code, svc_idx,
+                     dnat_ip, dnat_port, snat_m, dsr_m, f_ri, f_ro, miss_m,
+                     nc_m, now, gen_w, n_slots, pmask):
+    """The commit rows of a set of lanes: the forward entry, and the
+    reply-direction entry keyed on the post-DNAT tuple with ports swapped,
+    whose meta carries the un-DNAT rewrite; ALLOW entries as ETERNAL
+    (conntrack), denials tagged with the generation; DSR lanes commit no
+    reply leg.  The torch twin of B3's packing (pipeline.py:579).
+    -> dict(committed, ins, rev_ins, rev_slot, keys8 (M, 8), meta8 (M, 8))."""
+    committed = miss_m & (f_code == ACT_ALLOW) & ~nc_m
+    ins = miss_m & ~nc_m
+    rev_ins = ins & committed & (dsr_m == 0)
+    egen = torch.where(committed, GEN_ETERNAL, gen_w)
+    pg_ins = (proto | 0x100 | (egen << 9)).to(_I32)
+    m1 = _pack_meta1(f_code, svc_idx, dnat_port)
+    rules_p = _pack_rules(f_ri, f_ro)
+    pref_col = torch.full_like(proto, now & pmask)
+    zcol = (pref_col
+            | torch.where(snat_m > 0, REPLY_BIT, 0)
+            | torch.where(dsr_m > 0, DSR_BIT, 0)).to(_I32)
+    rev_h = hashing.flow_hash(_raw_bits(dnat_ip), _raw_bits(src_f), proto,
+                              dnat_port, sport)
+    rev_slot = (rev_h & (n_slots - 1)).to(_I32)
+    rev_pg = proto | 0x100 | (GEN_ETERNAL << 9) | REPLY_BIT
+    keys8 = torch.stack([src_f, dst_f, pp, pg_ins, dnat_ip, src_f,
+                         _pair16(dnat_port, sport), rev_pg], dim=1)
+    meta8 = torch.stack([dnat_ip, m1, rules_p, zcol, dst_f,
+                         _pack_meta1(f_code, svc_idx, dport), rules_p,
+                         pref_col], dim=1)
+    return dict(committed=committed, ins=ins, rev_ins=rev_ins,
+                rev_slot=rev_slot, keys8=keys8, meta8=meta8)
+
+
 class PolicyCapacityError(ValueError):
     """A compiled policy set exceeds the 16-bit packed rule-attribution
     space of the flow cache."""
@@ -330,16 +389,18 @@ def make_pipeline(
     the lane inputs are (B,) int32 tensors on the tables' device.
 
     device None means the card (raises without CUDA); "cpu" runs every
-    kernel's plain version.  dual_stack, count_flow_stats, prune_budget > 0,
-    second_chance, onepass and telemetry are not ported: they raise
+    kernel's plain version.  prune_budget > 0 builds the aggregate tables:
+    misses then classify through the pruned walk, and fused=True upgrades
+    the slow path to the one-pass kernel unless onepass=False pins the
+    staged rounds (onepass=True demands it).  dual_stack, count_flow_stats,
+    second_chance and telemetry are not ported: they raise
     NotImplementedError.
     """
     dev = resolve_device(device)
     _refuse(dual_stack=dual_stack, count_flow_stats=count_flow_stats,
-            prune_budget=prune_budget > 0, second_chance=second_chance,
-            onepass=bool(onepass), telemetry=telemetry)
+            second_chance=second_chance, telemetry=telemetry)
     check_rule_capacity(cps)
-    drs_np, match_meta = to_host(cps)
+    drs_np, match_meta = to_host(cps, prune_budget=prune_budget)
     drs = ruleset_from_numpy(drs_np, dev)
     dsvc = svc_to_device(svc, dev)
     meta = PipelineMeta(
@@ -352,6 +413,8 @@ def make_pipeline(
         ct_other_new_s=ct_other_new_s,
         ct_other_est_s=ct_other_est_s,
         fused=fused,
+        onepass=(bool(fused and prune_budget > 0) if onepass is None
+                 else bool(onepass)),
     )
     state = init_state(flow_slots, aff_slots, device=dev)
 
@@ -440,8 +503,9 @@ def entry_timeout(conf, proto, timeouts):
 
 
 def _cache_lookup(flow, slot, addr, pp, pg_cur, pg_est, now, proto, meta):
-    """Fast-path flow-cache probe.  -> (hit, est, rpl, meta_row), the meta
-    rows gathered at batch start."""
+    """Fast-path flow-cache probe.  -> (hit, est, rpl, meta_row, key_row,
+    ts_col), the rows gathered at batch start (copies: the one-pass kernel
+    re-derives the probe from them after the step has written the cache)."""
     A = addr.shape[1]
     kr = flow.keys[slot]  # (B, A+2) row gather
     kpg = kr[:, A + 1]
@@ -458,10 +522,11 @@ def _cache_lookup(flow, slot, addr, pp, pg_cur, pg_est, now, proto, meta):
         timeout = tmo[1]
     else:
         timeout = entry_timeout((mr[:, ZC] >> 29) & 1, proto, tmo)
-    hit = key_hit & ((now - flow.ts[slot]) <= timeout)
+    ts = flow.ts[slot]
+    hit = key_hit & ((now - ts) <= timeout)
     est = hit & ((kpg == pg_est) | (kpg == pg_rpl))
     rpl = hit & (kpg == pg_rpl)
-    return hit, est, rpl, mr
+    return hit, est, rpl, mr, kr, ts
 
 
 def pipeline_step(
@@ -487,6 +552,10 @@ def pipeline_step(
     (rule-axis sharding), valid, no_commit and v6 are not ported."""
     _refuse(hit_combine=hit_combine is not None, valid=valid is not None,
             no_commit=no_commit is not None, v6=v6 is not None)
+    if meta.onepass and meta.match.prune_budget <= 0:
+        raise ValueError(
+            "the one-kernel fast path (onepass) requires the narrow v4 "
+            "key layout and an aggregate-pruned meta (prune_budget > 0)")
     flow, aff = state.flow, state.aff
     dev = src_f.device
     B = src_f.shape[0]
@@ -508,7 +577,7 @@ def pipeline_step(
     slot = h & (N - 1)
     pg_cur = proto | 0x100 | (gen_w << 9)
     pg_est = proto | 0x100 | (GEN_ETERNAL << 9)
-    hit, est, rpl, mr = _cache_lookup(
+    hit, est, rpl, mr, kr0, ts0 = _cache_lookup(
         flow, slot, addr, pp, pg_cur, pg_est, now, proto, meta)
     c_code, c_svc, c_dport = _unpack_meta1(mr[:, M1C])
     c_dnat_ip = mr[:, DC]
@@ -580,25 +649,33 @@ def pipeline_step(
         t_slot, t_live = partner_probe(flow.keys, td)
         flow.keys[torch.where(t_live, t_slot, dump)] = 0
 
-    # Fast-path output images (+1 dump element for masked slow-path writes).
-    def outbuf(vals):
-        return torch.cat([vals.to(_I32), torch.zeros(1, dtype=_I32,
-                                                     device=dev)])
-
-    out_code = outbuf(torch.where(hit, c_code, ACT_ALLOW))
-    out_svc = outbuf(torch.where(hit, c_svc, MISS))
-    out_dnat_ip = outbuf(torch.where(hit, c_dnat_ip, dst_f))
-    out_dnat_port = outbuf(torch.where(hit, c_dport, dport))
-    out_rule_in = outbuf(torch.where(hit, c_rule_in, MISS))
-    out_rule_out = outbuf(torch.where(hit, c_rule_out, MISS))
-    out_committed = outbuf(torch.zeros(B, dtype=_I32, device=dev))
-    # SNAT / DSR marks cached in meta3 bits 31 / 30 at commit time.
-    out_snat = outbuf(torch.where(hit & ~rpl, (mr[:, ZC] >> 31) & 1, 0))
-    out_dsr = outbuf(torch.where(hit & ~rpl, (mr[:, ZC] >> 30) & 1, 0))
+    # Output images, one column per output in B3's main-row order [code,
+    # rule_in, rule_out, svc, dnat_ip_f, dnat_port, snat, dsr, committed],
+    # plus a dump row for masked slow-path writes.  SNAT / DSR marks are
+    # cached in meta3 bits 31 / 30 at commit time.
+    zero = torch.zeros(B, dtype=_I32, device=dev)
+    fwd_hit = hit & ~rpl
+    img = torch.cat([torch.stack([
+        torch.where(hit, c_code, ACT_ALLOW), torch.where(hit, c_rule_in, MISS),
+        torch.where(hit, c_rule_out, MISS), torch.where(hit, c_svc, MISS),
+        torch.where(hit, c_dnat_ip, dst_f), torch.where(hit, c_dport, dport),
+        torch.where(fwd_hit, (mr[:, ZC] >> 31) & 1, 0),
+        torch.where(fwd_hit, (mr[:, ZC] >> 30) & 1, 0), zero],
+        dim=1).to(_I32), torch.zeros((1, 9), dtype=_I32, device=dev)])
     n_evict = torch.zeros((), dtype=_I32, device=dev)
+    prune_on = meta.match.prune_budget > 0
+    # Prune counters: aggregate-AND skips, full-width fallbacks, and the
+    # candidate-superblock histogram (_prune_bucket_counts layout).
+    prune = (zero[0], zero[0],
+             torch.zeros(len(PRUNE_HIST_BOUNDS) + 2, dtype=_I32, device=dev))
 
     # ---- slow path: ServiceLB + classify + commit, misses only ----
-    if n_miss > 0:
+    if n_miss > 0 and meta.onepass:
+        main, n_evict, prune = _slow_onepass(
+            state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h, slot,
+            miss, mr, kr0, ts0, now, gen_w, meta)
+        img[:B] = main[:, :9]
+    elif n_miss > 0:
         rounds = -(-n_miss // M)
         # Affinity lookups see the start-of-batch table in every round;
         # learns land in the live table.
@@ -608,6 +685,7 @@ def pipeline_step(
             torch.nonzero(miss).flatten(),
             torch.full((rounds * M - n_miss,), B, dtype=torch.int64,
                        device=dev)])
+        no_commit_m = torch.zeros(M, dtype=torch.bool, device=dev)
         for r in range(rounds):
             idx = midx[r * M:(r + 1) * M]
             valid_m = idx < B
@@ -629,105 +707,201 @@ def pipeline_step(
             code = torch.where(no_ep, ACT_REJECT, cls["code"]).to(_I32)
             rule_in = torch.where(no_ep, MISS, cls["ingress_rule"])
             rule_out = torch.where(no_ep, MISS, cls["egress_rule"])
-            committed_m = code == ACT_ALLOW
-            ins = valid_m
+            if prune_on:
+                # Valid lanes only: padding lanes classify a copy of lane
+                # B-1 and must not count.
+                prune = (
+                    prune[0] + (cls["prune_skip"] & valid_m).sum(dtype=_I32),
+                    prune[1] + (cls["prune_fb"] & valid_m).sum(dtype=_I32),
+                    prune[2] + _prune_bucket_counts(cls["prune_cand"],
+                                                    valid_m))
+            rows = _fused_pack_rows(
+                s_f, d_f, p_m, sp_m, dp_m, pp[safe], code, svc_idx, dnat_ip,
+                dnat_port, snat_m, dsr_m, rule_in, rule_out, valid_m,
+                no_commit_m, now, gen_w, N, pmask)
+            # Results into the output images (miss lanes are distinct;
+            # padding lanes write the dump row).
+            img[torch.where(valid_m, idx, B)] = torch.stack(
+                [code, rule_in, rule_out, svc_idx, dnat_ip, dnat_port,
+                 snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
+            n_evict = n_evict + _commit(
+                state, slot[safe], rows, learn, learn["mask"] & valid_m, now,
+                meta)
 
-            # Scatter results into the output images (miss lanes are
-            # distinct; padding lanes write the dump element).
-            tgt = torch.where(valid_m, idx, B)
-            out_code[tgt] = code
-            out_svc[tgt] = svc_idx
-            out_dnat_ip[tgt] = dnat_ip
-            out_dnat_port[tgt] = dnat_port
-            out_rule_in[tgt] = rule_in
-            out_rule_out[tgt] = rule_out
-            out_committed[tgt] = committed_m.to(_I32)
-            out_snat[tgt] = snat_m
-            out_dsr[tgt] = dsr_m
-
-            # Commit: ALLOW entries as ETERNAL (conntrack), denials tagged
-            # with the current generation.
-            egen = torch.where(committed_m, GEN_ETERNAL, gen_w)
-            pg_ins = (p_m | 0x100 | (egen << 9)).to(_I32)
-            m1 = _pack_meta1(code, svc_idx, dnat_port)
-            rules_p = _pack_rules(rule_in, rule_out)
-            pref_col = torch.full((M,), now & pmask, dtype=_I32, device=dev)
-            zcol = (pref_col
-                    | torch.where(snat_m > 0, REPLY_BIT, 0)
-                    | torch.where(dsr_m > 0, DSR_BIT, 0)).to(_I32)
-            key_rows = torch.stack([s_f, d_f, _pair16(sp_m, dp_m), pg_ins],
-                                   dim=1)
-            meta_rows = torch.stack([dnat_ip, m1, rules_p, zcol], dim=1)
-
-            # The reply-direction entry, keyed on the post-DNAT tuple with
-            # ports swapped; its meta carries the un-DNAT rewrite.  DSR
-            # connections commit no reply leg.
-            rev_ins = ins & committed_m & (dsr_m == 0)
-            rev_h = hashing.flow_hash(_raw_bits(dnat_ip), _raw_bits(s_f),
-                                      p_m, dnat_port, sp_m)
-            rev_slot = rev_h & (N - 1)
-            rev_pg = p_m | 0x100 | (GEN_ETERNAL << 9) | REPLY_BIT
-            rev_keys = torch.stack(
-                [dnat_ip, s_f, _pair16(dnat_port, sp_m), rev_pg], dim=1)
-            rev_meta = torch.stack(
-                [d_f, _pack_meta1(code, svc_idx, dp_m), rules_p, pref_col],
-                dim=1)
-
-            # Interleave per packet [fwd_i, rev_i] so last-writer-wins
-            # resolves collisions in per-packet insert order.
-            slot2 = torch.stack([slot[safe], rev_slot], dim=1).reshape(2 * M)
-            keys2 = torch.stack([key_rows, rev_keys], dim=1).reshape(2 * M, 4)
-            meta2 = torch.stack([meta_rows, rev_meta], dim=1).reshape(2 * M, 4)
-            ins2 = torch.stack([ins, rev_ins], dim=1).reshape(2 * M)
-
-            # Eviction census: an insert over a live entry whose tuple
-            # differs (a same-tuple rewrite is an update).
-            okr = flow.keys[torch.where(ins2, slot2, dump)]
-            id3 = 0xFF | REPLY_BIT
-            tuple_differs = (
-                (okr[:, :A + 1] != keys2[:, :A + 1]).any(dim=1)
-                | ((okr[:, A + 1] & id3) != (keys2[:, A + 1] & id3))
-            )
-            overwrote = ins2 & (okr[:, A + 1] != 0) & tuple_differs
-            n_evict = n_evict + overwrote.sum(dtype=_I32)
-
-            _scatter_last(flow.keys, slot2, keys2, ins2, dump)
-            _scatter_last(flow.meta, slot2, meta2, ins2, dump)
-            _scatter_last(flow.ts, slot2,
-                          torch.full((2 * M,), now, dtype=_I32, device=dev),
-                          ins2, dump)
-            lm = learn["mask"] & valid_m
-            adump = meta.aff_slots
-            _scatter_last(aff.key_client, learn["aslot"], learn["client"],
-                          lm, adump)
-            _scatter_last(aff.key_svc, learn["aslot"], learn["svc"], lm,
-                          adump)
-            _scatter_last(aff.ep, learn["aslot"], learn["ep"], lm, adump)
-            _scatter_last(aff.ts, learn["aslot"],
-                          torch.full((M,), now, dtype=_I32, device=dev), lm,
-                          adump)
-
-    final_code = out_code[:B]
+    cols = img[:B].t().contiguous()
     out = {
-        "code": final_code,
+        "code": cols[0],
         "est": est.to(_I32),
         # Reply-direction hit: dnat_ip_f/dnat_port carry the UN-DNAT
         # rewrite (the frontend the reply's source is restored to).
         "reply": rpl.to(_I32),
-        "reject_kind": reject_kind_of(final_code, proto),
-        "svc_idx": out_svc[:B],
-        "dnat_ip_f": out_dnat_ip[:B],
-        "dnat_port": out_dnat_port[:B],
-        "ingress_rule": out_rule_in[:B],
-        "egress_rule": out_rule_out[:B],
-        "committed": out_committed[:B],
+        "reject_kind": reject_kind_of(cols[0], proto),
+        "svc_idx": cols[3],
+        "dnat_ip_f": cols[4],
+        "dnat_port": cols[5],
+        "ingress_rule": cols[1],
+        "egress_rule": cols[2],
+        "committed": cols[8],
         "miss": miss.to(_I32),
-        "snat": out_snat[:B],
-        "dsr": out_dsr[:B],
+        "snat": cols[6],
+        "dsr": cols[7],
         "n_miss": torch.tensor(n_miss, dtype=_I32, device=dev),
         "n_evict": n_evict,
         # Dead-row reclaims are split out only by the async drain, which
         # is not ported: always 0 here, as in the JAX synchronous step.
         "n_reclaim": torch.zeros((), dtype=_I32, device=dev),
     }
+    if prune_on:
+        # Keys exist iff prune_budget > 0, as in the JAX step.
+        out["n_prune_skips"], out["n_prune_fb"], out["prune_cand_hist"] = prune
     return state, out
+
+
+def _commit(state, slot, rows, learn, learn_mask, now, meta):
+    """In place: commit a set of lanes' forward and reply rows
+    (_fused_pack_rows output) interleaved per lane [fwd_i, rev_i], so
+    last-writer-wins resolves collisions in per-lane insert order, and
+    their affinity learns.  The eviction census (an insert over a live
+    entry whose tuple differs; a same-tuple rewrite is an update) reads the
+    cache once, before the scatters.  -> evictions, int32 scalar."""
+    flow, aff = state.flow, state.aff
+    dump = meta.flow_slots
+    A = 2
+    m = slot.shape[0]
+    slot2 = torch.stack([slot, rows["rev_slot"].long()], dim=1).reshape(2 * m)
+    keys2 = rows["keys8"].reshape(2 * m, 4)
+    meta2 = rows["meta8"].reshape(2 * m, 4)
+    ins2 = torch.stack([rows["ins"], rows["rev_ins"]], dim=1).reshape(2 * m)
+
+    okr = flow.keys[torch.where(ins2, slot2, dump)]
+    id3 = 0xFF | REPLY_BIT
+    tuple_differs = (
+        (okr[:, :A + 1] != keys2[:, :A + 1]).any(dim=1)
+        | ((okr[:, A + 1] & id3) != (keys2[:, A + 1] & id3))
+    )
+    overwrote = ins2 & (okr[:, A + 1] != 0) & tuple_differs
+
+    _scatter_last(flow.keys, slot2, keys2, ins2, dump)
+    _scatter_last(flow.meta, slot2, meta2, ins2, dump)
+    _scatter_last(flow.ts, slot2, torch.full((2 * m,), now, dtype=_I32,
+                                             device=slot.device), ins2, dump)
+    adump = meta.aff_slots
+    _scatter_last(aff.key_client, learn["aslot"], learn["client"], learn_mask,
+                  adump)
+    _scatter_last(aff.key_svc, learn["aslot"], learn["svc"], learn_mask, adump)
+    _scatter_last(aff.ep, learn["aslot"], learn["ep"], learn_mask, adump)
+    _scatter_last(aff.ts, learn["aslot"],
+                  torch.full((m,), now, dtype=_I32, device=slot.device),
+                  learn_mask, adump)
+    return overwrote.sum(dtype=_I32)
+
+
+def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
+                    miss, kr0, mr, ts0, now, meta):
+    """ServiceLB over the whole batch and B3's lane inputs
+    (pipeline.py:1670-1859): the miss-masked interval rows (hit lanes take
+    row 0 and spawn nothing), the six aggregate rows, the isolation bits.
+    kr0/mr/ts0 are the cache rows gathered at batch start.
+    -> (onepass.OnepassInputs, the affinity learn dict)."""
+    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = _service_lb(
+        aff, dsvc, h, src_f, dst_f, proto, dport, now, meta.aff_slots)
+    ing, eg = drs.ingress, drs.egress
+    svc_key = (proto << 16) | dnat_port
+    z = torch.zeros_like(src_f)
+
+    def midx(tab, x):
+        return torch.where(miss, _dim_index(tab, x), 0).to(_I32)
+
+    iv6 = [midx(ing.at, dnat_ip), midx(ing.peer, src_f),
+           midx(ing.svc, svc_key), midx(eg.at, src_f), midx(eg.peer, dnat_ip),
+           midx(eg.svc, svc_key)]
+    iv_ref = (midx(eg.svc, _svcref_key(svc_key, _svc_ref_of(svc_idx, dsvc)))
+              if meta.match.svcref else z)
+    aggs = [t.agg[i] for t, i in zip(
+        (ing.at, ing.peer, ing.svc, eg.at, eg.peer, eg.svc), iv6)]
+    if meta.match.svcref:
+        aggs[5] = aggs[5] | eg.svc.agg[iv_ref]
+    x = onepass.OnepassInputs(
+        pkt=torch.stack([src_f, dst_f, proto, sport, dport, pp, z, z], dim=1),
+        kr=kr0,
+        prb=torch.stack([ts0, drs.iso_in.val[midx(drs.iso_in, dnat_ip)],
+                         drs.iso_out.val[midx(drs.iso_out, src_f)], z],
+                        dim=1),
+        mrow=mr,
+        msk=torch.stack([torch.ones_like(z), z, z, z], dim=1),
+        lb=torch.stack([svc_idx, no_ep.to(_I32), dnat_ip, dnat_port, snat_m,
+                        dsr_m, z, z], dim=1),
+        agg=tuple(aggs),
+        iv=torch.stack([*iv6, iv_ref, z], dim=1),
+    )
+    return x, learn
+
+
+def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
+                  slot, miss, mr, kr0, ts0, now, gen_w, meta):
+    """The one-pass slow path (pipeline.py:1638-2071, resolve variant):
+    B3 over the whole batch, the full-width re-walk of its fallback lanes
+    (through B1), the prune counters, and one interleaved commit of every
+    lane's rows, its eviction census read once before the scatters.
+    -> (main (B, 16) with the fallback lanes fixed, evictions, (skips,
+    fallbacks, candidate histogram))."""
+    ing, eg = drs.ingress, drs.egress
+    mm = meta.match
+    N = meta.flow_slots
+    x, learn = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
+                               sport, dport, pp, h, miss, kr0, mr, ts0, now,
+                               meta)
+    tabs = onepass.OnepassTables(
+        inc=tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at, eg.peer,
+                                  eg.svc)),
+        act_in=ing.action, act_out=eg.action)
+    st = onepass.OnepassStatic(
+        k=mm.prune_budget, in_phases=mm.in_phases, out_phases=mm.out_phases,
+        svcref=mm.svcref, timeouts=meta.timeouts, n_slots=N,
+        pref_mask=PREF_MASK)
+    main, keys8, meta8, aux = onepass.onepass(x, tabs, now, gen_w, st)
+
+    fb = torch.nonzero(aux[:, 1]).flatten()
+    if fb.numel():
+        # Lanes with more than K candidate superblocks: the exact
+        # full-width walk (the function B1 computes, so through B1's
+        # wrapper), resolved and packed again, written back lane for lane.
+        iv = x.iv[fb].long()
+        out_svc = eg.svc.inc[iv[:, 5]]
+        if mm.svcref:
+            out_svc = out_svc | eg.svc.inc[iv[:, 6]]
+        hits = consumer.fused_hits(
+            (ing.at.inc[iv[:, 0]], ing.peer.inc[iv[:, 1]],
+             ing.svc.inc[iv[:, 2]]),
+            (eg.at.inc[iv[:, 3]], eg.peer.inc[iv[:, 4]], out_svc),
+            mm.in_phases, mm.out_phases)
+        lb, prb, pkt = x.lb[fb], x.prb[fb], x.pkt[fb]
+        in_code, in_rule = _resolve(ing.action, hits[:, 0:3].unbind(1),
+                                    prb[:, 1])
+        out_code, out_rule = _resolve(eg.action, hits[:, 3:6].unbind(1),
+                                      prb[:, 2])
+        no_ep = lb[:, 1] != 0
+        f_code = torch.where(no_ep, ACT_REJECT, torch.where(
+            out_code != ACT_ALLOW, out_code, in_code)).to(_I32)
+        f_ri = torch.where(no_ep, MISS, in_rule)
+        f_ro = torch.where(no_ep, MISS, out_rule)
+        fix = _fused_pack_rows(
+            *pkt[:, :6].unbind(1), f_code, lb[:, 0], lb[:, 2], lb[:, 3],
+            lb[:, 4], lb[:, 5], f_ri, f_ro, miss[fb],
+            torch.zeros_like(no_ep), now, gen_w, N, PREF_MASK)
+        main[fb, 0] = f_code
+        main[fb, 1] = f_ri
+        main[fb, 2] = f_ro
+        main[fb, 8] = fix["committed"].to(_I32)
+        main[fb, 9] = fix["rev_ins"].to(_I32)
+        keys8[fb] = fix["keys8"]
+        meta8[fb] = fix["meta8"]
+
+    prune = ((aux[:, 0] != 0).sum(dtype=_I32),
+             (aux[:, 1] != 0).sum(dtype=_I32),
+             _prune_bucket_counts(aux[:, 2], miss))
+    rows = dict(rev_slot=main[:, 10], keys8=keys8, meta8=meta8,
+                ins=main[:, 14] != 0, rev_ins=main[:, 9] != 0)
+    n_evict = _commit(state, slot, rows, learn, learn["mask"] & miss, now,
+                      meta)
+    return main, n_evict, prune

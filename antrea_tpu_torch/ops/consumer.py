@@ -41,13 +41,16 @@ def _phase_bounds(phases) -> tuple[tuple[int, int], ...]:
     return ((0, n0), (n0, n0 + nk), (n0 + nk, BIG))
 
 
-def phase_hits(match: torch.Tensor, w0: int, phases) -> tuple:
-    """match (B, W) int32 words (u32 bits) of global words [w0, w0 + W) ->
-    per-phase lowest set global rule index, 3 x (B,) int32 (BIG = none).
-    The plain version of the kernel's scan (match.py:_phase_hits)."""
+def phase_first_from_base(match: torch.Tensor, base: torch.Tensor,
+                          phases) -> tuple:
+    """match (..., n) int32 words (u32 bits); base, broadcastable to it,
+    the global rule index of each word's bit 0 (32 * global word index) ->
+    per phase the lowest set global rule index, 3 x (...) int32 (BIG =
+    none).  The plain scan that B1, B2 and B3 compute (the JAX package's
+    _phase_first_from_base; _phase_hits is its per-column-base case).
+    Works in int64 masked to 32 bits: torch's CPU uint32 has no shifts."""
     dev = match.device
-    base = (w0 + torch.arange(match.shape[1], device=dev,
-                              dtype=torch.int64)) * 32
+    base = base.to(torch.int64)
     m = match.to(torch.int64) & _U32
     table = torch.tensor(_DEBRUIJN, dtype=torch.int64, device=dev)
     one = torch.ones_like(base)
@@ -55,13 +58,21 @@ def phase_hits(match: torch.Tensor, w0: int, phases) -> tuple:
     for lo, hi in _phase_bounds(phases):
         k_lo = (lo - base).clamp(0, 32)
         k_hi = (hi - base).clamp(0, 32)
-        mask = ((one << k_hi) - 1) & ~((one << k_lo) - 1)
-        mw = m & mask[None, :]
+        mw = m & (((one << k_hi) - 1) & ~((one << k_lo) - 1))
         lsb = mw & -mw
         tz = table[((lsb * 0x077CB531) & _U32) >> 27]
-        v = torch.where(mw == 0, BIG, base[None, :] + tz)
-        out.append(v.min(dim=1).values.to(torch.int32))
+        v = torch.where(mw == 0, BIG, base + tz)
+        out.append(v.min(dim=-1).values.to(torch.int32))
     return tuple(out)
+
+
+def phase_hits(match: torch.Tensor, w0: int, phases) -> tuple:
+    """match (B, W) int32 words (u32 bits) of global words [w0, w0 + W) ->
+    per-phase lowest set global rule index, 3 x (B,) int32 (BIG = none).
+    The plain version of the kernel's scan (match.py:_phase_hits)."""
+    base = (w0 + torch.arange(match.shape[1], device=match.device,
+                              dtype=torch.int64)) * 32
+    return phase_first_from_base(match, base, phases)
 
 
 def consumer_plain(rows_in, rows_out, in_phases, out_phases,

@@ -1,5 +1,5 @@
 """Batched conjunctive-match classification: the PyTorch port of
-antrea_tpu/ops/match.py (v4, single card, no delta patching, no pruning).
+antrea_tpu/ops/match.py (v4, single card, no delta patching).
 
 Per packet and direction: an interval lookup per dimension (appliedTo, peer,
 service) over that dimension's own boundaries, one incidence-row gather per
@@ -7,6 +7,13 @@ dimension, the AND of the three rows, and per rule phase the lowest set rule
 index (rule order is priority order).  The AND and the phase scan are the
 B1 consumer (ops/consumer.py, a CUDA kernel on the card); the interval
 lookups and row gathers stay torch ops.
+
+With prune_budget = K > 0 the tables carry an aggregate level (one bit per
+incidence word, one aggregate word per 32-word superblock) and classify runs
+the two-level pruned walk (_classify_pruned): the aggregate AND proves most
+lanes no-match, the K lowest candidate superblocks are scanned through the
+B2 consumer (ops/pruned_consumer.py), and lanes with more than K candidates
+fall back to the full-width walk through B1, so verdicts stay exact.
 
 The host-side table builders (to_host and helpers) are the JAX package's
 numpy code, copied.  Every u32 table becomes an int32 tensor with the same
@@ -31,10 +38,25 @@ from ..compiler.compile import (
     DirectionTensors,
 )
 from ..utils import ip as iputil
-from . import consumer
+from . import consumer, pruned_consumer
 
 # "No match" sentinel for first-match indices (the kernel's too).
 BIG = consumer.BIG
+
+# Aggregated-bitmap pruning.  One aggregate bit summarizes one incidence
+# word (32 rules); one aggregate word a 32-word superblock (1024 rules), the
+# granularity of the candidate gather.  Aggregate bits are conservative: a
+# zero aggregate AND proves no match; a set bit may still find none.
+AGG_BLOCK = 32
+# The prune budget's rung ladder (the JAX package's autotuner moves on it).
+PRUNE_LADDER = (1, 2, 4, 8, 16)
+# Candidate-superblock histogram bucket bounds (per-lane max over the two
+# directions), shared with models/pipeline._prune_bucket_counts.
+PRUNE_HIST_BOUNDS = (0, 1, 2, 4, 8, 16, 32)
+# Smallest fallback rung of the JAX package's pow2 redispatch ladder.  The
+# port compacts the fallback lanes exactly (nonzero), so it has no rungs;
+# kept for parity of the constants.
+_FB_MIN = 64
 
 
 class DimTable(NamedTuple):
@@ -46,7 +68,8 @@ class DimTable(NamedTuple):
     bounds: torch.Tensor  # (NB4,) int32 ascending (sign-flipped for IP dims)
     bounds6: torch.Tensor  # (NB6, 4) int32, v6 boundaries
     inc: torch.Tensor  # (NB4+1+NB6+1, W) int32 (u32 bits) rule bitmaps
-    agg: Optional[torch.Tensor] = None  # aggregate level; always None here
+    # (rows, W/AGG_BLOCK) int32 aggregate level (build_agg), None unpruned.
+    agg: Optional[torch.Tensor] = None
 
 
 class DeviceDirection(NamedTuple):
@@ -103,6 +126,9 @@ class StaticMeta(NamedTuple):
     # Egress rules include toServices lowerings: classify_batch probes the
     # egress svc dimension a second time with the lane's service reference.
     svcref: bool = False
+    # K candidate superblocks per lane and direction of the pruned walk;
+    # 0 = no aggregate level (the tables carry agg=None).
+    prune_budget: int = 0
 
 
 def empty_delta(slots: int, w_in: int, w_out: int, xp=np) -> DeltaTable:
@@ -143,6 +169,20 @@ def _inc_mask(rule_idx: np.ndarray, w: int) -> np.ndarray:
     inc = np.zeros(w, dtype=np.uint32)
     np.bitwise_or.at(inc, rule_idx >> 5, (1 << (rule_idx & 31)).astype(np.uint32))
     return inc
+
+
+def build_agg(inc: np.ndarray) -> np.ndarray:
+    """(rows, W) u32 incidence -> (rows, ceil(W/AGG_BLOCK)) u32 aggregate:
+    bit j of aggregate word s == (inc word s*AGG_BLOCK+j) != 0."""
+    inc = np.asarray(inc)
+    rows, w = inc.shape
+    s = -(-w // AGG_BLOCK)
+    pad = s * AGG_BLOCK - w
+    if pad:
+        inc = np.pad(inc, ((0, 0), (0, pad)))
+    nz = (inc.reshape(rows, s, AGG_BLOCK) != 0).astype(np.uint32)
+    return (nz << np.arange(AGG_BLOCK, dtype=np.uint32)[None, None, :]).sum(
+        axis=2, dtype=np.uint32)  # disjoint bits: sum == OR
 
 
 _V6_OFF = iputil.V6_OFF
@@ -213,8 +253,8 @@ def _paint(b4: list, b6: list, lo: int, hi: int, write) -> None:
         write(off + a, off + b)
 
 
-def _dim_table_host(gids: np.ndarray, groups: list, w: int,
-                    ip_dim: bool) -> DimTable:
+def _dim_table_host(gids: np.ndarray, groups: list, w: int, ip_dim: bool,
+                    agg: bool = False) -> DimTable:
     """Build one dimension's (bounds, bounds6, incidence) triple.
 
     Only the groups this dimension actually uses contribute boundary points,
@@ -251,7 +291,8 @@ def _dim_table_host(gids: np.ndarray, groups: list, w: int,
     else:
         bounds = np.array(b4, dtype=np.int64).astype(np.int32)
         bounds6 = np.zeros((0, 4), dtype=np.int32)
-    return DimTable(bounds=bounds, bounds6=bounds6, inc=inc, agg=None)
+    return DimTable(bounds=bounds, bounds6=bounds6, inc=inc,
+                    agg=build_agg(inc) if agg else None)
 
 
 def _iso_host(gid: int, groups: list) -> IsoTable:
@@ -272,7 +313,7 @@ def _iso_host(gid: int, groups: list) -> IsoTable:
 
 
 def _direction_host(
-    dt: DirectionTensors, cps: CompiledPolicySet, w: int
+    dt: DirectionTensors, cps: CompiledPolicySet, w: int, agg: bool = False
 ) -> DeviceDirection:
     action = np.full(w * 32, ACT_DROP, dtype=np.int32)
     action[: dt.n_rules] = dt.action
@@ -280,16 +321,22 @@ def _direction_host(
     if dt.l7 is not None:
         l7[: dt.n_rules] = dt.l7
     return DeviceDirection(
-        at=_dim_table_host(dt.at_gid, cps.ip_groups, w, ip_dim=True),
-        peer=_dim_table_host(dt.peer_gid, cps.ip_groups, w, ip_dim=True),
-        svc=_dim_table_host(dt.svc_gid, cps.svc_groups, w, ip_dim=False),
+        at=_dim_table_host(dt.at_gid, cps.ip_groups, w, ip_dim=True, agg=agg),
+        peer=_dim_table_host(dt.peer_gid, cps.ip_groups, w, ip_dim=True,
+                             agg=agg),
+        svc=_dim_table_host(dt.svc_gid, cps.svc_groups, w, ip_dim=False,
+                            agg=agg),
         action=action,
         l7=l7,
         word_idx=np.arange(w, dtype=np.int32),
     )
 
 
-def _width(n_rules: int, word_multiple: int) -> int:
+def _width(n_rules: int, word_multiple: int, agg: bool = False) -> int:
+    # Under pruning each (shard's) word range is a whole number of
+    # superblocks, so aggregate words never straddle a shard boundary.
+    if agg:
+        word_multiple *= AGG_BLOCK
     w = max(1, -(-n_rules // 32))
     return -(-w // word_multiple) * word_multiple
 
@@ -301,22 +348,21 @@ def to_host(
     prune_budget: int = 0,
 ) -> tuple[DeviceRuleSet, StaticMeta]:
     """Compiled policy set -> (numpy DeviceRuleSet, StaticMeta), array for
-    array the JAX package's to_host at delta_slots=0, prune_budget=0.
+    array the JAX package's to_host at delta_slots=0.
 
     word_multiple pads each direction's rule-word count to a multiple.
-    Delta patching and aggregate pruning are not ported: a nonzero
-    delta_slots or prune_budget raises NotImplementedError."""
+    prune_budget > 0 builds the aggregate tables (DimTable.agg) and sets the
+    pruned classify's K.  Delta patching is not ported: delta_slots > 0
+    raises NotImplementedError."""
     if delta_slots > 0:
         raise NotImplementedError("delta patching (delta_slots > 0) is not "
                                   "ported yet")
-    if prune_budget > 0:
-        raise NotImplementedError("aggregate pruning (prune_budget > 0) is "
-                                  "not ported yet")
-    w_in = _width(cps.ingress.n_rules, word_multiple)
-    w_out = _width(cps.egress.n_rules, word_multiple)
+    agg = prune_budget > 0
+    w_in = _width(cps.ingress.n_rules, word_multiple, agg=agg)
+    w_out = _width(cps.egress.n_rules, word_multiple, agg=agg)
     drs = DeviceRuleSet(
-        ingress=_direction_host(cps.ingress, cps, w_in),
-        egress=_direction_host(cps.egress, cps, w_out),
+        ingress=_direction_host(cps.ingress, cps, w_in, agg=agg),
+        egress=_direction_host(cps.egress, cps, w_out, agg=agg),
         iso_in=_iso_host(cps.iso_in_gid, cps.ip_groups),
         iso_out=_iso_host(cps.iso_out_gid, cps.ip_groups),
         ip_delta=empty_delta(1, w_in, w_out, xp=np),
@@ -327,6 +373,7 @@ def to_host(
         w_in=w_in,
         w_out=w_out,
         svcref=cps.has_svcref,
+        prune_budget=prune_budget,
     )
     return drs, meta
 
@@ -404,8 +451,9 @@ def to_device(
     cps: CompiledPolicySet,
     device=None,
     word_multiple: int = 1,
+    prune_budget: int = 0,
 ) -> tuple[DeviceRuleSet, StaticMeta]:
-    host, meta = to_host(cps, word_multiple)
+    host, meta = to_host(cps, word_multiple, prune_budget=prune_budget)
     return ruleset_from_numpy(host, device), meta
 
 
@@ -483,6 +531,7 @@ def classify_batch(
     fused: bool = False,
     v6=None,
     svc_ref=None,
+    summary_only: bool = False,
 ):
     """-> dict with final/egress/ingress codes and deciding rule indices
     (codes: 0 allow, 1 drop, 2 reject).
@@ -490,9 +539,16 @@ def classify_batch(
     fused=True runs the AND and phase scan through the B1 consumer
     (ops/consumer.py: the CUDA kernel on the card); fused=False runs the
     same function as plain tensor ops.  svc_ref (B,) is the lane's service
-    index for the toServices probe (used when meta.svcref).  Rule-axis
-    sharding (hit_combine) and v6 lanes are not ported."""
-    _refuse(hit_combine=hit_combine is not None, v6=v6 is not None)
+    index for the toServices probe (used when meta.svcref).
+    meta.prune_budget > 0 (tables with an aggregate level) routes through
+    the two-level pruned walk, _classify_pruned.  Rule-axis sharding
+    (hit_combine), v6 lanes and the profiling surface summary_only are not
+    ported."""
+    _refuse(hit_combine=hit_combine is not None, v6=v6 is not None,
+            summary_only=summary_only)
+    if meta.prune_budget > 0 and drs.ingress.at.agg is not None:
+        return _classify_pruned(drs, src_ip_f, dst_ip_f, proto, dst_port,
+                                meta=meta, fused=fused, svc_ref=svc_ref)
     ing, eg = drs.ingress, drs.egress
     svc_key = (proto << 16) | dst_port
 
@@ -539,6 +595,145 @@ def classify_batch(
         "ingress_code": in_code,
         "ingress_rule": in_rule,
     }
+
+
+def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
+                     dst_port, *, meta: StaticMeta, fused: bool, svc_ref):
+    """The two-level pruned classify (match.py:_classify_pruned), v4, one
+    card.  An aggregate bit is set iff its incidence word is nonzero, so a
+    zero aggregate AND proves no match and the candidate superblocks cover
+    every matching word.  Candidates are scanned lowest first, so a phase
+    hit among the K lowest is the true first match; lanes with more than K
+    candidates in a direction redo both directions at full width.
+
+    -> classify_batch's dict plus prune_skip (B,) bool (the aggregate AND
+    is zero in both directions), prune_fb (B,) bool (the lane took the
+    full-width fallback) and prune_cand (B,) int32 (candidate superblocks,
+    max over the directions)."""
+    ing, eg = drs.ingress, drs.egress
+    B = src_ip_f.shape[0]
+    K = meta.prune_budget
+    svc_key = (proto << 16) | dst_port
+    # Per direction: (tables, interval rows at/peer/svc, svcref row or
+    # None).  Ingress: pod = dst probes appliedTo, peer = src.
+    ref = (_dim_index(eg.svc, _svcref_key(svc_key, svc_ref))
+           if meta.svcref else None)
+    dirs = (
+        (ing, (_dim_index(ing.at, dst_ip_f), _dim_index(ing.peer, src_ip_f),
+               _dim_index(ing.svc, svc_key)), None),
+        (eg, (_dim_index(eg.at, src_ip_f), _dim_index(eg.peer, dst_ip_f),
+              _dim_index(eg.svc, svc_key)), ref),
+    )
+    iso_in = drs.iso_in.val[_dim_index(drs.iso_in, dst_ip_f)]
+    iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
+
+    def rows(tab_of, dd, iv, iv_ref):
+        """The three dimension rows of table kind tab_of ("agg"/"inc")."""
+        a = getattr(dd.at, tab_of)[iv[0]]
+        p = getattr(dd.peer, tab_of)[iv[1]]
+        s = getattr(dd.svc, tab_of)[iv[2]]
+        if iv_ref is not None:
+            s = s | getattr(dd.svc, tab_of)[iv_ref]
+        return a, p, s
+
+    g, nc, ke = [], [], []
+    for dd, iv, iv_ref in dirs:
+        a, p, s = rows("agg", dd, iv, iv_ref)
+        g.append(a & p & s)
+        nc.append((g[-1] != 0).sum(dim=1, dtype=torch.int32))
+        ke.append(min(K, dd.at.agg.shape[1]))
+    live = (nc[0] > 0) | (nc[1] > 0)
+    fb = (nc[0] > ke[0]) | (nc[1] > ke[1])
+    # One read-back: whether any lane has a candidate (else the whole
+    # batch takes the default verdicts: no candidate gather, no fallback)
+    # and how many lanes fall back.
+    any_live, n_fb = torch.stack([live.any().long(), fb.sum()]).tolist()
+    if any_live:
+        mats = [_candidate_mats(dd, gd, iv, iv_ref, k)
+                for (dd, iv, iv_ref), gd, k in zip(dirs, g, ke)]
+        if fused:
+            hits = pruned_consumer.pruned_hits(mats[0], mats[1],
+                                               meta.in_phases, meta.out_phases)
+        else:
+            hits = pruned_consumer.pruned_plain(mats[0], mats[1],
+                                                meta.in_phases,
+                                                meta.out_phases)
+        if n_fb:
+            # Full-width walk of the compacted fallback lanes: the function
+            # B1 computes, so it goes through B1's wrapper (the kernel on
+            # the card), written back lane for lane.
+            idx = torch.nonzero(fb).flatten()
+            full = [rows("inc", dd, [r[idx] for r in iv],
+                         None if iv_ref is None else iv_ref[idx])
+                    for dd, iv, iv_ref in dirs]
+            hits[idx] = consumer.fused_hits(full[0], full[1], meta.in_phases,
+                                            meta.out_phases)
+        in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
+        out_hits = (hits[:, 3], hits[:, 4], hits[:, 5])
+    else:
+        bigs = torch.full((B,), BIG, dtype=torch.int32,
+                          device=src_ip_f.device)
+        in_hits = out_hits = (bigs, bigs, bigs)
+
+    in_code, in_rule = _resolve(ing.action, in_hits, iso_in)
+    out_code, out_rule = _resolve(eg.action, out_hits, iso_out)
+    final = torch.where(out_code != ACT_ALLOW, out_code, in_code)
+    return {
+        "code": final,
+        "egress_code": out_code,
+        "egress_rule": out_rule,
+        "ingress_code": in_code,
+        "ingress_rule": in_rule,
+        "prune_skip": (nc[0] == 0) & (nc[1] == 0),
+        "prune_fb": fb,
+        "prune_cand": torch.maximum(nc[0], nc[1]),
+    }
+
+
+def candidate_ids(g: torch.Tensor, ke: int) -> tuple:
+    """Aggregate AND rows g (B, S) -> the ke lowest superblocks whose
+    aggregate word is nonzero, ascending, as (ids clipped to S-1 (B, ke)
+    int64, valid (B, ke) bool).  The values of lax.top_k(-score, ke) with
+    fill S: taken from a sorted topk's values, never its indices, so ties
+    among the fill scores cannot reorder anything."""
+    S = g.shape[1]
+    ids = torch.arange(S, dtype=torch.int32, device=g.device)
+    score = torch.where(g != 0, ids, S)
+    cand = torch.topk(score, ke, dim=1, largest=False, sorted=True).values
+    return cand.clamp(max=S - 1).long(), cand < S
+
+
+def candidate_blocks(inc: torch.Tensor, iv: torch.Tensor,
+                     cand: torch.Tensor) -> torch.Tensor:
+    """(rows, S*32) incidence, interval rows iv (B,), candidate superblocks
+    cand (B, ke) -> the candidate words (B, ke, 32)."""
+    S = inc.shape[1] // AGG_BLOCK
+    return inc.view(-1, AGG_BLOCK)[iv.long()[:, None] * S + cand]
+
+
+def candidate_base(cand: torch.Tensor, w0: int = 0) -> torch.Tensor:
+    """Candidate superblocks (B, ke) -> the per-word base matrix
+    (B, ke*32) int32: 32 * the global word index of each candidate word."""
+    j = torch.arange(AGG_BLOCK, dtype=torch.int64, device=cand.device)
+    base = (w0 + cand[:, :, None] * AGG_BLOCK + j) * 32
+    return base.reshape(cand.shape[0], -1).to(torch.int32)
+
+
+def _candidate_mats(dd: DeviceDirection, g, iv, iv_ref, ke):
+    """B2's four (B, ke*32) int32 inputs of one direction: the candidate
+    words of the three dimensions (the svcref row ORed into svc, fill
+    candidates zeroed in one dimension so the AND kills them) and their
+    base matrix.  One card: the direction's global word offset is 0."""
+    cand, valid = candidate_ids(g, ke)
+    B = g.shape[0]
+    ca = candidate_blocks(dd.at.inc, iv[0], cand)
+    cp = candidate_blocks(dd.peer.inc, iv[1], cand)
+    cs = candidate_blocks(dd.svc.inc, iv[2], cand)
+    if iv_ref is not None:
+        cs = cs | candidate_blocks(dd.svc.inc, iv_ref, cand)
+    ca = torch.where(valid[:, :, None], ca, 0)
+    return (ca.reshape(B, -1), cp.reshape(B, -1), cs.reshape(B, -1),
+            candidate_base(cand))
 
 
 def make_classifier(cps: CompiledPolicySet, device=None):

@@ -3,20 +3,25 @@
 
     python3 chip_profile.py
 
-Builds the 100k-rule world of chip_smoke.py and the same pipeline
-(flow_slots=2**22, miss_chunk=256, fused=True) on one CUDA card, then
-measures two windows, first without and then under torch.profiler:
+Builds the 100k-rule world of chip_smoke.py and its two pipelines
+(flow_slots=2**22, miss_chunk=256, fused=True: the staged step, and the
+one-pass step with prune_budget=4, ct_timeout_s=3600) on one CUDA card, then
+measures three windows, first without and then under torch.profiler:
 
-  cold    a 4096-lane sub-batch on a fresh state: 16 miss rounds of 256;
-  steady  two consecutive steps of the 2**17-lane batch after a cold and a
-          warm step (the warm cache's collision misses alternate between
-          two counts from step to step, so every window holds one of each).
+  cold     a 4096-lane sub-batch on a fresh state through the staged step:
+           16 miss rounds of 256;
+  steady   two consecutive staged steps of the 2**17-lane batch after a cold
+           and a warm step (the warm cache's collision misses alternate
+           between two counts from step to step, so every window holds one
+           of each);
+  onepass  one one-pass step of the 2**17-lane batch that finds the whole
+           cache expired (now 7200 s past the last step: every lane a miss).
 
 For each window it prints the wall time (host clock around the work,
 ending in torch.cuda.synchronize()), the device busy time (the sum of the
-kernels' own device times in the profile), the device idle share, and the
-operators with the most device time, and kernel B1's share.  Chrome traces
-go to chiprun_out/.
+kernels' own device times in the profile), the device idle share, the
+operators with the most device time, and each hand-written kernel's
+launches and device time.  Chrome traces go to OUT_DIR.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ import chip_smoke as smoke
 
 TOP = 15
 OUT_DIR = "chiprun_out"
+# Device kernel names of the hand-written kernels (csrc/*.cu).
+KERNELS = {"B1": "consumer_kernel", "B2": "pruned_kernel",
+           "B3": "onepass_kernel"}
 
 
 def self_device_us(e) -> float:
@@ -63,13 +71,16 @@ def window(name, fn):
     rows = sorted(prof.key_averages(), key=self_device_us, reverse=True)
     kernels = [e for e in rows if is_kernel(e)]
     busy_us = sum(self_device_us(e) for e in kernels)
-    b1 = [e for e in kernels if "consumer_kernel" in e.key]
-    b1_us = sum(self_device_us(e) for e in b1)
-    b1_n = sum(e.count for e in b1)
+    ours = {}
+    for k, sym in KERNELS.items():
+        rows_k = [e for e in kernels if sym in e.key]
+        ours[k] = {"launches": sum(e.count for e in rows_k),
+                   "ms": sum(self_device_us(e) for e in rows_k) / 1e3}
     print(f"[{name}] wall {wall * 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share "
-          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; B1 {b1_n} launches, "
-          f"{b1_us / 1e3:.3f} ms", flush=True)
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; "
+          + ", ".join(f"{k} {v['launches']} launches {v['ms']:.3f} ms"
+                      for k, v in ours.items()), flush=True)
     top = []
     ops = [e for e in rows if not is_kernel(e) and self_device_us(e) > 0]
     for e in ops[:TOP]:
@@ -77,8 +88,7 @@ def window(name, fn):
         top.append({"op": e.key, "device_ms": us / 1e3, "calls": e.count})
         print(f"  {us / 1e3:9.3f} ms  {e.count:7d}x  {e.key[:90]}")
     return {"window": name, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy_us / 1e3, "b1_launches": b1_n,
-            "b1_ms": b1_us / 1e3, "top": top}
+            "device_busy_ms": busy_us / 1e3, "kernels": ours, "top": top}
 
 
 def main() -> int:
@@ -112,7 +122,18 @@ def main() -> int:
         for _ in range(2):
             step(state, drs, dsvc, *lanes, next(clock), 0)
 
-    res = [window("cold", cold), window("steady", steady)]
+    ostep, ostate, (pdrs, pdsvc) = pl.make_pipeline(
+        cps, svc, flow_slots=smoke.FLOW_SLOTS, miss_chunk=smoke.MISS_CHUNK,
+        fused=True, prune_budget=smoke.PRUNE_K, ct_timeout_s=3600,
+        device=dev)
+    ostep(ostate, pdrs, pdsvc, *lanes, 100, 0)
+    expire = iter(range(7300, 10**9, 7200))
+
+    def onepass():
+        ostep(ostate, pdrs, pdsvc, *lanes, next(expire), 0)
+
+    res = [window("cold", cold), window("steady", steady),
+           window("onepass", onepass)]
     print(json.dumps({"card": card, "windows": res}), flush=True)
     return 0
 

@@ -49,7 +49,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert r.returncode == 0, r.stderr
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert "antrea_tpu_torch.models.pipeline" in res["modules"]
-    assert "antrea_tpu_torch.ops.consumer" in res["modules"]
+    for mod in ("consumer", "pruned_consumer", "onepass"):
+        assert f"antrea_tpu_torch.ops.{mod}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -93,8 +94,12 @@ def test_entry_points_default_to_the_card(tiny, monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    {"dual_stack": True}, {"count_flow_stats": True}, {"prune_budget": 4},
-    {"second_chance": True}, {"onepass": True}, {"telemetry": True},
+    {"dual_stack": True}, {"count_flow_stats": True},
+    # The one-pass step's second-chance and telemetry branches.
+    {"prune_budget": 4, "fused": True, "second_chance": True},
+    {"second_chance": True},
+    {"prune_budget": 4, "onepass": True, "telemetry": True},
+    {"telemetry": True},
 ])
 def test_unported_pipeline_knobs_raise(tiny, knob):
     cps, svc = tiny
@@ -113,10 +118,36 @@ def test_unported_step_arguments_raise(tiny, knob):
                           **{knob: object()})
 
 
-@pytest.mark.parametrize("knob", [{"delta_slots": 8}, {"prune_budget": 2}])
+@pytest.mark.parametrize("knob", [{"delta_slots": 8},
+                                  # Delta patching under pruning.
+                                  {"delta_slots": 1, "prune_budget": 2}])
 def test_unported_table_knobs_raise(tiny, knob):
     with pytest.raises(NotImplementedError):
         tm.to_host(tiny[0], **knob)
+
+
+def test_onepass_needs_the_aggregate_layer(tiny):
+    """onepass=True over an unpruned world is refused as the JAX step
+    refuses it; fused + prune_budget selects it, onepass=False pins the
+    staged rounds."""
+    cps, svc = tiny
+    kw = dict(flow_slots=16, aff_slots=16, device="cpu")
+    step, state, (drs, dsvc) = tpl.make_pipeline(cps, svc, onepass=True, **kw)
+    lanes = [torch.zeros(4, dtype=torch.int32)] * 5
+    with pytest.raises(ValueError, match="onepass"):
+        step(state, drs, dsvc, *lanes, 1, 0)
+    assert tpl.make_pipeline(cps, svc, fused=True, prune_budget=2,
+                             **kw)[0].meta.onepass
+    assert not tpl.make_pipeline(cps, svc, fused=True, prune_budget=2,
+                                 onepass=False, **kw)[0].meta.onepass
+    assert not tpl.make_pipeline(cps, svc, fused=True, **kw)[0].meta.onepass
+
+
+def test_classify_summary_only_raises(tiny):
+    drs, meta = tm.to_device(tiny[0], "cpu", prune_budget=2)
+    lanes = [torch.zeros(4, dtype=torch.int32)] * 4
+    with pytest.raises(NotImplementedError, match="summary_only"):
+        tm.classify_batch(drs, *lanes, meta=meta, summary_only=True)
 
 
 def test_constants_equal_reference():
