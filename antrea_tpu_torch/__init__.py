@@ -8,12 +8,14 @@ has an obvious counterpart:
   ops/         the classifier with its aggregate-pruned walk (match.py),
                the FNV hashes (hashing.py) and the wrappers of the
                hand-written CUDA kernels: B1 (consumer.py), B2
-               (pruned_consumer.py) and B3 (onepass.py)
-  models/      the synchronous, v4 pipeline step, staged or one-pass
-               (pipeline.py)
+               (pruned_consumer.py), B3 (onepass.py) and the cold-path
+               study's S1 (consumer2.py)
+  models/      the v4 pipeline step, staged or one-pass, with its phase
+               masks and maintenance scans (pipeline.py), and the phase
+               profiler (profile.py)
   csrc/        CUDA C++ sources for sm_90a, built on first use by _build.py
   utils/timing.py
-               CUDA-event timing
+               CUDA-event timing (device_time, device_loop_time)
 
 Every tensor on the datapath is an int32 word; u32 tables are kept as int32
 tensors with identical bits.  Entry points run on the card unless the caller

@@ -3,8 +3,10 @@
 Each source is compiled by nvcc into its own shared library with a plain C
 interface and loaded with ctypes (no PyTorch headers: seconds to build, not
 minutes).  Libraries land in antrea_tpu_torch/_build/ (git-ignored), named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  Builds happen on first use only, never at import.
+by a hash of the source, of every header in csrc/ (the sources share device
+code through them) and of the flags, so an edited source or header rebuilds
+and an unchanged tree is reused.  Builds happen on first use only, never at
+import.
 """
 
 from __future__ import annotations
@@ -43,9 +45,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, dict]:

@@ -18,7 +18,8 @@
 // Design: one block of 256 threads per lane; threads stride over the words
 // so that a warp reads 128 contiguous bytes of each row per step; each
 // thread keeps its own six minima, then a warp-shuffle min and a min over
-// the block's warps in shared memory give the lane's six outputs.  Any B is
+// the block's warps in shared memory give the lane's six outputs (the scan
+// and the reduction live in phase_scan.cuh, shared with S1).  Any B is
 // taken as it comes (no tile padding).
 //
 // Later work: the rows come from torch indexing (the six row gathers of
@@ -30,30 +31,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "phase_scan.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// Bits of a word whose global rule index (base + bit) lies in [lo, hi).
-__device__ __forceinline__ uint32_t phase_mask(long long base, long long lo,
-                                               long long hi) {
-  long long klo = lo - base;
-  long long khi = hi - base;
-  klo = klo < 0 ? 0 : (klo > 32 ? 32 : klo);
-  khi = khi < 0 ? 0 : (khi > 32 ? 32 : khi);
-  uint32_t mlo = klo >= 32 ? 0u : ~((1u << klo) - 1u);
-  uint32_t mhi = khi >= 32 ? 0xFFFFFFFFu : ((1u << khi) - 1u);
-  return mlo & mhi;
-}
-
-__device__ __forceinline__ void take(uint32_t bits, long long base, int* best) {
-  if (bits) {
-    int r = static_cast<int>(base) + __ffs(static_cast<int>(bits)) - 1;
-    *best = min(*best, r);
-  }
-}
+using phase_scan::kBig;
+using phase_scan::kThreads;
 
 // One direction of one lane: the thread's minima of the three phases.
 __device__ __forceinline__ void scan_direction(
@@ -63,10 +46,7 @@ __device__ __forceinline__ void scan_direction(
   for (int j = threadIdx.x; j < w; j += kThreads) {
     uint32_t m = at[j] & peer[j] & svc[j];
     if (m == 0u) continue;
-    long long base = (w0 + j) * 32;
-    take(m & phase_mask(base, 0, b0), base, &best[0]);
-    take(m & phase_mask(base, b0, b1), base, &best[1]);
-    take(m & phase_mask(base, b1, kBig), base, &best[2]);
+    phase_scan::scan_word(m, (w0 + j) * 32, b0, b1, best);
   }
 }
 
@@ -84,28 +64,7 @@ __global__ void __launch_bounds__(kThreads) consumer_kernel(
                  static_cast<long long>(in_n0) + in_nk, best);
   scan_direction(oa + ro, op + ro, os + ro, w_out, w0_out, out_n0,
                  static_cast<long long>(out_n0) + out_nk, best + 3);
-
-  __shared__ int part[kWarps][6];
-  const int warp = threadIdx.x / 32;
-  const int lid = threadIdx.x % 32;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    int v = best[k];
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      v = min(v, __shfl_down_sync(0xFFFFFFFFu, v, off));
-    }
-    if (lid == 0) part[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 8) {
-    int v = 0;
-    if (threadIdx.x < 6) {
-      v = part[0][threadIdx.x];
-      for (int w = 1; w < kWarps; ++w) v = min(v, part[w][threadIdx.x]);
-    }
-    out[lane * 8 + threadIdx.x] = v;
-  }
+  phase_scan::block_min6(best, out + lane * 8);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 """The datapath pipeline step: the PyTorch port of
-antrea_tpu/models/pipeline.py for the synchronous, v4 regime, staged or
-one-pass.
+antrea_tpu/models/pipeline.py for the v4 regime, staged or one-pass, with
+the phase-mask surface the async engine's fast and drain steps and the
+profiler (models/profile.py) run, and the off-step maintenance scans.
 
 One step takes a packet batch through a direct-mapped flow cache in front
 of the full classifier:
@@ -48,7 +49,7 @@ from ..apis.controlplane import PROTO_TCP
 from ..compiler.compile import ACT_ALLOW, ACT_REJECT, CompiledPolicySet
 from ..compiler.services import ServiceTables
 from ..ops import consumer, hashing, onepass
-from ..ops.match import (PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
+from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
                          _dim_index, _refuse, _resolve, _svcref_key,
                          classify_batch, from_numpy, resolve_device,
                          ruleset_from_numpy, to_host)
@@ -79,8 +80,17 @@ TCP_FIN = 0x01
 TCP_RST = 0x04
 _TEARDOWN_FLAGS = TCP_FIN | TCP_RST
 
-# Slow-path phase bits of the JAX package (a profiling surface).  This port
-# runs PH_ALL only.
+# Slow-path phase bits (PipelineMeta.phases).  Masking a phase substitutes
+# cheap defaults, so the profiler can attribute the step phase by phase, and
+# the async engine's fast step runs at phases=0 (misses keep the fast-path
+# image and are admitted, not classified).  Synchronous steps run PH_ALL.
+#   PH_SLOW    the slow path at all: miss compaction, rounds, output writes
+#   PH_LB      ServiceLB frontend lookup, affinity, endpoint choice
+#   PH_CLS     the classifier on the post-DNAT tuple (B1/B2, or B3)
+#   PH_CLS_SUM the pruned classifier's aggregate phase alone (summary_only);
+#              only meaningful without PH_CLS and with prune_budget > 0
+#   PH_COMMIT  flow-cache insert rows, both-direction scatters, learns
+#   PH_EVICT   the eviction census (reads the commit's insert targets)
 PH_SLOW = 1
 PH_LB = 2
 PH_CLS = 4
@@ -199,6 +209,18 @@ class PipelineMeta(NamedTuple):
     # Classify misses through the B1 consumer (the CUDA kernel on the card),
     # or B2 under pruning.
     fused: bool = False
+    # Slow-path phase mask (PH_* bits): PH_ALL for synchronous steps, 0 for
+    # the async fast step, cumulative chains for the profiler.
+    phases: int = PH_ALL
+    # Verdict of miss lanes the slow path did not classify (observable only
+    # with PH_SLOW masked): the async admission policy, ACT_ALLOW for a
+    # provisional forward, ACT_DROP to hold until the drain classifies.
+    miss_code: int = ACT_ALLOW
+    # The drain step's fused maintenance: the eviction census also reads
+    # each insert target's ts and CONFIRMED bit and splits overwrites of
+    # dead rows (idle-expired, or stale-generation denials) out of n_evict
+    # into n_reclaim.
+    drain_reclaim: bool = False
     # The one-pass slow path (kernel B3 over the whole batch) instead of
     # the miss rounds; needs the aggregate layer (match.prune_budget > 0).
     onepass: bool = False
@@ -483,6 +505,21 @@ def _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now, aff_slots):
     return svc_idx, no_ep, dnat_ip, dnat_port, snat, dsr, learn
 
 
+def _lb_phase(meta, aff, dsvc, h, src_f, dst_f, proto, dport, now):
+    """_service_lb under PH_LB; with it masked, no service resolution: lanes
+    keep their literal destination and nothing learns."""
+    if meta.phases & PH_LB:
+        return _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now,
+                           meta.aff_slots)
+    z = torch.zeros_like(src_f)
+    svc_idx = torch.full_like(src_f, MISS)
+    learn = {"mask": torch.zeros_like(src_f, dtype=torch.bool),
+             "aslot": torch.zeros_like(src_f, dtype=torch.int64),
+             "client": src_f, "svc": svc_idx, "ep": z}
+    return (svc_idx, torch.zeros_like(src_f, dtype=torch.bool), dst_f, dport,
+            z, z, learn)
+
+
 def _svc_ref_of(svc_idx, dsvc):
     """toServices probe identity: the lane's LB program mapped to its owning
     service index; MISS for non-service lanes."""
@@ -548,8 +585,9 @@ def pipeline_step(
     no_commit=None,
     v6=None,
 ):
-    """One synchronous step; see the module docstring.  hit_combine
-    (rule-axis sharding), valid, no_commit and v6 are not ported."""
+    """One step, synchronous at meta.phases == PH_ALL; see the module
+    docstring and PH_*.  hit_combine (rule-axis sharding), valid, no_commit
+    and v6 are not ported."""
     _refuse(hit_combine=hit_combine is not None, valid=valid is not None,
             no_commit=no_commit is not None, v6=v6 is not None)
     if meta.onepass and meta.match.prune_budget <= 0:
@@ -652,17 +690,19 @@ def pipeline_step(
     # Output images, one column per output in B3's main-row order [code,
     # rule_in, rule_out, svc, dnat_ip_f, dnat_port, snat, dsr, committed],
     # plus a dump row for masked slow-path writes.  SNAT / DSR marks are
-    # cached in meta3 bits 31 / 30 at commit time.
+    # cached in meta3 bits 31 / 30 at commit time.  Miss lanes default to
+    # meta.miss_code, the verdict they keep when the slow path is masked.
     zero = torch.zeros(B, dtype=_I32, device=dev)
     fwd_hit = hit & ~rpl
     img = torch.cat([torch.stack([
-        torch.where(hit, c_code, ACT_ALLOW), torch.where(hit, c_rule_in, MISS),
+        torch.where(hit, c_code, meta.miss_code),
+        torch.where(hit, c_rule_in, MISS),
         torch.where(hit, c_rule_out, MISS), torch.where(hit, c_svc, MISS),
         torch.where(hit, c_dnat_ip, dst_f), torch.where(hit, c_dport, dport),
         torch.where(fwd_hit, (mr[:, ZC] >> 31) & 1, 0),
         torch.where(fwd_hit, (mr[:, ZC] >> 30) & 1, 0), zero],
         dim=1).to(_I32), torch.zeros((1, 9), dtype=_I32, device=dev)])
-    n_evict = torch.zeros((), dtype=_I32, device=dev)
+    n_evict = n_reclaim = torch.zeros((), dtype=_I32, device=dev)
     prune_on = meta.match.prune_budget > 0
     # Prune counters: aggregate-AND skips, full-width fallbacks, and the
     # candidate-superblock histogram (_prune_bucket_counts layout).
@@ -670,12 +710,15 @@ def pipeline_step(
              torch.zeros(len(PRUNE_HIST_BOUNDS) + 2, dtype=_I32, device=dev))
 
     # ---- slow path: ServiceLB + classify + commit, misses only ----
-    if n_miss > 0 and meta.onepass:
-        main, n_evict, prune = _slow_onepass(
+    # With PH_SLOW masked (the async fast step) misses keep the fast-path
+    # image and nothing commits.
+    slow = n_miss > 0 and bool(meta.phases & PH_SLOW)
+    if slow and meta.onepass:
+        fresh, n_evict, n_reclaim, prune = _slow_onepass(
             state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h, slot,
             miss, mr, kr0, ts0, now, gen_w, meta)
-        img[:B] = main[:, :9]
-    elif n_miss > 0:
+        img[:B] = torch.where(miss[:, None], fresh, img[:B])
+    elif slow:
         rounds = -(-n_miss // M)
         # Affinity lookups see the start-of-batch table in every round;
         # learns land in the live table.
@@ -697,17 +740,28 @@ def pipeline_step(
             dp_m = dport[safe]
 
             svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = (
-                _service_lb(aff_snap, dsvc, h[safe], s_f, d_f, p_m, dp_m,
-                            now, meta.aff_slots))
-            # Lanes classify on their POST-DNAT tuple.
-            cls = classify_batch(
-                drs, s_f, dnat_ip, p_m, dnat_port, meta=meta.match,
-                fused=meta.fused, svc_ref=_svc_ref_of(svc_idx, dsvc))
-            # SvcReject happens before the policy tables: no attribution.
-            code = torch.where(no_ep, ACT_REJECT, cls["code"]).to(_I32)
-            rule_in = torch.where(no_ep, MISS, cls["ingress_rule"])
-            rule_out = torch.where(no_ep, MISS, cls["egress_rule"])
-            if prune_on:
+                _lb_phase(meta, aff_snap, dsvc, h[safe], s_f, d_f, p_m, dp_m,
+                          now))
+            # Lanes classify on their POST-DNAT tuple; PH_CLS_SUM alone runs
+            # the pruned classifier's aggregate phase only.
+            cls = None
+            if meta.phases & PH_CLS or (prune_on
+                                        and meta.phases & PH_CLS_SUM):
+                cls = classify_batch(
+                    drs, s_f, dnat_ip, p_m, dnat_port, meta=meta.match,
+                    fused=meta.fused, svc_ref=_svc_ref_of(svc_idx, dsvc),
+                    summary_only=not meta.phases & PH_CLS)
+                # SvcReject happens before the policy tables: no
+                # attribution.
+                code = torch.where(no_ep, ACT_REJECT, cls["code"]).to(_I32)
+                rule_in = torch.where(no_ep, MISS, cls["ingress_rule"])
+                rule_out = torch.where(no_ep, MISS, cls["egress_rule"])
+            else:
+                # Classify masked: every lane default-allows (SvcReject
+                # still applies: it is an LB decision).
+                code = torch.where(no_ep, ACT_REJECT, ACT_ALLOW).to(_I32)
+                rule_in = rule_out = torch.full_like(code, MISS)
+            if prune_on and cls is not None:
                 # Valid lanes only: padding lanes classify a copy of lane
                 # B-1 and must not count.
                 prune = (
@@ -724,9 +778,10 @@ def pipeline_step(
             img[torch.where(valid_m, idx, B)] = torch.stack(
                 [code, rule_in, rule_out, svc_idx, dnat_ip, dnat_port,
                  snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
-            n_evict = n_evict + _commit(
-                state, slot[safe], rows, learn, learn["mask"] & valid_m, now,
-                meta)
+            if meta.phases & PH_COMMIT:
+                ev, rc = _commit(state, slot[safe], rows, learn,
+                                 learn["mask"] & valid_m, now, gen_w, meta)
+                n_evict, n_reclaim = n_evict + ev, n_reclaim + rc
 
     cols = img[:B].t().contiguous()
     out = {
@@ -742,14 +797,16 @@ def pipeline_step(
         "ingress_rule": cols[1],
         "egress_rule": cols[2],
         "committed": cols[8],
+        # Per-lane cache-miss mask: with PH_SLOW masked, the async engine's
+        # admission mask.
         "miss": miss.to(_I32),
         "snat": cols[6],
         "dsr": cols[7],
         "n_miss": torch.tensor(n_miss, dtype=_I32, device=dev),
         "n_evict": n_evict,
-        # Dead-row reclaims are split out only by the async drain, which
-        # is not ported: always 0 here, as in the JAX synchronous step.
-        "n_reclaim": torch.zeros((), dtype=_I32, device=dev),
+        # Overwrites of dead rows, split out of n_evict only under
+        # meta.drain_reclaim; 0 otherwise.
+        "n_reclaim": n_reclaim,
     }
     if prune_on:
         # Keys exist iff prune_budget > 0, as in the JAX step.
@@ -757,29 +814,46 @@ def pipeline_step(
     return state, out
 
 
-def _commit(state, slot, rows, learn, learn_mask, now, meta):
+def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta):
     """In place: commit a set of lanes' forward and reply rows
     (_fused_pack_rows output) interleaved per lane [fwd_i, rev_i], so
     last-writer-wins resolves collisions in per-lane insert order, and
-    their affinity learns.  The eviction census (an insert over a live
-    entry whose tuple differs; a same-tuple rewrite is an update) reads the
-    cache once, before the scatters.  -> evictions, int32 scalar."""
+    their affinity learns.  Under PH_EVICT the eviction census (an insert
+    over a live entry whose tuple differs; a same-tuple rewrite is an
+    update) reads each target's key row, and under meta.drain_reclaim also
+    its CONFIRMED bit and ts, before the scatters.  An overwritten row that
+    is already dead to lookups (idle past its per-state timeout, or a
+    denial of another generation) counts as a reclaim, not an eviction.
+    -> (evictions, reclaims), int32 scalars."""
     flow, aff = state.flow, state.aff
     dump = meta.flow_slots
     A = 2
+    ZC = _meta_cols(A)[3]
     m = slot.shape[0]
     slot2 = torch.stack([slot, rows["rev_slot"].long()], dim=1).reshape(2 * m)
     keys2 = rows["keys8"].reshape(2 * m, 4)
     meta2 = rows["meta8"].reshape(2 * m, 4)
     ins2 = torch.stack([rows["ins"], rows["rev_ins"]], dim=1).reshape(2 * m)
 
-    okr = flow.keys[torch.where(ins2, slot2, dump)]
-    id3 = 0xFF | REPLY_BIT
-    tuple_differs = (
-        (okr[:, :A + 1] != keys2[:, :A + 1]).any(dim=1)
-        | ((okr[:, A + 1] & id3) != (keys2[:, A + 1] & id3))
-    )
-    overwrote = ins2 & (okr[:, A + 1] != 0) & tuple_differs
+    n_evict = n_reclaim = torch.zeros((), dtype=_I32, device=slot.device)
+    if meta.phases & PH_EVICT:
+        tgt2 = torch.where(ins2, slot2, dump)
+        okr = flow.keys[tgt2]
+        id3 = 0xFF | REPLY_BIT
+        tuple_differs = (
+            (okr[:, :A + 1] != keys2[:, :A + 1]).any(dim=1)
+            | ((okr[:, A + 1] & id3) != (keys2[:, A + 1] & id3))
+        )
+        overwrote = ins2 & (okr[:, A + 1] != 0) & tuple_differs
+        if meta.drain_reclaim:
+            otmo = entry_timeout((flow.meta[tgt2, ZC] >> 29) & 1,
+                                 okr[:, A + 1] & 0xFF, meta.timeouts)
+            ogen = (okr[:, A + 1] >> 9) & GEN_ETERNAL
+            dead = ((now - flow.ts[tgt2]) > otmo) | (
+                (ogen != GEN_ETERNAL) & (ogen != gen_w))
+            n_reclaim = (overwrote & dead).sum(dtype=_I32)
+            overwrote = overwrote & ~dead
+        n_evict = overwrote.sum(dtype=_I32)
 
     _scatter_last(flow.keys, slot2, keys2, ins2, dump)
     _scatter_last(flow.meta, slot2, meta2, ins2, dump)
@@ -793,21 +867,17 @@ def _commit(state, slot, rows, learn, learn_mask, now, meta):
     _scatter_last(aff.ts, learn["aslot"],
                   torch.full((m,), now, dtype=_I32, device=slot.device),
                   learn_mask, adump)
-    return overwrote.sum(dtype=_I32)
+    return n_evict, n_reclaim
 
 
-def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
-                    miss, kr0, mr, ts0, now, meta):
-    """ServiceLB over the whole batch and B3's lane inputs
-    (pipeline.py:1670-1859): the miss-masked interval rows (hit lanes take
-    row 0 and spawn nothing), the six aggregate rows, the isolation bits.
-    kr0/mr/ts0 are the cache rows gathered at batch start.
-    -> (onepass.OnepassInputs, the affinity learn dict)."""
-    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = _service_lb(
-        aff, dsvc, h, src_f, dst_f, proto, dport, now, meta.aff_slots)
+def _onepass_probes(drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port,
+                    miss, meta):
+    """The one-pass path's classification probes on the post-DNAT tuple
+    (pipeline.py:1684-1711): the miss-masked interval rows (hit lanes take
+    row 0), the six aggregate rows (the svcref row ORed into egress svc)
+    and the isolation bits.  -> (iv6, iv_ref, aggs, iso_in, iso_out)."""
     ing, eg = drs.ingress, drs.egress
     svc_key = (proto << 16) | dnat_port
-    z = torch.zeros_like(src_f)
 
     def midx(tab, x):
         return torch.where(miss, _dim_index(tab, x), 0).to(_I32)
@@ -816,17 +886,33 @@ def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
            midx(ing.svc, svc_key), midx(eg.at, src_f), midx(eg.peer, dnat_ip),
            midx(eg.svc, svc_key)]
     iv_ref = (midx(eg.svc, _svcref_key(svc_key, _svc_ref_of(svc_idx, dsvc)))
-              if meta.match.svcref else z)
+              if meta.match.svcref else torch.zeros_like(src_f))
     aggs = [t.agg[i] for t, i in zip(
         (ing.at, ing.peer, ing.svc, eg.at, eg.peer, eg.svc), iv6)]
     if meta.match.svcref:
         aggs[5] = aggs[5] | eg.svc.agg[iv_ref]
+    iso_in = drs.iso_in.val[midx(drs.iso_in, dnat_ip)]
+    iso_out = drs.iso_out.val[midx(drs.iso_out, src_f)]
+    return iv6, iv_ref, aggs, iso_in, iso_out
+
+
+def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
+                    miss, kr0, mr, ts0, now, meta, lb=None):
+    """ServiceLB over the whole batch (under PH_LB) and B3's lane inputs
+    (pipeline.py:1670-1859): the miss-masked interval rows, the six
+    aggregate rows, the isolation bits.  kr0/mr/ts0 are the cache rows
+    gathered at batch start; lb is _lb_phase's result when the caller has
+    it.  -> (onepass.OnepassInputs, the affinity learn dict)."""
+    if lb is None:
+        lb = _lb_phase(meta, aff, dsvc, h, src_f, dst_f, proto, dport, now)
+    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = lb
+    iv6, iv_ref, aggs, iso_in, iso_out = _onepass_probes(
+        drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, miss, meta)
+    z = torch.zeros_like(src_f)
     x = onepass.OnepassInputs(
         pkt=torch.stack([src_f, dst_f, proto, sport, dport, pp, z, z], dim=1),
         kr=kr0,
-        prb=torch.stack([ts0, drs.iso_in.val[midx(drs.iso_in, dnat_ip)],
-                         drs.iso_out.val[midx(drs.iso_out, src_f)], z],
-                        dim=1),
+        prb=torch.stack([ts0, iso_in, iso_out, z], dim=1),
         mrow=mr,
         msk=torch.stack([torch.ones_like(z), z, z, z], dim=1),
         lb=torch.stack([svc_idx, no_ep.to(_I32), dnat_ip, dnat_port, snat_m,
@@ -837,71 +923,184 @@ def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     return x, learn
 
 
+def _fresh_code(drs, hits6, iso_in, iso_out, no_ep):
+    """Hits -> the slow path's fresh verdict, SvcReject first.
+    -> (code, rule_in, rule_out)."""
+    in_code, in_rule = _resolve(drs.ingress.action, hits6[:3], iso_in)
+    out_code, out_rule = _resolve(drs.egress.action, hits6[3:], iso_out)
+    code = torch.where(no_ep, ACT_REJECT, torch.where(
+        out_code != ACT_ALLOW, out_code, in_code)).to(_I32)
+    return code, torch.where(no_ep, MISS, in_rule), torch.where(
+        no_ep, MISS, out_rule)
+
+
 def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
                   slot, miss, mr, kr0, ts0, now, gen_w, meta):
-    """The one-pass slow path (pipeline.py:1638-2071, resolve variant):
-    B3 over the whole batch, the full-width re-walk of its fallback lanes
-    (through B1), the prune counters, and one interleaved commit of every
-    lane's rows, its eviction census read once before the scatters.
-    -> (main (B, 16) with the fallback lanes fixed, evictions, (skips,
+    """The one-pass slow path (pipeline.py:1638-2071, resolve variant).
+    Under PH_CLS: B3 over the whole batch, the full-width re-walk of its
+    fallback lanes (through B1) and the prune counters.  Without it B3 does
+    not run: under PH_CLS_SUM the aggregate AND alone gives the skip and
+    candidate counts of the miss lanes and every live lane the
+    default-verdict image; with neither bit every lane default-allows.
+    Then, under PH_COMMIT, one interleaved commit of every lane's rows.
+    -> (the miss lanes' images (B, 9), evictions, reclaims, (skips,
     fallbacks, candidate histogram))."""
     ing, eg = drs.ingress, drs.egress
     mm = meta.match
     N = meta.flow_slots
-    x, learn = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
+    lb = _lb_phase(meta, state.aff, dsvc, h, src_f, dst_f, proto, dport, now)
+    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = lb
+    zero = torch.zeros((), dtype=_I32, device=src_f.device)
+    if meta.phases & PH_CLS:
+        x, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
                                sport, dport, pp, h, miss, kr0, mr, ts0, now,
-                               meta)
-    tabs = onepass.OnepassTables(
-        inc=tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at, eg.peer,
-                                  eg.svc)),
-        act_in=ing.action, act_out=eg.action)
-    st = onepass.OnepassStatic(
-        k=mm.prune_budget, in_phases=mm.in_phases, out_phases=mm.out_phases,
-        svcref=mm.svcref, timeouts=meta.timeouts, n_slots=N,
-        pref_mask=PREF_MASK)
-    main, keys8, meta8, aux = onepass.onepass(x, tabs, now, gen_w, st)
+                               meta, lb=lb)
+        tabs = onepass.OnepassTables(
+            inc=tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at,
+                                      eg.peer, eg.svc)),
+            act_in=ing.action, act_out=eg.action)
+        st = onepass.OnepassStatic(
+            k=mm.prune_budget, in_phases=mm.in_phases,
+            out_phases=mm.out_phases, svcref=mm.svcref,
+            timeouts=meta.timeouts, n_slots=N, pref_mask=PREF_MASK)
+        main, keys8, meta8, aux = onepass.onepass(x, tabs, now, gen_w, st)
 
-    fb = torch.nonzero(aux[:, 1]).flatten()
-    if fb.numel():
-        # Lanes with more than K candidate superblocks: the exact
-        # full-width walk (the function B1 computes, so through B1's
-        # wrapper), resolved and packed again, written back lane for lane.
-        iv = x.iv[fb].long()
-        out_svc = eg.svc.inc[iv[:, 5]]
-        if mm.svcref:
-            out_svc = out_svc | eg.svc.inc[iv[:, 6]]
-        hits = consumer.fused_hits(
-            (ing.at.inc[iv[:, 0]], ing.peer.inc[iv[:, 1]],
-             ing.svc.inc[iv[:, 2]]),
-            (eg.at.inc[iv[:, 3]], eg.peer.inc[iv[:, 4]], out_svc),
-            mm.in_phases, mm.out_phases)
-        lb, prb, pkt = x.lb[fb], x.prb[fb], x.pkt[fb]
-        in_code, in_rule = _resolve(ing.action, hits[:, 0:3].unbind(1),
-                                    prb[:, 1])
-        out_code, out_rule = _resolve(eg.action, hits[:, 3:6].unbind(1),
-                                      prb[:, 2])
-        no_ep = lb[:, 1] != 0
-        f_code = torch.where(no_ep, ACT_REJECT, torch.where(
-            out_code != ACT_ALLOW, out_code, in_code)).to(_I32)
-        f_ri = torch.where(no_ep, MISS, in_rule)
-        f_ro = torch.where(no_ep, MISS, out_rule)
-        fix = _fused_pack_rows(
-            *pkt[:, :6].unbind(1), f_code, lb[:, 0], lb[:, 2], lb[:, 3],
-            lb[:, 4], lb[:, 5], f_ri, f_ro, miss[fb],
-            torch.zeros_like(no_ep), now, gen_w, N, PREF_MASK)
-        main[fb, 0] = f_code
-        main[fb, 1] = f_ri
-        main[fb, 2] = f_ro
-        main[fb, 8] = fix["committed"].to(_I32)
-        main[fb, 9] = fix["rev_ins"].to(_I32)
-        keys8[fb] = fix["keys8"]
-        meta8[fb] = fix["meta8"]
+        fb = torch.nonzero(aux[:, 1]).flatten()
+        if fb.numel():
+            # Lanes with more than K candidate superblocks: the exact
+            # full-width walk (the function B1 computes, so through B1's
+            # wrapper), resolved and packed again, written back lane for
+            # lane.
+            iv = x.iv[fb].long()
+            out_svc = eg.svc.inc[iv[:, 5]]
+            if mm.svcref:
+                out_svc = out_svc | eg.svc.inc[iv[:, 6]]
+            hits = consumer.fused_hits(
+                (ing.at.inc[iv[:, 0]], ing.peer.inc[iv[:, 1]],
+                 ing.svc.inc[iv[:, 2]]),
+                (eg.at.inc[iv[:, 3]], eg.peer.inc[iv[:, 4]], out_svc),
+                mm.in_phases, mm.out_phases)
+            lb_f, prb, pkt = x.lb[fb], x.prb[fb], x.pkt[fb]
+            no_ep_f = lb_f[:, 1] != 0
+            f_code, f_ri, f_ro = _fresh_code(drs, hits[:, :6].unbind(1),
+                                             prb[:, 1], prb[:, 2], no_ep_f)
+            fix = _fused_pack_rows(
+                *pkt[:, :6].unbind(1), f_code, lb_f[:, 0], lb_f[:, 2],
+                lb_f[:, 3], lb_f[:, 4], lb_f[:, 5], f_ri, f_ro, miss[fb],
+                torch.zeros_like(no_ep_f), now, gen_w, N, PREF_MASK)
+            main[fb, 0] = f_code
+            main[fb, 1] = f_ri
+            main[fb, 2] = f_ro
+            main[fb, 8] = fix["committed"].to(_I32)
+            main[fb, 9] = fix["rev_ins"].to(_I32)
+            keys8[fb] = fix["keys8"]
+            meta8[fb] = fix["meta8"]
 
-    prune = ((aux[:, 0] != 0).sum(dtype=_I32),
-             (aux[:, 1] != 0).sum(dtype=_I32),
-             _prune_bucket_counts(aux[:, 2], miss))
-    rows = dict(rev_slot=main[:, 10], keys8=keys8, meta8=meta8,
-                ins=main[:, 14] != 0, rev_ins=main[:, 9] != 0)
-    n_evict = _commit(state, slot, rows, learn, learn["mask"] & miss, now,
-                      meta)
-    return main, n_evict, prune
+        prune = ((aux[:, 0] != 0).sum(dtype=_I32),
+                 (aux[:, 1] != 0).sum(dtype=_I32),
+                 _prune_bucket_counts(aux[:, 2], miss))
+        rows = dict(rev_slot=main[:, 10], keys8=keys8, meta8=meta8,
+                    ins=main[:, 14] != 0, rev_ins=main[:, 9] != 0)
+        fresh = main[:, :9]
+    else:
+        if meta.phases & PH_CLS_SUM:
+            # The aggregate AND and short circuit only, over the miss lanes:
+            # live lanes take the default-verdict image.
+            _, _, aggs, iso_in, iso_out = _onepass_probes(
+                drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, miss,
+                meta)
+            nc = [torch.where(miss, ((a & p & s) != 0).sum(
+                dim=1, dtype=_I32), 0)
+                for a, p, s in (aggs[:3], aggs[3:])]
+            cand = torch.maximum(nc[0], nc[1])
+            bigs = torch.full_like(src_f, BIG)
+            f_code, f_ri, f_ro = _fresh_code(drs, (bigs,) * 6, iso_in,
+                                             iso_out, no_ep)
+            prune = ((miss & (cand == 0)).sum(dtype=_I32), zero,
+                     _prune_bucket_counts(cand, miss))
+        else:
+            # Neither classify bit: the staged default-allow image.
+            f_code = torch.where(no_ep, ACT_REJECT, ACT_ALLOW).to(_I32)
+            f_ri = f_ro = torch.full_like(f_code, MISS)
+            prune = (zero, zero, torch.zeros(len(PRUNE_HIST_BOUNDS) + 2,
+                                             dtype=_I32, device=zero.device))
+        rows = _fused_pack_rows(
+            src_f, dst_f, proto, sport, dport, pp, f_code, svc_idx, dnat_ip,
+            dnat_port, snat_m, dsr_m, f_ri, f_ro, miss,
+            torch.zeros_like(miss), now, gen_w, N, PREF_MASK)
+        fresh = torch.stack([f_code, f_ri, f_ro, svc_idx, dnat_ip, dnat_port,
+                             snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
+
+    n_evict = n_reclaim = zero
+    if meta.phases & PH_COMMIT:
+        n_evict, n_reclaim = _commit(state, slot, rows, learn,
+                                     learn["mask"] & miss, now, gen_w, meta)
+    return fresh, n_evict, n_reclaim, prune
+
+
+# ---- off-step maintenance scans (the async engine's epoch plane) ----------
+# Whole-table elementwise passes, in place like the step.  Each clears only
+# rows already dead to lookups, so none changes a verdict: it turns a later
+# insert over the row from an eviction into plain occupancy.
+
+
+def _live_rows(keys: torch.Tensor) -> torch.Tensor:
+    """Occupied-entry mask over the (N+1,) row space, the dump row (index
+    N) excluded."""
+    kpg = keys[:, -1]
+    n = kpg.shape[0]
+    return (kpg != 0) & (torch.arange(n, device=keys.device) < n - 1)
+
+
+def _expired_rows(flow: FlowCache, now: int, timeouts) -> torch.Tensor:
+    """Live rows idle past their per-state conntrack lifetime."""
+    kpg = flow.keys[:, -1]
+    conf = (flow.meta[:, _meta_cols(flow.keys.shape[1] - 2)[3]] >> 29) & 1
+    tmo = entry_timeout(conf, kpg & 0xFF, timeouts)
+    return _live_rows(flow.keys) & ((int(now) - flow.ts) > tmo)
+
+
+def _stale_rows(flow: FlowCache, gen: int) -> torch.Tensor:
+    """Live denial rows whose generation is not the current one (committed,
+    ETERNAL rows, reply legs included, are never stale)."""
+    egen = (flow.keys[:, -1] >> 9) & GEN_ETERNAL
+    gen_w = int(gen) % GEN_ETERNAL
+    return _live_rows(flow.keys) & (egen != GEN_ETERNAL) & (egen != gen_w)
+
+
+def _age_scan(state: PipelineState, now: int, *, timeouts):
+    """Clear entries idle past their per-state lifetime (pipeline.py:2215).
+    -> (state, n_reclaimed int32)."""
+    expired = _expired_rows(state.flow, now, timeouts)
+    state.flow.keys.masked_fill_(expired[:, None], 0)
+    return state, expired.sum(dtype=_I32)
+
+
+def _revalidate_scan(state: PipelineState, gen: int):
+    """Clear denial entries of another generation (pipeline.py:2243).
+    -> (state, n_cleared int32)."""
+    stale = _stale_rows(state.flow, gen)
+    state.flow.keys.masked_fill_(stale[:, None], 0)
+    return state, stale.sum(dtype=_I32)
+
+
+def _maintain_scan(state: PipelineState, now: int, gen: int, *, timeouts):
+    """Both scans in one pass (pipeline.py:2270); a row both expired and
+    stale counts as aged.  -> (state, n_aged, n_revalidated)."""
+    expired = _expired_rows(state.flow, now, timeouts)
+    stale = _stale_rows(state.flow, gen) & ~expired
+    state.flow.keys.masked_fill_((expired | stale)[:, None], 0)
+    return state, expired.sum(dtype=_I32), stale.sum(dtype=_I32)
+
+
+def clone_state(state: PipelineState) -> PipelineState:
+    """A copy of the state (the step updates its state in place)."""
+    return PipelineState(flow=FlowCache(*(t.clone() for t in state.flow)),
+                         aff=AffinityTable(*(t.clone() for t in state.aff)))
+
+
+def copy_state_(dst: PipelineState, src: PipelineState) -> PipelineState:
+    """In place: overwrite dst's tensors with src's.  -> dst."""
+    for d, s in zip((*dst.flow, *dst.aff), (*src.flow, *src.aff)):
+        d.copy_(s)
+    return dst

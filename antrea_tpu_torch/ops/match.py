@@ -541,14 +541,15 @@ def classify_batch(
     same function as plain tensor ops.  svc_ref (B,) is the lane's service
     index for the toServices probe (used when meta.svcref).
     meta.prune_budget > 0 (tables with an aggregate level) routes through
-    the two-level pruned walk, _classify_pruned.  Rule-axis sharding
-    (hit_combine), v6 lanes and the profiling surface summary_only are not
-    ported."""
-    _refuse(hit_combine=hit_combine is not None, v6=v6 is not None,
-            summary_only=summary_only)
+    the two-level pruned walk, _classify_pruned; summary_only is its
+    profiling sub-mode (the aggregate phase alone, live lanes take the
+    default verdicts) and is ignored without pruning.  Rule-axis sharding
+    (hit_combine) and v6 lanes are not ported."""
+    _refuse(hit_combine=hit_combine is not None, v6=v6 is not None)
     if meta.prune_budget > 0 and drs.ingress.at.agg is not None:
         return _classify_pruned(drs, src_ip_f, dst_ip_f, proto, dst_port,
-                                meta=meta, fused=fused, svc_ref=svc_ref)
+                                meta=meta, fused=fused, svc_ref=svc_ref,
+                                summary_only=summary_only)
     ing, eg = drs.ingress, drs.egress
     svc_key = (proto << 16) | dst_port
 
@@ -598,7 +599,8 @@ def classify_batch(
 
 
 def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
-                     dst_port, *, meta: StaticMeta, fused: bool, svc_ref):
+                     dst_port, *, meta: StaticMeta, fused: bool, svc_ref,
+                     summary_only: bool = False):
     """The two-level pruned classify (match.py:_classify_pruned), v4, one
     card.  An aggregate bit is set iff its incidence word is nonzero, so a
     zero aggregate AND proves no match and the candidate superblocks cover
@@ -609,7 +611,11 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
     -> classify_batch's dict plus prune_skip (B,) bool (the aggregate AND
     is zero in both directions), prune_fb (B,) bool (the lane took the
     full-width fallback) and prune_cand (B,) int32 (candidate superblocks,
-    max over the directions)."""
+    max over the directions).
+
+    summary_only (the PH_CLS_SUM profiling surface, match.py:1719): stop
+    after the aggregate AND; every lane takes the default verdicts and
+    nothing falls back."""
     ing, eg = drs.ingress, drs.egress
     B = src_ip_f.shape[0]
     K = meta.prune_budget
@@ -644,10 +650,14 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
         ke.append(min(K, dd.at.agg.shape[1]))
     live = (nc[0] > 0) | (nc[1] > 0)
     fb = (nc[0] > ke[0]) | (nc[1] > ke[1])
-    # One read-back: whether any lane has a candidate (else the whole
-    # batch takes the default verdicts: no candidate gather, no fallback)
-    # and how many lanes fall back.
-    any_live, n_fb = torch.stack([live.any().long(), fb.sum()]).tolist()
+    if summary_only:
+        any_live = 0
+        fb = torch.zeros_like(fb)
+    else:
+        # One read-back: whether any lane has a candidate (else the whole
+        # batch takes the default verdicts: no candidate gather, no
+        # fallback) and how many lanes fall back.
+        any_live, n_fb = torch.stack([live.any().long(), fb.sum()]).tolist()
     if any_live:
         mats = [_candidate_mats(dd, gd, iv, iv_ref, k)
                 for (dd, iv, iv_ref), gd, k in zip(dirs, g, ke)]

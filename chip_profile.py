@@ -22,6 +22,14 @@ ending in torch.cuda.synchronize()), the device busy time (the sum of the
 kernels' own device times in the profile), the device idle share, the
 operators with the most device time, and each hand-written kernel's
 launches and device time.  Chrome traces go to OUT_DIR.
+
+Then two phase breakdowns (models/profile.py, telescoped differences over
+cumulative phase masks, k_small=K_SMALL, k_big=K_BIG, best of REPEATS), with
+N_NEW = B/8 fresh flows a step from a 2**18-flow pool: profile_churn of
+the staged fused step (PHASE_CHAIN: the synchronous step, fast path alone
+first) and profile_churn_fused of the one-pass step (FUSED_PHASE_CHAIN:
+the async cadence, a fast step and a coalesced drain).  These times count
+the host's share of each step (see utils/timing.device_loop_time).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import chip_smoke as smoke
 
 TOP = 15
 OUT_DIR = "chiprun_out"
+K_SMALL, K_BIG, REPEATS = 2, 8, 3
 # Device kernel names of the hand-written kernels (csrc/*.cu).
 KERNELS = {"B1": "consumer_kernel", "B2": "pruned_kernel",
            "B3": "onepass_kernel"}
@@ -103,7 +112,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = smoke.card_line()
     print(f"card: {card}", flush=True)
-    cps, svc, tr = smoke.build_world()
+    cps, svc, tr, pool_tr = smoke.build_world()
     step, state, (drs, dsvc) = pl.make_pipeline(
         cps, svc, flow_slots=smoke.FLOW_SLOTS, miss_chunk=smoke.MISS_CHUNK,
         fused=True, device=dev)
@@ -135,6 +144,35 @@ def main() -> int:
     res = [window("cold", cold), window("steady", steady),
            window("onepass", onepass)]
     print(json.dumps({"card": card, "windows": res}), flush=True)
+    del state, ostate
+    torch.cuda.empty_cache()
+
+    from antrea_tpu_torch.models import profile as prof
+
+    pool = smoke.to_lanes(pool_tr, dev)
+    kw = dict(n_new=smoke.B // 8, k_small=K_SMALL, k_big=K_BIG,
+              repeats=REPEATS)
+    breakdowns = []
+    for name, fn, st, meta, tabs in (
+            ("staged fused", prof.profile_churn, step, step.meta,
+             (drs, dsvc)),
+            ("one-pass K=4", prof.profile_churn_fused, ostep, ostep.meta,
+             (pdrs, pdsvc))):
+        fresh = pl.init_state(smoke.FLOW_SLOTS, meta.aff_slots, device=dev)
+        t0 = time.perf_counter()
+        out = fn(meta, fresh, *tabs, lanes, pool, **kw)
+        del fresh
+        torch.cuda.empty_cache()
+        out.update(name=name, card=card, wall_s=time.perf_counter() - t0,
+                   **{k: kw[k] for k in ("k_small", "k_big", "repeats")})
+        print(f"[breakdown {name}] total {out['total_s'] * 1e3:.3f} ms/step "
+              f"({out['pps'] / 1e6:.3f} M packets/s), on {out['device']}",
+              flush=True)
+        for ph, sec in out["phases_s"].items():
+            print(f"  {ph:24s} {sec * 1e3:9.3f} ms  "
+                  f"{out['phase_fractions'][ph]:7.3f}", flush=True)
+        breakdowns.append(out)
+    print(json.dumps({"card": card, "breakdowns": breakdowns}), flush=True)
     return 0
 
 

@@ -36,9 +36,22 @@ package is missing, or when any phase fails.  Phases, in order:
   7. cross-check: a 4096-lane sub-batch through a fresh state on the card
      and a fresh state on the CPU (plain versions), same tables, cold then
      warm, for the staged and the one-pass step, and the pruned classify of
-     those lanes; outputs and state must be bitwise equal.
+     those lanes; outputs and state must be bitwise equal;
+  8. the async cadence, on the staged fused and the one-pass pipeline: on a
+     fresh state with the hot set warmed, one fast step at phases=0 with
+     the DROP admission policy over the batch with its last B/8 lanes
+     replaced by fresh flows, one coalesced drain step (drain_reclaim=True,
+     miss_chunk = the admitted count) over the admitted lanes, and one
+     _maintain_scan; B1 (staged) or B3 (one-pass) must launch in the drain
+     and nothing in the fast step.  Then the same cadence on 4096 lanes over
+     a 2**12-slot cache (so reclaims happen: the fast step runs after every
+     entry expired), on the card and on the CPU, bitwise;
+  9. S1's path: bench_cold_study_torch.py's case 4 (the six interval rows
+     gathered and ANDed in torch, then S1) on its own 100k-rule world at
+     B = 2**15, in this process.
 
-The line before the last is the kernels' JSON record; the last line is
+S1 is held against its plain version in phase 3, at the same widths.  The
+line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -60,6 +73,11 @@ EXPIRE_STEPS = 4
 CROSS_LANES = 4096
 PRUNE_K = 4
 B_COLD = 1 << 15
+# The async cadence: fresh lanes per fast step, the pool they come from,
+# and the cross-check's cache.
+N_NEW = B // 8
+POOL = 1 << 18
+CROSS_SLOTS = 1 << 12
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, and
 # the 32-bit non-tensor lane rate used for the kernels' integer operations.
 HBM_BYTES_S = 3.35e12
@@ -79,6 +97,8 @@ def card_line() -> str:
 
 
 def build_world():
+    """-> (compiled policy set, service tables, the 2**17-lane batch, a
+    POOL-lane pool of fresh flows, one lane per flow)."""
     from antrea_tpu_torch.compiler.compile import compile_policy_set
     from antrea_tpu_torch.compiler.services import compile_services
     from antrea_tpu_torch.simulator import (gen_cluster, gen_services,
@@ -90,7 +110,10 @@ def build_world():
     svc = compile_services(services)
     tr = gen_traffic(cluster.pod_ips, B, n_flows=N_FLOWS, seed=3,
                      services=services, svc_fraction=0.3)
-    return cps, svc, tr
+    pool = gen_traffic(cluster.pod_ips, POOL, n_flows=POOL, seed=7,
+                       services=services, svc_fraction=0.3,
+                       one_per_flow=True)
+    return cps, svc, tr, pool
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -149,8 +172,8 @@ def check_kernel(name, run, plain, b, nbytes, ops, inner):
     bound_s, by = bound(nbytes, ops)
     log(f"{name} B={b}: bitwise equal to plain; kernel {k_s * 1e6:.2f} us "
         f"({call_s * 1e6:.2f} us per wrapper call), plain {p_s * 1e6:.2f} us, "
-        f"bound {bound_s * 1e6:.2f} us ({nbytes / 1e6:.2f} MB, {by}), "
-        f"{nbytes / k_s / 1e9:.1f} GB/s")
+        f"bound {bound_s * 1e6:.2f} us ({nbytes / 1e6:.2f} MB, {by}; "
+        f"{bound_s / k_s:.2f} of it reached), {nbytes / k_s / 1e9:.1f} GB/s")
     return dict(ms=k_s * 1e3, call_ms=call_s * 1e3, plain_ms=p_s * 1e3,
                 bound_ms=bound_s * 1e3, bound_by=by, max_abs_err=err,
                 bytes=nbytes)
@@ -173,6 +196,30 @@ def check_consumer(meta, dev):
             lambda: consumer.consumer_plain(*args), b,
             b * 3 * words * 4 + b * 8 * 4, b * 2 * words, inner)
         del rin, rout
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_consumer2(meta, dev):
+    """Phase 3 for S1: the ANDed rows of consumer_inputs -> per-B
+    records."""
+    import torch
+
+    from antrea_tpu_torch.ops import consumer2
+
+    recs = {}
+    for b, seed, inner in ((256, 5, 50), (32768, 6, 3)):
+        rin, rout = consumer_inputs(b, meta.w_in, meta.w_out, seed, dev)
+        args = (rin[0] & rin[1] & rin[2], rout[0] & rout[1] & rout[2],
+                meta.in_phases, meta.out_phases)
+        del rin, rout
+        words = meta.w_in + meta.w_out
+        recs[b] = check_kernel(
+            f"S1 consumer2 (w_in={meta.w_in} w_out={meta.w_out})",
+            lambda: consumer2.and_hits(*args),
+            lambda: consumer2.and_hits_plain(*args), b,
+            b * words * 4 + b * 8 * 4, b * 2 * words, inner)
+        del args
     torch.cuda.empty_cache()
     return recs
 
@@ -297,12 +344,14 @@ def to_lanes(tr, dev, n=None):
                  .to(dev) for c in cols)
 
 
-def check_out(out, b):
+def check_out(out, b, slow=True):
+    """Shapes, types and verdict codes of a step's outputs; with the slow
+    path run (slow), the candidate histogram counts every miss."""
     import torch
 
     for k, v in out.items():
         if k == "prune_cand_hist":
-            if int(v[:-1].sum()) != int(out["n_miss"]):
+            if slow and int(v[:-1].sum()) != int(out["n_miss"]):
                 raise SystemExit("prune_cand_hist does not count every miss")
             continue
         if v.dim() and v.shape != (b,):
@@ -315,9 +364,11 @@ def check_out(out, b):
 
 
 def reset_counts():
-    from antrea_tpu_torch.ops import consumer, onepass, pruned_consumer
+    from antrea_tpu_torch.ops import (consumer, consumer2, onepass,
+                                      pruned_consumer)
 
     consumer.launches = pruned_consumer.launches = onepass.launches = 0
+    consumer2.launches = 0
 
 
 def counts() -> tuple[int, int, int]:
@@ -546,6 +597,168 @@ def cross_check(step, drs, dsvc, tr, dev, what, pruned_meta=None):
     torch.cuda.empty_cache()
 
 
+def async_cadence(step, state, drs, dsvc, hot, fresh, now, gen=0,
+                  timed=True):
+    """The async engine's device half on `state`: the fast step (phases=0,
+    DROP admission) over `hot` with its last len(fresh[0]) lanes replaced
+    by `fresh`, the coalesced drain (one round, drain_reclaim=True) of the
+    admitted lanes, and one _maintain_scan at gen.  -> (fast out, drain
+    out, (n_aged, n_revalidated), seconds of each of the three)."""
+    import torch
+
+    from antrea_tpu_torch.compiler.compile import ACT_DROP
+    from antrea_tpu_torch.models import pipeline as pl
+
+    n = fresh[0].shape[0]
+    batch = tuple(torch.cat([h[:h.shape[0] - n], f])
+                  for h, f in zip(hot, fresh))
+    fast_meta = step.meta._replace(phases=0, miss_code=ACT_DROP)
+    secs = []
+
+    def run(fn):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if timed:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return r
+
+    _, fo = run(lambda: pl.pipeline_step(state, drs, dsvc, *batch, now, gen,
+                                         meta=fast_meta))
+    adm = fo["miss"] != 0
+    window = tuple(c[adm] for c in batch)
+    n_adm = window[0].shape[0]
+    drain_meta = step.meta._replace(drain_reclaim=True,
+                                    miss_chunk=max(1, n_adm))
+    _, do = run(lambda: pl.pipeline_step(state, drs, dsvc, *window, now, gen,
+                                         meta=drain_meta))
+    _, n_aged, n_stale = run(lambda: pl._maintain_scan(
+        state, now, gen, timeouts=step.meta.timeouts))
+    return fo, do, (n_aged, n_stale), secs
+
+
+def drive_async(step, drs, dsvc, lanes, pool, dev, what):
+    """Phase 8: the async cadence on a fresh 2**22-slot state whose hot set
+    is warmed by two synchronous steps."""
+    from antrea_tpu_torch.compiler.compile import ACT_DROP
+    from antrea_tpu_torch.models import pipeline as pl
+
+    state = pl.init_state(FLOW_SLOTS, step.meta.aff_slots, device=dev)
+    for now in (100, 101):
+        step(state, drs, dsvc, *lanes, now, 0)
+    reset_counts()
+    fo, do, (aged, stale), secs = async_cadence(
+        step, state, drs, dsvc, lanes, tuple(c[:N_NEW] for c in pool), 102)
+    launches = counts()
+    check_out(fo, B, slow=False)
+    n_adm = int(fo["n_miss"])
+    check_out(do, n_adm)
+    miss = fo["miss"] != 0
+    if (not bool((fo["code"][miss] == ACT_DROP).all())
+            or int(fo["committed"].sum()) != 0):
+        raise SystemExit(f"async {what}: the fast step classified or "
+                         f"committed a miss lane")
+    if int(do["n_miss"]) != n_adm or n_adm == 0:
+        raise SystemExit(f"async {what}: drain n_miss {int(do['n_miss'])}, "
+                         f"admitted {n_adm}, fresh {N_NEW}")
+    want = (0, 0, 1) if step.meta.onepass else (1, 0, 0)
+    if launches[1] != 0 or launches[2] != want[2] or (
+            launches[0] != want[0] and not step.meta.onepass):
+        raise SystemExit(f"async {what}: (B1, B2, B3) launches {launches}, "
+                         f"expected {want} (B1 <= 1 on the one-pass drain)")
+    log(f"async cadence, {what}: fast step {secs[0] * 1e3:.2f} ms "
+        f"({n_adm} lanes admitted of {B}), drain {secs[1] * 1e3:.2f} ms "
+        f"(n_miss {int(do['n_miss'])}, committed "
+        f"{int(do['committed'].sum())}, n_evict {int(do['n_evict'])}, "
+        f"n_reclaim {int(do['n_reclaim'])}), maintain_scan "
+        f"{secs[2] * 1e3:.2f} ms (aged {int(aged)}, revalidated "
+        f"{int(stale)}); (B1, B2, B3) launches {launches}")
+    del state
+    return dict(fast_ms=secs[0] * 1e3, drain_ms=secs[1] * 1e3,
+                maintain_ms=secs[2] * 1e3, admitted=n_adm,
+                n_reclaim=int(do["n_reclaim"]),
+                n_evict=int(do["n_evict"])), launches
+
+
+def cross_check_async(step, drs, dsvc, tr, pool, dev, what):
+    """Phase 8b: the async cadence on CROSS_LANES lanes over a
+    CROSS_SLOTS-slot cache, on the card and on the CPU (plain versions),
+    same tables: a cold synchronous step at now=100, then the cadence at
+    now=7400 (every entry expired: the drain reclaims) and gen=1 (the scan
+    revalidates the gen-0 denials).  Outputs, counts and state bitwise."""
+    import torch
+
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops.match import tree_map
+
+    meta = step.meta._replace(flow_slots=CROSS_SLOTS)
+
+    def sub_step(*a):
+        return pl.pipeline_step(*a, meta=meta)
+
+    sub_step.meta = meta
+    lanes = to_lanes(tr, dev, CROSS_LANES)
+    fresh = to_lanes(pool, dev, CROSS_LANES // 8)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        cpu = d == "cpu"
+        drs_d = tree_map(lambda t: t.cpu(), drs) if cpu else drs
+        dsvc_d = tree_map(lambda t: t.cpu(), dsvc) if cpu else dsvc
+        ln, fr = ((tuple(t.cpu() for t in lanes), tuple(t.cpu() for t in fresh))
+                  if cpu else (lanes, fresh))
+        st = pl.init_state(CROSS_SLOTS, meta.aff_slots, device=d)
+        _, cold = sub_step(st, drs_d, dsvc_d, *ln, 100, 0)
+        fo, do, scan, _ = async_cadence(sub_step, st, drs_d, dsvc_d, ln, fr,
+                                        7400, gen=1, timed=not cpu)
+        runs[d] = (cold, fo, do, scan, st)
+        del drs_d, dsvc_d
+    g, c = runs["cuda"], runs["cpu"]
+    for part, og, oc in zip(("cold", "fast", "drain"), g[:3], c[:3]):
+        for k in oc:
+            if not torch.equal(og[k].cpu(), oc[k]):
+                raise SystemExit(f"async cross-check {what}: {part} out[{k}] "
+                                 f"differs")
+    if [int(x) for x in g[3]] != [int(x) for x in c[3]]:
+        raise SystemExit(f"async cross-check {what}: scan counts differ")
+    for part in ("flow", "aff"):
+        for f, tg, tc in zip(getattr(c[4], part)._fields,
+                             getattr(g[4], part), getattr(c[4], part)):
+            if not torch.equal(tg[:-1].cpu(), tc[:-1]):
+                raise SystemExit(f"async cross-check {what}: {part}.{f} "
+                                 f"differs")
+    do = c[2]
+    if int(do["n_reclaim"]) == 0:
+        raise SystemExit(f"async cross-check {what}: no reclaim")
+    log(f"async cross-check {what}: {CROSS_LANES} lanes over {CROSS_SLOTS} "
+        f"slots, admitted {int(c[1]['n_miss'])}, drain n_reclaim "
+        f"{int(do['n_reclaim'])} n_evict {int(do['n_evict'])}, scan (aged, "
+        f"revalidated) {tuple(int(x) for x in c[3])}; outputs, counts and "
+        f"state bitwise equal (card vs CPU)")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def drive_study():
+    """Phase 9: S1's path, bench_cold_study_torch.py's case 4 on the card,
+    in this process.  -> (S1 launches, seconds per batch)."""
+    import bench_cold_study_torch as study
+    from antrea_tpu_torch.ops import consumer2
+
+    reset_counts()
+    res = study.main(["--cases", "4", "--device", "cuda"])
+    n = consumer2.launches
+    b1, b2, b3 = counts()
+    if n == 0 or (b1, b2, b3) != (0, 0, 0):
+        raise SystemExit(f"the study's case 4 launched S1 {n} times and "
+                         f"(B1, B2, B3) {(b1, b2, b3)}")
+    (sec,) = res["times_s"].values()
+    log(f"study case 4 (AND in torch + S1) at B={B_COLD}: {sec * 1e3:.3f} "
+        f"ms/batch, S1 launches {n}")
+    return n, sec
+
+
 def main() -> int:
     import torch
 
@@ -573,7 +786,7 @@ def main() -> int:
 
     # 2. World and the two pipelines.
     t0 = time.perf_counter()
-    cps, svc, tr = build_world()
+    cps, svc, tr, pool_tr = build_world()
     log(f"world built on the host in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     step, state, (drs, dsvc) = pl.make_pipeline(
@@ -599,6 +812,7 @@ def main() -> int:
 
     # 3. Kernels against their plain versions.
     b1 = check_consumer(meta, dev)
+    s1 = check_consumer2(meta, dev)
     b2 = check_pruned(pmeta, s_in, s_out, dev)
     b3 = {"cold": check_onepass(ostep, ostate, pdrs, pdsvc, lanes, 100,
                                 "empty cache")}
@@ -626,6 +840,22 @@ def main() -> int:
     cross_check(step, drs, dsvc, tr, dev, "staged fused")
     cross_check(ostep, pdrs, pdsvc, tr, dev, "one-pass", pruned_meta=pmeta)
 
+    # 8. The async cadence, then its cross-checks against the CPU.
+    pool = to_lanes(pool_tr, dev)
+    a_staged, a_st_launches = drive_async(step, drs, dsvc, lanes, pool, dev,
+                                          "staged fused")
+    a_one, a_op_launches = drive_async(ostep, pdrs, pdsvc, lanes, pool, dev,
+                                       "one-pass")
+    cross_check_async(step, drs, dsvc, tr, pool_tr, dev, "staged fused")
+    cross_check_async(ostep, pdrs, pdsvc, tr, pool_tr, dev, "one-pass")
+    del pool, lanes
+    torch.cuda.empty_cache()
+
+    # 9. S1's path: the cold-path study's case 4.
+    s1_launches, study_s = drive_study()
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB")
+
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
         return {"name": name, "route": "cuda", "source": src,
@@ -640,22 +870,28 @@ def main() -> int:
         rec("B1 consumer", "antrea_tpu_torch/csrc/consumer.cu",
             "antrea_tpu/ops/match.py:1422", b1_launches, b1[256],
             at_B32768=at(b1[32768]),
-            launches_onepass_path=op_launches[0]),
+            launches_onepass_path=op_launches[0],
+            launches_async_staged_path=a_st_launches[0],
+            launches_async_onepass_path=a_op_launches[0]),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             at_B32768=at(b2[32768])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, warm_cache={**at(b3["warm"]),
-                                 "miss_lanes": b3["warm"]["miss_lanes"]}),
+                                 "miss_lanes": b3["warm"]["miss_lanes"]},
+            launches_async_onepass_path=a_op_launches[2]),
+        rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
+            "bench_cold_study.py:129", s1_launches, s1[32768],
+            at_B256=at(s1[256]), study_case4_ms=study_s * 1e3),
     ]
     log(json.dumps({"card": card, "staged": staged, "onepass": one,
-                    "pruned_classify": pcls, "staged_pruned": spruned}))
+                    "pruned_classify": pcls, "staged_pruned": spruned,
+                    "async_staged": a_staged, "async_onepass": a_one}))
     log(json.dumps({"kernels": kernels}))
-    # The run uses one card (cuda:0), whatever the host holds.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -195,3 +195,72 @@ def test_onepass_kernel_equals_plain(cuda, pruned_world, svcref, timeouts):
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy())
     assert got[0][:, 11].any() and got[3][:, 1].any()
+
+
+@pytest.mark.parametrize("b,w_in,w_out,in_ph,out_ph", [
+    # Every phase boundary inside a word.
+    (256, 5, 3, (37, 50, 73), (20, 33, 43)),
+    # n0 = 0 and nk = 0.
+    (37, 4, 4, (0, 70, 58), (40, 0, 88)),
+    # The baseline phase starts in the last word.
+    (129, 4, 2, (60, 40, 28), (33, 30, 1)),
+    # Rows longer than the block's 256 threads.
+    (300, 300, 270, (5000, 3000, 1600), (4000, 4000, 640)),
+], ids=["in-word", "empty-phases", "baseline-last-word", "wide"])
+def test_consumer2_kernel_equals_plain(cuda, b, w_in, w_out, in_ph, out_ph):
+    from antrea_tpu_torch.ops import consumer2
+
+    g = torch.Generator().manual_seed(b + w_in)
+    m_in, m_out = _words(g, (b, w_in), 0.04, cuda), _words(g, (b, w_out),
+                                                           0.04, cuda)
+    m_in[::7] = 0
+    before = consumer2.launches
+    got = consumer2.and_hits(m_in, m_out, in_ph, out_ph)
+    torch.cuda.synchronize()
+    assert consumer2.launches == before + 1
+    want = consumer2.and_hits_plain(m_in, m_out, in_ph, out_ph)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (want[:, :6] < consumer.BIG).any()
+
+
+@pytest.mark.parametrize("onepass", [True, False], ids=["onepass", "staged"])
+def test_async_cadence_card_equals_cpu(cuda, pruned_world, onepass):
+    """A cold step, then the async cadence after every entry expired and
+    the generation moved: the fast step (phases=0, DROP admission), the
+    coalesced drain of the admitted lanes (drain_reclaim=True) and
+    _maintain_scan, on the card (B3 or B2, B1) and on the CPU: outputs,
+    counts and state bitwise equal, with reclaims."""
+    from antrea_tpu_torch.compiler.compile import ACT_DROP
+    from antrea_tpu_torch.models import pipeline as pl
+
+    cps, svc, tr = pruned_world
+    kw = dict(flow_slots=1 << 8, aff_slots=1 << 6, miss_chunk=64,
+              fused=True, prune_budget=1, onepass=onepass)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        step, st, (drs, dsvc) = pl.make_pipeline(cps, svc, device=dev, **kw)
+        lanes = _lanes(tr, dev)
+        _, cold = step(st, drs, dsvc, *lanes, 100, 0)
+        _, fast = pl.pipeline_step(
+            st, drs, dsvc, *lanes, 7400, 1,
+            meta=step.meta._replace(phases=0, miss_code=ACT_DROP))
+        adm = fast["miss"] != 0
+        window = [c[adm] for c in lanes]
+        _, drain = pl.pipeline_step(
+            st, drs, dsvc, *window, 7400, 1,
+            meta=step.meta._replace(drain_reclaim=True,
+                                    miss_chunk=int(adm.sum())))
+        _, aged, stale = pl._maintain_scan(st, 7400, 1,
+                                           timeouts=step.meta.timeouts)
+        res[dev.type] = (cold, fast, drain, (int(aged), int(stale)), st)
+    g, c = res["cuda"], res["cpu"]
+    for og, oc in zip(g[:3], c[:3]):
+        for k in oc:
+            assert torch.equal(og[k].cpu(), oc[k]), k
+    assert g[3] == c[3]
+    for part in ("flow", "aff"):
+        for f, tg, tcpu in zip(getattr(c[4], part)._fields,
+                               getattr(g[4], part), getattr(c[4], part)):
+            assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), (part, f)
+    assert int(c[2]["n_reclaim"]) > 0
+    assert (c[1]["code"][c[1]["miss"] != 0] == ACT_DROP).all()

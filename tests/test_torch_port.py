@@ -49,14 +49,16 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert r.returncode == 0, r.stderr
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert "antrea_tpu_torch.models.pipeline" in res["modules"]
-    for mod in ("consumer", "pruned_consumer", "onepass"):
+    assert "antrea_tpu_torch.models.profile" in res["modules"]
+    for mod in ("consumer", "pruned_consumer", "onepass", "consumer2"):
         assert f"antrea_tpu_torch.ops.{mod}" in res["modules"]
     assert res["bad"] == []
 
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "antrea_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
+              ROOT / "bench_cold_study_torch.py"]
     seen = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -144,10 +146,15 @@ def test_onepass_needs_the_aggregate_layer(tiny):
 
 
 def test_classify_summary_only_raises(tiny):
+    """summary_only is ported (tests/test_torch_phases.py holds it to the
+    JAX package): alone it runs, beside an unported knob it still raises."""
     drs, meta = tm.to_device(tiny[0], "cpu", prune_budget=2)
     lanes = [torch.zeros(4, dtype=torch.int32)] * 4
-    with pytest.raises(NotImplementedError, match="summary_only"):
-        tm.classify_batch(drs, *lanes, meta=meta, summary_only=True)
+    out = tm.classify_batch(drs, *lanes, meta=meta, summary_only=True)
+    assert not out["prune_fb"].any()
+    with pytest.raises(NotImplementedError, match="v6"):
+        tm.classify_batch(drs, *lanes, meta=meta, summary_only=True,
+                          v6=object())
 
 
 def test_constants_equal_reference():
