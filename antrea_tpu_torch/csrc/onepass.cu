@@ -32,9 +32,10 @@
 // loads: thread t reads aggregate words t, t + 32, ...; a ballot over the
 // nonzero ANDs gives nc by __popc and the candidates in ascending order by
 // __ffs (exactly top_k's values); thread j reads word j of each 32-word
-// candidate row (128 coalesced bytes per row), and a warp min gives the six
-// first matches.  Lane 0 then resolves, merges, packs and stores the rows
-// with 16-byte stores.  Any B is taken as it comes (no tile padding).
+// candidate row (128 coalesced bytes per row), and a warp min gives the
+// six first matches; that scan is candidate_scan.cuh, shared with B2.
+// Lane 0 then resolves, merges, packs and stores the rows with 16-byte
+// stores.  Any B is taken as it comes (no tile padding).
 //
 // Later work: the six (B, S) aggregate matrices are gathered by torch over
 // the whole batch (about 156 MB written and read again at B = 2**17); the
@@ -43,12 +44,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "candidate_scan.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
+using candidate_scan::kAgg;
+using candidate_scan::kBig;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kAgg = 32;  // words per superblock (AGG_BLOCK)
 constexpr int kActAllow = 0;
 constexpr int kActDrop = 1;
 constexpr int kActReject = 2;
@@ -82,22 +85,6 @@ struct Params {
   int in_n0, in_nk, out_n0, out_nk, svcref;
   int t_syn, t_est, t_onew, t_oest, uniform, slot_mask, pref_mask;
 };
-
-// Bits of a word whose global rule index (base + bit) lies in [lo, hi).
-__device__ __forceinline__ uint32_t phase_mask(long long base, long long lo,
-                                               long long hi) {
-  long long klo = lo - base;
-  long long khi = hi - base;
-  klo = klo < 0 ? 0 : (klo > 32 ? 32 : klo);
-  khi = khi < 0 ? 0 : (khi > 32 ? 32 : khi);
-  uint32_t mlo = klo >= 32 ? 0u : ~((1u << klo) - 1u);
-  uint32_t mhi = khi >= 32 ? 0xFFFFFFFFu : ((1u << khi) - 1u);
-  return mlo & mhi;
-}
-
-__device__ __forceinline__ void take(uint32_t bits, int base, int* best) {
-  if (bits) *best = min(*best, base + __ffs(static_cast<int>(bits)) - 1);
-}
 
 __device__ __forceinline__ int4 load4(const int32_t* p) {
   return *reinterpret_cast<const int4*>(p);
@@ -154,13 +141,11 @@ __device__ __forceinline__ void resolve(int a0, int ab, int h0, int hk,
 }
 
 // One direction of one miss lane: nc, and the thread's minima of the three
-// phases over the ke lowest candidate superblocks.
+// phases over the ke lowest candidate superblocks (candidate_scan.cuh).
 __device__ __forceinline__ int scan_direction(
     const Params& p, long long lane, int d, const int4& iv_lo,
     const int4& iv_hi, int* best) {
-  const int lid = threadIdx.x & 31;
   const int S = d ? p.s_out : p.s_in;
-  const int ke = d ? p.ke_out : p.ke_in;
   const long long W = static_cast<long long>(S) * kAgg;
   const uint32_t* ga = p.agg[3 * d] + lane * S;
   const uint32_t* gp = p.agg[3 * d + 1] + lane * S;
@@ -168,40 +153,15 @@ __device__ __forceinline__ int scan_direction(
   const long long r_at = d ? iv_lo.w : iv_lo.x;
   const long long r_peer = d ? iv_hi.x : iv_lo.y;
   const long long r_svc = d ? iv_hi.y : iv_lo.z;
-  const uint32_t* ia = p.inc[3 * d] + r_at * W;
-  const uint32_t* ip = p.inc[3 * d + 1] + r_peer * W;
-  const uint32_t* is = p.inc[3 * d + 2] + r_svc * W;
   const uint32_t* iref =
       (d && p.svcref) ? p.inc[5] + static_cast<long long>(iv_hi.z) * W
                       : nullptr;
-  const long long w0 = d ? p.w0_out : p.w0_in;
   const long long b0 = d ? p.out_n0 : p.in_n0;
-  const long long b1 = b0 + (d ? p.out_nk : p.in_nk);
-
-  int nc = 0;
-  int taken = 0;
-  for (int c0 = 0; c0 < S; c0 += 32) {
-    const int w = c0 + lid;
-    const uint32_t g = w < S ? (ga[w] & gp[w] & gs[w]) : 0u;
-    uint32_t bal = __ballot_sync(0xFFFFFFFFu, g != 0u);
-    nc += __popc(bal);
-    while (bal != 0u && taken < ke) {
-      const int c = c0 + __ffs(static_cast<int>(bal)) - 1;
-      bal &= bal - 1u;
-      ++taken;
-      const long long off = static_cast<long long>(c) * kAgg + lid;
-      uint32_t s = is[off];
-      if (iref != nullptr) s |= iref[off];
-      const uint32_t m = ia[off] & ip[off] & s;
-      if (m != 0u) {
-        const int base = static_cast<int>((w0 + off) * 32);
-        take(m & phase_mask(base, 0, b0), base, &best[0]);
-        take(m & phase_mask(base, b0, b1), base, &best[1]);
-        take(m & phase_mask(base, b1, kBig), base, &best[2]);
-      }
-    }
-  }
-  return nc;
+  return candidate_scan::scan<true, 1>(
+      [=](int w) { return ga[w] & gp[w] & gs[w]; }, S,
+      d ? p.ke_out : p.ke_in, p.inc[3 * d] + r_at * W,
+      p.inc[3 * d + 1] + r_peer * W, p.inc[3 * d + 2] + r_svc * W, iref,
+      d ? p.w0_out : p.w0_in, b0, b0 + (d ? p.out_nk : p.in_nk), best);
 }
 
 __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {

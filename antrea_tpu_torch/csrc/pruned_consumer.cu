@@ -1,124 +1,122 @@
 // B2: the pruned candidate consumer, CUDA C++ for sm_90a.
 //
-// Replaces the Pallas kernel antrea_tpu/ops/match.py:_pruned_consumer_call.
-// Per lane and direction it ANDs the three candidate-word matrices
-// (appliedTo, peer, service words of the lane's K lowest candidate
-// superblocks, K * 32 words) and returns, for each of the three contiguous
-// rule phases [0, n0), [n0, n0 + nk), [n0 + nk, 2**30), the lowest set
-// global rule index, or BIG = 1 << 30 when the phase has no match.  Word j
-// of a lane carries its own base: bit t of it is global rule base[j] + t
-// (the JAX package's _phase_first_from_base).  Output row per lane:
-// [in0, ink, inb, out0, outk, outb, 0, 0] (int32).
+// Replaces the Pallas kernel antrea_tpu/ops/match.py:_pruned_consumer_call
+// together with the candidate gather that feeds it (cand_mats,
+// match.py:1656-1700: the top_k of the candidate superblocks, the
+// candidate-word gathers of the three dimensions, the zeroed fill words and
+// the base matrix).  Per lane and direction it takes the lane's aggregate
+// AND row g (one word per 32-word superblock), selects the ke lowest
+// superblocks whose word is nonzero, ANDs their words in the three
+// incidence rows at the lane's interval rows (the egress service row ORed
+// with the toServices row when svcref is set), and returns, for each of the
+// three contiguous rule phases [0, n0), [n0, n0 + nk), [n0 + nk, 2**30),
+// the lowest set global rule index, or BIG = 1 << 30.  Output row per lane:
+// [in0, ink, inb, out0, outk, outb, 0, 0] (int32).  A lane with more than
+// ke candidates returns the scan of its ke lowest (the caller's full-width
+// fallback overwrites it), one with fewer scans only its own.
 //
-// What bounds it: bytes.  It reads the eight (B, K * 32) int32 matrices
-// once and writes (B, 8): B * 8 * K * 32 * 4 + B * 32 bytes, 1.06 MB at
-// K = 4 and B = 256 (0.32 us at the H100's 3.35 TB/s; the launch costs
-// more) and 135 MB at B = 32768 (40 us).
+// Inputs: g_in (B, S_in) and g_out (B, S_out) int32; iv (B, 8) int32, the
+// lanes' interval rows [in_at, in_peer, in_svc, out_at, out_peer, out_svc,
+// svcref_row, 0] (clamped to the tables); the six tables (rows, S * 32)
+// int32, ingress at/peer/svc then egress at/peer/svc.
 //
-// Design: one warp per lane and direction, four lanes (eight warps) to a
-// block.  Thread j walks words j, j + 32, ... of the direction's rows, so a
-// warp reads 128 contiguous bytes of each matrix per step; it masks each
-// phase's [lo, hi) window against the word's base, takes __ffs, and a
-// warp-shuffle min gives the three outputs.  Any B is taken as it comes.
+// What bounds it: bytes.  A lane reads its two g rows (S_in + S_out words,
+// 396 B at the 100k-rule widths) and, per direction, 128 B of each
+// dimension row for each candidate it scans (at most 6 * K * 128 B = 3 KB
+// at K = 4, a fourth row with svcref); the card's least time counts each
+// distinct (table, row, superblock) once.  The candidate matrices this
+// replaces were gathered by torch into (B, K * 32) int32 matrices, a base
+// matrix a quarter of them, then read back.
 //
-// Later work: the base matrices are a quarter of the traffic and could be
-// derived here from the candidate ids; the candidate-word gathers that
-// feed the kernel (torch indexing in ops/match._classify_pruned) write the
-// matrices once and the kernel reads them again.
+// Design: one warp per lane and direction, one lane (two warps) to a block,
+// so B = 256 gives 256 blocks over the 132 SMs.  The warp runs
+// candidate_scan.cuh's scan (shared with B3): a ballot over g's nonzero
+// words, the candidates in ascending order by __ffs, up to four candidates'
+// 128-byte blocks loaded together, the base derived from the candidate id
+// ((w0 + 32 * c + t) * 32), then the AND, the phase masks and __ffs; a
+// warp-shuffle min gives the direction's three outputs.  Any B is taken as
+// it comes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "candidate_scan.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
-constexpr int kLanesPerBlock = 4;
-constexpr int kThreads = kLanesPerBlock * 64;
+using candidate_scan::kAgg;
+using candidate_scan::kBig;
+constexpr int kThreads = 64;  // one lane: warp 0 ingress, warp 1 egress
 
-// Bits of a word whose global rule index (base + bit) lies in [lo, hi).
-__device__ __forceinline__ uint32_t phase_mask(long long base, long long lo,
-                                               long long hi) {
-  long long klo = lo - base;
-  long long khi = hi - base;
-  klo = klo < 0 ? 0 : (klo > 32 ? 32 : klo);
-  khi = khi < 0 ? 0 : (khi > 32 ? 32 : khi);
-  uint32_t mlo = klo >= 32 ? 0u : ~((1u << klo) - 1u);
-  uint32_t mhi = khi >= 32 ? 0xFFFFFFFFu : ((1u << khi) - 1u);
-  return mlo & mhi;
+struct Params {
+  const uint32_t* g[2];
+  const int32_t* iv;
+  const uint32_t* inc[6];
+  int32_t* out;
+  int rows[6];
+  int b, s_in, s_out, ke_in, ke_out, w0_in, w0_out, in_n0, in_nk, out_n0,
+      out_nk, svcref;
+};
+
+__device__ __forceinline__ const uint32_t* row_ptr(const Params& p, int t,
+                                                   int r, long long w) {
+  r = r < 0 ? 0 : (r >= p.rows[t] ? p.rows[t] - 1 : r);
+  return p.inc[t] + r * w;
 }
 
-__device__ __forceinline__ void take(uint32_t bits, int base, int* best) {
-  if (bits) *best = min(*best, base + __ffs(static_cast<int>(bits)) - 1);
-}
-
-__global__ void __launch_bounds__(kThreads) pruned_kernel(
-    const uint32_t* __restrict__ ia, const uint32_t* __restrict__ ip,
-    const uint32_t* __restrict__ is, const int32_t* __restrict__ bi,
-    const uint32_t* __restrict__ oa, const uint32_t* __restrict__ op,
-    const uint32_t* __restrict__ os, const int32_t* __restrict__ bo,
-    int32_t* __restrict__ out, int b, int kw_in, int kw_out, int in_n0,
-    int in_nk, int out_n0, int out_nk) {
-  const int warp = threadIdx.x / 32;
+__global__ void __launch_bounds__(kThreads) pruned_kernel(const Params p) {
+  const int d = threadIdx.x / 32;  // 0 ingress, 1 egress
   const int lid = threadIdx.x % 32;
-  const long long lane =
-      static_cast<long long>(blockIdx.x) * kLanesPerBlock + warp / 2;
-  if (lane >= b) return;  // the whole warp leaves together
-  const bool egress = (warp & 1) != 0;
-  const int kw = egress ? kw_out : kw_in;
-  const long long row = lane * kw;
-  const uint32_t* a = (egress ? oa : ia) + row;
-  const uint32_t* p = (egress ? op : ip) + row;
-  const uint32_t* s = (egress ? os : is) + row;
-  const int32_t* base = (egress ? bo : bi) + row;
-  const long long b0 = egress ? out_n0 : in_n0;
-  const long long b1 = b0 + (egress ? out_nk : in_nk);
+  const long long lane = blockIdx.x;
+  const int S = d ? p.s_out : p.s_in;
+  const long long W = static_cast<long long>(S) * kAgg;
+  const int32_t* iv = p.iv + lane * 8;
+  const uint32_t* g = p.g[d] + lane * S;
+  const uint32_t* iref =
+      (d && p.svcref) ? row_ptr(p, 5, iv[6], W) : nullptr;
+  const long long b0 = d ? p.out_n0 : p.in_n0;
 
   int best[3] = {kBig, kBig, kBig};
-  for (int j = lid; j < kw; j += 32) {
-    uint32_t m = a[j] & p[j] & s[j];
-    if (m == 0u) continue;
-    const int bs = base[j];
-    take(m & phase_mask(bs, 0, b0), bs, &best[0]);
-    take(m & phase_mask(bs, b0, b1), bs, &best[1]);
-    take(m & phase_mask(bs, b1, kBig), bs, &best[2]);
-  }
+  candidate_scan::scan<false, 4>(
+      [=](int w) { return g[w]; }, S, d ? p.ke_out : p.ke_in,
+      row_ptr(p, 3 * d, iv[3 * d], W), row_ptr(p, 3 * d + 1, iv[3 * d + 1], W),
+      row_ptr(p, 3 * d + 2, iv[3 * d + 2], W), iref, d ? p.w0_out : p.w0_in,
+      b0, b0 + (d ? p.out_nk : p.in_nk), best);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) {
-      best[k] = min(best[k], __shfl_down_sync(0xFFFFFFFFu, best[k], off));
+      best[k] = min(best[k], __shfl_xor_sync(0xFFFFFFFFu, best[k], off));
     }
   }
-  if (lid == 0) {
-    int32_t* o = out + lane * 8 + (egress ? 3 : 0);
-    o[0] = best[0];
-    o[1] = best[1];
-    o[2] = best[2];
-    if (!egress) {
-      out[lane * 8 + 6] = 0;
-      out[lane * 8 + 7] = 0;
-    }
+  if (lid < 3) {
+    p.out[lane * 8 + 3 * d + lid] = lid == 0 ? best[0] : (lid == 1 ? best[1]
+                                                                    : best[2]);
+  } else if (d == 0 && lid < 5) {
+    p.out[lane * 8 + 3 + lid] = 0;  // columns 6 and 7
   }
 }
 
 }  // namespace
 
-// C entry point (loaded with ctypes).  Launches on `stream`, allocates
-// nothing, and returns cudaGetLastError() so a refused launch is reported.
-extern "C" int b2_pruned_consumer(const void* ia, const void* ip,
-                                  const void* is, const void* bi,
-                                  const void* oa, const void* op,
-                                  const void* os, const void* bo, void* out,
-                                  int b, int kw_in, int kw_out, int in_n0,
-                                  int in_nk, int out_n0, int out_nk,
+// C entry point (loaded with ctypes).  ptrs: g_in, g_out, iv, the six
+// tables, out (device pointers).  ints: b, s_in, s_out, ke_in, ke_out,
+// w0_in, w0_out, in_n0, in_nk, out_n0, out_nk, svcref, then the six tables'
+// row counts.  Launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() so a refused launch is reported.
+extern "C" int b2_pruned_consumer(void* const* ptrs, const int* ints,
                                   void* stream) {
-  const int blocks = (b + kLanesPerBlock - 1) / kLanesPerBlock;
-  pruned_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ia), static_cast<const uint32_t*>(ip),
-      static_cast<const uint32_t*>(is), static_cast<const int32_t*>(bi),
-      static_cast<const uint32_t*>(oa), static_cast<const uint32_t*>(op),
-      static_cast<const uint32_t*>(os), static_cast<const int32_t*>(bo),
-      static_cast<int32_t*>(out), b, kw_in, kw_out, in_n0, in_nk, out_n0,
-      out_nk);
+  Params p;
+  p.g[0] = static_cast<const uint32_t*>(ptrs[0]);
+  p.g[1] = static_cast<const uint32_t*>(ptrs[1]);
+  p.iv = static_cast<const int32_t*>(ptrs[2]);
+  for (int i = 0; i < 6; ++i) p.inc[i] = static_cast<const uint32_t*>(ptrs[3 + i]);
+  p.out = static_cast<int32_t*>(ptrs[9]);
+  int* f[] = {&p.b, &p.s_in, &p.s_out, &p.ke_in, &p.ke_out, &p.w0_in,
+              &p.w0_out, &p.in_n0, &p.in_nk, &p.out_n0, &p.out_nk, &p.svcref};
+  const int nf = static_cast<int>(sizeof(f) / sizeof(f[0]));
+  for (int i = 0; i < nf; ++i) *f[i] = ints[i];
+  for (int i = 0; i < 6; ++i) p.rows[i] = ints[nf + i];
+  pruned_kernel<<<p.b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,7 +52,7 @@ from ..ops import consumer, hashing, onepass
 from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
                          _dim_index, _refuse, _resolve, _svcref_key,
                          classify_batch, from_numpy, resolve_device,
-                         ruleset_from_numpy, to_host)
+                         ruleset_from_numpy, tables, to_host)
 
 MISS = -1
 # Generation tag reserved for conntrack-committed (ALLOW) entries; rule
@@ -955,10 +955,8 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
         x, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
                                sport, dport, pp, h, miss, kr0, mr, ts0, now,
                                meta, lb=lb)
-        tabs = onepass.OnepassTables(
-            inc=tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at,
-                                      eg.peer, eg.svc)),
-            act_in=ing.action, act_out=eg.action)
+        tabs = onepass.OnepassTables(inc=tables(drs), act_in=ing.action,
+                                     act_out=eg.action)
         st = onepass.OnepassStatic(
             k=mm.prune_budget, in_phases=mm.in_phases,
             out_phases=mm.out_phases, svcref=mm.svcref,
@@ -971,15 +969,8 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
             # full-width walk (the function B1 computes, so through B1's
             # wrapper), resolved and packed again, written back lane for
             # lane.
-            iv = x.iv[fb].long()
-            out_svc = eg.svc.inc[iv[:, 5]]
-            if mm.svcref:
-                out_svc = out_svc | eg.svc.inc[iv[:, 6]]
-            hits = consumer.fused_hits(
-                (ing.at.inc[iv[:, 0]], ing.peer.inc[iv[:, 1]],
-                 ing.svc.inc[iv[:, 2]]),
-                (eg.at.inc[iv[:, 3]], eg.peer.inc[iv[:, 4]], out_svc),
-                mm.in_phases, mm.out_phases)
+            hits = consumer.fused_hits(tabs.inc, x.iv[fb], mm.svcref,
+                                       mm.in_phases, mm.out_phases)
             lb_f, prb, pkt = x.lb[fb], x.prb[fb], x.pkt[fb]
             no_ep_f = lb_f[:, 1] != 0
             f_code, f_ri, f_ro = _fresh_code(drs, hits[:, :6].unbind(1),

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .consumer import _check, phase_hits
+from .consumer import phase_hits
 
 # Kernel launches since the counter was last set to 0.  Only the CUDA
 # launch in and_hits() adds to it.
@@ -35,6 +35,24 @@ def and_hits_plain(m_in, m_out, in_phases, out_phases) -> torch.Tensor:
     hout = phase_hits(m_out, 0, out_phases)
     z = torch.zeros_like(hin[0])
     return torch.stack([*hin, *hout, z, z], dim=1)
+
+
+def _check(rows, b: int, dev: torch.device, what: str) -> int:
+    """Row matrices (B, w) int32, contiguous, on dev -> w."""
+    w = rows[0].shape[1] if rows[0].dim() == 2 else -1
+    for r in rows:
+        if r.dtype != torch.int32:
+            raise TypeError(f"{what} rows must be int32, got {r.dtype}")
+        if r.device != dev:
+            raise ValueError(f"{what} rows must all lie on {dev}")
+        if r.dim() != 2 or r.shape != (b, w):
+            raise ValueError(f"{what} rows must all be ({b}, w), got "
+                             f"{tuple(r.shape)}")
+        if not r.is_contiguous():
+            raise ValueError(f"{what} rows must be contiguous")
+    if w < 1:
+        raise ValueError(f"{what} rows need at least one word")
+    return w
 
 
 _fn = None

@@ -4,15 +4,16 @@ antrea_tpu/ops/match.py (v4, single card, no delta patching).
 Per packet and direction: an interval lookup per dimension (appliedTo, peer,
 service) over that dimension's own boundaries, one incidence-row gather per
 dimension, the AND of the three rows, and per rule phase the lowest set rule
-index (rule order is priority order).  The AND and the phase scan are the
-B1 consumer (ops/consumer.py, a CUDA kernel on the card); the interval
-lookups and row gathers stay torch ops.
+index (rule order is priority order).  With fused=True the row reads, the
+AND and the phase scan are the B1 consumer (ops/consumer.py, a CUDA kernel
+on the card, which reads the rows from the tables at the lanes' interval
+rows); the interval lookups stay torch ops.
 
 With prune_budget = K > 0 the tables carry an aggregate level (one bit per
 incidence word, one aggregate word per 32-word superblock) and classify runs
 the two-level pruned walk (_classify_pruned): the aggregate AND proves most
-lanes no-match, the K lowest candidate superblocks are scanned through the
-B2 consumer (ops/pruned_consumer.py), and lanes with more than K candidates
+lanes no-match, the B2 consumer (ops/pruned_consumer.py) selects and scans
+the K lowest candidate superblocks, and lanes with more than K candidates
 fall back to the full-width walk through B1, so verdicts stay exact.
 
 The host-side table builders (to_host and helpers) are the JAX package's
@@ -47,7 +48,7 @@ BIG = consumer.BIG
 # word (32 rules); one aggregate word a 32-word superblock (1024 rules), the
 # granularity of the candidate gather.  Aggregate bits are conservative: a
 # zero aggregate AND proves no match; a set bit may still find none.
-AGG_BLOCK = 32
+AGG_BLOCK = pruned_consumer.AGG_BLOCK
 # The prune budget's rung ladder (the JAX package's autotuner moves on it).
 PRUNE_LADDER = (1, 2, 4, 8, 16)
 # Candidate-superblock histogram bucket bounds (per-lane max over the two
@@ -511,6 +512,29 @@ def _resolve_from_actions(a0, ab, hits, pod_iso):
     return code.to(torch.int32), rule.to(torch.int32)
 
 
+def tables(drs: DeviceRuleSet) -> tuple:
+    """The six incidence tables in the kernels' order: ingress at, peer,
+    svc, then egress at, peer, svc."""
+    ing, eg = drs.ingress, drs.egress
+    return tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at, eg.peer,
+                                 eg.svc))
+
+
+def interval_rows(drs: DeviceRuleSet, src_ip_f, dst_ip_f, svc_key,
+                  ref_key=None) -> torch.Tensor:
+    """The lanes' interval rows, (B, 8) int32 [in_at, in_peer, in_svc,
+    out_at, out_peer, out_svc, svcref_row, 0]: ingress probes appliedTo with
+    the pod side (dst) and peer with src, egress the reverse; svcref_row is
+    the egress svc row of ref_key (0 without one)."""
+    ing, eg = drs.ingress, drs.egress
+    cols = [_dim_index(ing.at, dst_ip_f), _dim_index(ing.peer, src_ip_f),
+            _dim_index(ing.svc, svc_key), _dim_index(eg.at, src_ip_f),
+            _dim_index(eg.peer, dst_ip_f), _dim_index(eg.svc, svc_key)]
+    z = torch.zeros_like(cols[0])
+    ref = z if ref_key is None else _dim_index(eg.svc, ref_key)
+    return torch.stack([*cols, ref, z], dim=1).to(torch.int32)
+
+
 def _refuse(**knobs) -> None:
     """Raise NotImplementedError naming the first knob set to a value this
     port does not implement (a truthy value)."""
@@ -552,34 +576,19 @@ def classify_batch(
                                 summary_only=summary_only)
     ing, eg = drs.ingress, drs.egress
     svc_key = (proto << 16) | dst_port
-
-    def dim_row(tab: DimTable, x: torch.Tensor) -> torch.Tensor:
-        return tab.inc[_dim_index(tab, x)]
-
-    def iso_bit(tab: IsoTable, x: torch.Tensor) -> torch.Tensor:
-        return tab.val[_dim_index(tab, x)]
-
-    # Ingress: pod = dst, peer = src.  Egress: pod = src, peer = dst.
-    in_at = dim_row(ing.at, dst_ip_f)
-    in_peer = dim_row(ing.peer, src_ip_f)
-    in_svc = dim_row(ing.svc, svc_key)
-    out_at = dim_row(eg.at, src_ip_f)
-    out_peer = dim_row(eg.peer, dst_ip_f)
-    out_svc = dim_row(eg.svc, svc_key)
-    if meta.svcref:
-        # OR is exact: ordinary port ranges live below SVCREF_BASE and
-        # reference ranges at SVCREF_BASE + idx (compiler/compile.py).
-        out_svc = out_svc | dim_row(eg.svc, _svcref_key(svc_key, svc_ref))
-    iso_in = iso_bit(drs.iso_in, dst_ip_f)
-    iso_out = iso_bit(drs.iso_out, src_ip_f)
+    ref_key = _svcref_key(svc_key, svc_ref) if meta.svcref else None
+    iso_in = drs.iso_in.val[_dim_index(drs.iso_in, dst_ip_f)]
+    iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
+    iv = interval_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key)
 
     if fused:
-        hits = consumer.fused_hits(
-            (in_at, in_peer, in_svc), (out_at, out_peer, out_svc),
-            meta.in_phases, meta.out_phases)
+        hits = consumer.fused_hits(tables(drs), iv, meta.svcref,
+                                   meta.in_phases, meta.out_phases)
         in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
         out_hits = (hits[:, 3], hits[:, 4], hits[:, 5])
     else:
+        (in_at, in_peer, in_svc), (out_at, out_peer, out_svc) = (
+            consumer.gather_rows(tables(drs), iv, meta.svcref))
         in_hits = consumer.phase_hits(in_at & in_peer & in_svc, 0,
                                       meta.in_phases)
         out_hits = consumer.phase_hits(out_at & out_peer & out_svc, 0,
@@ -620,32 +629,20 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
     B = src_ip_f.shape[0]
     K = meta.prune_budget
     svc_key = (proto << 16) | dst_port
-    # Per direction: (tables, interval rows at/peer/svc, svcref row or
-    # None).  Ingress: pod = dst probes appliedTo, peer = src.
-    ref = (_dim_index(eg.svc, _svcref_key(svc_key, svc_ref))
-           if meta.svcref else None)
-    dirs = (
-        (ing, (_dim_index(ing.at, dst_ip_f), _dim_index(ing.peer, src_ip_f),
-               _dim_index(ing.svc, svc_key)), None),
-        (eg, (_dim_index(eg.at, src_ip_f), _dim_index(eg.peer, dst_ip_f),
-              _dim_index(eg.svc, svc_key)), ref),
-    )
+    ref_key = _svcref_key(svc_key, svc_ref) if meta.svcref else None
+    iv = interval_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key)
     iso_in = drs.iso_in.val[_dim_index(drs.iso_in, dst_ip_f)]
     iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
 
-    def rows(tab_of, dd, iv, iv_ref):
-        """The three dimension rows of table kind tab_of ("agg"/"inc")."""
-        a = getattr(dd.at, tab_of)[iv[0]]
-        p = getattr(dd.peer, tab_of)[iv[1]]
-        s = getattr(dd.svc, tab_of)[iv[2]]
-        if iv_ref is not None:
-            s = s | getattr(dd.svc, tab_of)[iv_ref]
-        return a, p, s
-
     g, nc, ke = [], [], []
-    for dd, iv, iv_ref in dirs:
-        a, p, s = rows("agg", dd, iv, iv_ref)
-        g.append(a & p & s)
+    for d, dd in enumerate((ing, eg)):
+        # The aggregate AND of the direction's three dimension rows (the
+        # svcref row ORed into svc).
+        rows = [t.agg[iv[:, 3 * d + k].long()]
+                for k, t in enumerate((dd.at, dd.peer, dd.svc))]
+        if d and meta.svcref:
+            rows[2] = rows[2] | dd.svc.agg[iv[:, 6].long()]
+        g.append(rows[0] & rows[1] & rows[2])
         nc.append((g[-1] != 0).sum(dim=1, dtype=torch.int32))
         ke.append(min(K, dd.at.agg.shape[1]))
     live = (nc[0] > 0) | (nc[1] > 0)
@@ -655,29 +652,23 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
         fb = torch.zeros_like(fb)
     else:
         # One read-back: whether any lane has a candidate (else the whole
-        # batch takes the default verdicts: no candidate gather, no
+        # batch takes the default verdicts: no candidate scan, no
         # fallback) and how many lanes fall back.
         any_live, n_fb = torch.stack([live.any().long(), fb.sum()]).tolist()
     if any_live:
-        mats = [_candidate_mats(dd, gd, iv, iv_ref, k)
-                for (dd, iv, iv_ref), gd, k in zip(dirs, g, ke)]
-        if fused:
-            hits = pruned_consumer.pruned_hits(mats[0], mats[1],
-                                               meta.in_phases, meta.out_phases)
-        else:
-            hits = pruned_consumer.pruned_plain(mats[0], mats[1],
-                                                meta.in_phases,
-                                                meta.out_phases)
+        # B2 selects each lane's ke lowest candidate superblocks and reads
+        # their words from the tables (the kernel on the card when fused).
+        scan = (pruned_consumer.pruned_hits if fused
+                else pruned_consumer.pruned_hits_plain)
+        hits = scan(g[0], g[1], iv, tables(drs), ke[0], ke[1], meta.svcref,
+                    meta.in_phases, meta.out_phases)
         if n_fb:
             # Full-width walk of the compacted fallback lanes: the function
             # B1 computes, so it goes through B1's wrapper (the kernel on
             # the card), written back lane for lane.
             idx = torch.nonzero(fb).flatten()
-            full = [rows("inc", dd, [r[idx] for r in iv],
-                         None if iv_ref is None else iv_ref[idx])
-                    for dd, iv, iv_ref in dirs]
-            hits[idx] = consumer.fused_hits(full[0], full[1], meta.in_phases,
-                                            meta.out_phases)
+            hits[idx] = consumer.fused_hits(tables(drs), iv[idx], meta.svcref,
+                                            meta.in_phases, meta.out_phases)
         in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
         out_hits = (hits[:, 3], hits[:, 4], hits[:, 5])
     else:
@@ -698,52 +689,6 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
         "prune_fb": fb,
         "prune_cand": torch.maximum(nc[0], nc[1]),
     }
-
-
-def candidate_ids(g: torch.Tensor, ke: int) -> tuple:
-    """Aggregate AND rows g (B, S) -> the ke lowest superblocks whose
-    aggregate word is nonzero, ascending, as (ids clipped to S-1 (B, ke)
-    int64, valid (B, ke) bool).  The values of lax.top_k(-score, ke) with
-    fill S: taken from a sorted topk's values, never its indices, so ties
-    among the fill scores cannot reorder anything."""
-    S = g.shape[1]
-    ids = torch.arange(S, dtype=torch.int32, device=g.device)
-    score = torch.where(g != 0, ids, S)
-    cand = torch.topk(score, ke, dim=1, largest=False, sorted=True).values
-    return cand.clamp(max=S - 1).long(), cand < S
-
-
-def candidate_blocks(inc: torch.Tensor, iv: torch.Tensor,
-                     cand: torch.Tensor) -> torch.Tensor:
-    """(rows, S*32) incidence, interval rows iv (B,), candidate superblocks
-    cand (B, ke) -> the candidate words (B, ke, 32)."""
-    S = inc.shape[1] // AGG_BLOCK
-    return inc.view(-1, AGG_BLOCK)[iv.long()[:, None] * S + cand]
-
-
-def candidate_base(cand: torch.Tensor, w0: int = 0) -> torch.Tensor:
-    """Candidate superblocks (B, ke) -> the per-word base matrix
-    (B, ke*32) int32: 32 * the global word index of each candidate word."""
-    j = torch.arange(AGG_BLOCK, dtype=torch.int64, device=cand.device)
-    base = (w0 + cand[:, :, None] * AGG_BLOCK + j) * 32
-    return base.reshape(cand.shape[0], -1).to(torch.int32)
-
-
-def _candidate_mats(dd: DeviceDirection, g, iv, iv_ref, ke):
-    """B2's four (B, ke*32) int32 inputs of one direction: the candidate
-    words of the three dimensions (the svcref row ORed into svc, fill
-    candidates zeroed in one dimension so the AND kills them) and their
-    base matrix.  One card: the direction's global word offset is 0."""
-    cand, valid = candidate_ids(g, ke)
-    B = g.shape[0]
-    ca = candidate_blocks(dd.at.inc, iv[0], cand)
-    cp = candidate_blocks(dd.peer.inc, iv[1], cand)
-    cs = candidate_blocks(dd.svc.inc, iv[2], cand)
-    if iv_ref is not None:
-        cs = cs | candidate_blocks(dd.svc.inc, iv_ref, cand)
-    ca = torch.where(valid[:, :, None], ca, 0)
-    return (ca.reshape(B, -1), cp.reshape(B, -1), cs.reshape(B, -1),
-            candidate_base(cand))
 
 
 def make_classifier(cps: CompiledPolicySet, device=None):

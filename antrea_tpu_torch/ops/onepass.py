@@ -33,6 +33,7 @@ from .. import _build
 from ..compiler.compile import ACT_ALLOW, ACT_REJECT
 from . import match
 from .consumer import phase_first_from_base
+from .pruned_consumer import candidate_mats
 
 # Kernel launches since the counter was last set to 0.  Only the CUDA
 # launch in onepass() adds to it.
@@ -118,18 +119,10 @@ def onepass_plain(x: OnepassInputs, tabs: OnepassTables, now: int,
         a, p, s = x.agg[3 * d:3 * d + 3]
         ke = min(st.k, a.shape[1])
         g = torch.where(miss[:, None], a & p & s, 0)
-        cand, cvalid = match.candidate_ids(g, ke)
-        ca = match.candidate_blocks(tabs.inc[3 * d], x.iv[:, 3 * d], cand)
-        cp = match.candidate_blocks(tabs.inc[3 * d + 1], x.iv[:, 3 * d + 1],
-                                    cand)
-        cs = match.candidate_blocks(tabs.inc[3 * d + 2], x.iv[:, 3 * d + 2],
-                                    cand)
-        if st.svcref and d == 1:
-            cs = cs | match.candidate_blocks(tabs.inc[5], x.iv[:, 6], cand)
-        ca = torch.where(cvalid[:, :, None], ca, 0)
-        m = (ca & cp & cs).reshape(g.shape[0], -1)
-        hits += phase_first_from_base(m, match.candidate_base(cand, w0),
-                                      phases)
+        ca, cp, cs, base = candidate_mats(
+            tabs.inc[3 * d:3 * d + 3], g, x.iv[:, 3 * d:3 * d + 3].unbind(1),
+            x.iv[:, 6] if st.svcref and d == 1 else None, ke, w0)
+        hits += phase_first_from_base(ca & cp & cs, base, phases)
         ncs.append((g != 0).sum(dim=1, dtype=torch.int32))
         kes.append(ke)
     skip = miss & (ncs[0] == 0) & (ncs[1] == 0)

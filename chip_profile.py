@@ -20,8 +20,9 @@ measures three windows, first without and then under torch.profiler:
 For each window it prints the wall time (host clock around the work,
 ending in torch.cuda.synchronize()), the device busy time (the sum of the
 kernels' own device times in the profile), the device idle share, the
-operators with the most device time, and each hand-written kernel's
-launches and device time.  Chrome traces go to OUT_DIR.
+device time of torch's row gathers (aten::index), the operators with the
+most device time, and each hand-written kernel's launches and device time.
+Chrome traces go to OUT_DIR.
 
 Then two phase breakdowns (models/profile.py, telescoped differences over
 cumulative phase masks, k_small=K_SMALL, k_big=K_BIG, best of REPEATS), with
@@ -80,6 +81,8 @@ def window(name, fn):
     rows = sorted(prof.key_averages(), key=self_device_us, reverse=True)
     kernels = [e for e in rows if is_kernel(e)]
     busy_us = sum(self_device_us(e) for e in kernels)
+    index = [e for e in rows if e.key == "aten::index"]
+    index_ms = sum(self_device_us(e) for e in index) / 1e3
     ours = {}
     for k, sym in KERNELS.items():
         rows_k = [e for e in kernels if sym in e.key]
@@ -87,7 +90,8 @@ def window(name, fn):
                    "ms": sum(self_device_us(e) for e in rows_k) / 1e3}
     print(f"[{name}] wall {wall * 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share "
-          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; "
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; aten::index "
+          f"{sum(e.count for e in index)} calls {index_ms:.3f} ms; "
           + ", ".join(f"{k} {v['launches']} launches {v['ms']:.3f} ms"
                       for k, v in ours.items()), flush=True)
     top = []
@@ -97,7 +101,8 @@ def window(name, fn):
         top.append({"op": e.key, "device_ms": us / 1e3, "calls": e.count})
         print(f"  {us / 1e3:9.3f} ms  {e.count:7d}x  {e.key[:90]}")
     return {"window": name, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy_us / 1e3, "kernels": ours, "top": top}
+            "device_busy_ms": busy_us / 1e3, "aten_index_ms": index_ms,
+            "kernels": ours, "top": top}
 
 
 def main() -> int:

@@ -17,10 +17,14 @@ package is missing, or when any phase fails.  Phases, in order:
      (the same with prune_budget=4, ct_timeout_s=3600: bench.py's
      measure_fused);
   3. hold each kernel against its plain PyTorch version on the card, bit for
-     bit, and time both with CUDA events: B1 and B2 on seeded inputs at the
-     world's widths and phases, at B = 256 (the staged step's miss round)
-     and B = 32768; B3 on the one-pass step's own inputs for the whole batch
-     on an empty cache (all miss);
+     bit, and time both with CUDA events, on the world's own tables and the
+     batch's own interval rows (the one-pass step's inputs on an empty
+     cache: every lane a miss): B1 (staged tables), S1 (their ANDed rows)
+     and B2 (pruned tables, the lanes' own aggregate AND rows, K = 4) on the
+     first 256 lanes (the staged step's miss round) and the first 32768; B3
+     on the whole batch.  For B1 and B2 also the time of the torch gathers
+     that their old call sites ran on the same lanes, and two bounds: each
+     distinct (table, row) read once, and every lane's rows read;
   4. drive the staged fused step: one cold step, one warm step, 8 steady
      steps, with every launch count set to 0 just before and read just
      after; print ms/step and packets/s;
@@ -28,7 +32,8 @@ package is missing, or when any phase fails.  Phases, in order:
      then 4 steps that each expire the whole cache (now = 7200 * (i + 2),
      bench.py's cold_fused regime); print ms/step, packets/s, B3 launches
      and the prune counters; then hold B3 against its plain version once
-     more on the warm cache (mostly hits);
+     more on the warm cache (mostly hits), and B1 on every fallback lane of
+     one more expire-all batch (the one-pass fallback re-walk's inputs);
   6. the pruned classify, classify_batch(prune_budget=4, fused=True) on
      2**15 lanes (bench.py's measure_cold_pruned), and one cold step of the
      staged pruned pipeline (onepass=False), whose B2 launches must be
@@ -50,8 +55,7 @@ package is missing, or when any phase fails.  Phases, in order:
      gathered and ANDed in torch, then S1) on its own 100k-rule world at
      B = 2**15, in this process.
 
-S1 is held against its plain version in phase 3, at the same widths.  The
-line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -122,32 +126,6 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(tb, to), "bytes" if tb >= to else "operations"
 
 
-def random_words(g, shape, dev):
-    """Seeded int32 words, each the AND of three random words (bit density
-    1/8), so a three-matrix AND has density 1/512 and a phase's first hit
-    lies some words deep."""
-    import torch
-
-    r = [torch.randint(-(2**31), 2**31, shape, generator=g, dtype=torch.int32,
-                       device=dev) for _ in range(3)]
-    return r[0] & r[1] & r[2]
-
-
-def consumer_inputs(b, w_in, w_out, seed, dev):
-    """Six (b, w) int32 row matrices, seeded (random_words); every 7th lane
-    has an all-zero row (no hit anywhere)."""
-    import torch
-
-    g = torch.Generator(device=dev).manual_seed(seed)
-
-    def row(w):
-        m = random_words(g, (b, w), dev)
-        m[::7] = 0
-        return m.contiguous()
-
-    return ([row(w_in) for _ in range(3)], [row(w_out) for _ in range(3)])
-
-
 def check_kernel(name, run, plain, b, nbytes, ops, inner):
     """Run the kernel and its plain version on the same inputs, require
     bitwise equality, time both -> record."""
@@ -179,87 +157,134 @@ def check_kernel(name, run, plain, b, nbytes, ops, inner):
                 bytes=nbytes)
 
 
-def check_consumer(meta, dev):
-    """Phase 3 for B1 -> per-B records."""
+def with_gathers(rec, name, gather, per_lane_bytes, inner):
+    """Add to a B1/B2 record the time of the torch gathers that the old call
+    sites ran on the same lanes (gather_ms: the device's own time for them,
+    queued ahead like the kernel's ms; gather_call_ms: per call as the path
+    paid it, the host's issue time included) and the per-lane bound (every
+    lane's rows read from device memory: the old contract's bound) beside
+    rec's rows-once bound; print both shares."""
+    from antrea_tpu_torch.utils.timing import device_time
+
+    gather_s = device_time(gather, iters=7, inner=inner,
+                           host_lead_s=inner * 2e-3)
+    gather_call_s = device_time(gather, iters=7, inner=inner)
+    lane_s, _ = bound(per_lane_bytes, 0)
+    rec.update(gather_ms=gather_s * 1e3, gather_call_ms=gather_call_s * 1e3,
+               bound_per_lane_ms=lane_s * 1e3, bytes_per_lane=per_lane_bytes,
+               share_rows_once=rec["bound_ms"] / rec["ms"],
+               share_per_lane=lane_s * 1e3 / rec["ms"])
+    log(f"  {name}: torch gathers of the old call site {gather_s * 1e6:.2f} "
+        f"us ({gather_call_s * 1e6:.2f} us per call); bounds: rows once "
+        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['share_rows_once']:.3f} "
+        f"reached), per lane {lane_s * 1e6:.2f} us "
+        f"({per_lane_bytes / 1e6:.2f} MB, {rec['share_per_lane']:.3f} "
+        f"reached)")
+    return rec
+
+
+def distinct(iv, cols) -> int:
+    """Distinct values over the given columns of iv (one table's rows)."""
     import torch
 
+    return int(torch.unique(iv[:, list(cols)]).numel())
+
+
+def check_consumer(tabs, iv, svcref, in_phases, out_phases, what, inner):
+    """Phase 3 for B1 on the world's tables at the batch's interval rows
+    -> record.  The rows-once bound counts each distinct (table, row) once,
+    plus iv and the output; the per-lane bound every lane's 6 (7 with
+    svcref) rows."""
     from antrea_tpu_torch.ops import consumer
 
-    recs = {}
-    for b, seed, inner in ((256, 1, 50), (32768, 2, 3)):
-        rin, rout = consumer_inputs(b, meta.w_in, meta.w_out, seed, dev)
-        args = (rin, rout, meta.in_phases, meta.out_phases)
-        words = meta.w_in + meta.w_out
-        recs[b] = check_kernel(
-            f"B1 consumer (w_in={meta.w_in} w_out={meta.w_out})",
-            lambda: consumer.fused_hits(*args),
-            lambda: consumer.consumer_plain(*args), b,
-            b * 3 * words * 4 + b * 8 * 4, b * 2 * words, inner)
-        del rin, rout
-    torch.cuda.empty_cache()
-    return recs
+    b = iv.shape[0]
+    w = [t.shape[1] for t in tabs]
+    cols = [(0,), (1,), (2,), (3,), (4,), (5, 6) if svcref else (5,)]
+    io = b * 8 * 4 * 2
+    once = sum(distinct(iv, c) * wt * 4 for c, wt in zip(cols, w)) + io
+    per_lane = b * 4 * (sum(w) + (w[5] if svcref else 0)) + io
+    args = (tabs, iv, svcref, in_phases, out_phases)
+    rec = check_kernel(
+        f"B1 consumer ({what}, w_in={w[0]} w_out={w[3]})",
+        lambda: consumer.fused_hits(*args),
+        lambda: consumer.fused_hits_plain(*args), b, once,
+        b * 2 * (w[0] + w[3]), inner)
+    idx = [iv[:, k].long() for k in range(7)]
+
+    def gather():
+        rows = [t[i] for t, i in zip(tabs, idx)]
+        if svcref:
+            rows[5] = rows[5] | tabs[5][idx[6]]
+        return rows
+
+    rec["lanes"] = b
+    return with_gathers(rec, "B1", gather, per_lane, inner)
 
 
-def check_consumer2(meta, dev):
-    """Phase 3 for S1: the ANDed rows of consumer_inputs -> per-B
-    records."""
+def check_consumer2(tabs, iv, in_phases, out_phases, inner):
+    """Phase 3 for S1 on the ANDed rows of the lanes iv -> record."""
     import torch
 
-    from antrea_tpu_torch.ops import consumer2
+    from antrea_tpu_torch.ops import consumer, consumer2
 
-    recs = {}
-    for b, seed, inner in ((256, 5, 50), (32768, 6, 3)):
-        rin, rout = consumer_inputs(b, meta.w_in, meta.w_out, seed, dev)
-        args = (rin[0] & rin[1] & rin[2], rout[0] & rout[1] & rout[2],
-                meta.in_phases, meta.out_phases)
-        del rin, rout
-        words = meta.w_in + meta.w_out
-        recs[b] = check_kernel(
-            f"S1 consumer2 (w_in={meta.w_in} w_out={meta.w_out})",
-            lambda: consumer2.and_hits(*args),
-            lambda: consumer2.and_hits_plain(*args), b,
-            b * words * 4 + b * 8 * 4, b * 2 * words, inner)
-        del args
+    rows_in, rows_out = consumer.gather_rows(tabs, iv, False)
+    args = (rows_in[0] & rows_in[1] & rows_in[2],
+            rows_out[0] & rows_out[1] & rows_out[2], in_phases, out_phases)
+    del rows_in, rows_out
+    b, words = iv.shape[0], tabs[0].shape[1] + tabs[3].shape[1]
+    rec = check_kernel(
+        f"S1 consumer2 (w_in={tabs[0].shape[1]} w_out={tabs[3].shape[1]})",
+        lambda: consumer2.and_hits(*args),
+        lambda: consumer2.and_hits_plain(*args), b,
+        b * words * 4 + b * 8 * 4, b * 2 * words, inner)
+    del args
     torch.cuda.empty_cache()
-    return recs
+    return rec
 
 
-def pruned_inputs(b, ke, s, g, dev):
-    """One direction's B2 inputs: ke candidate superblocks per lane among s
-    (ascending; every 5th lane has only fill candidates, zeroed), their
-    words (random_words) and the base matrix."""
-    import torch
-
-    from antrea_tpu_torch.ops import match
-
-    cand = torch.sort(torch.randint(0, s, (b, ke), generator=g, device=dev),
-                      dim=1).values
-    m = [random_words(g, (b, ke * 32), dev) for _ in range(3)]
-    m[0][::5] = 0
-    return m + [match.candidate_base(cand)]
-
-
-def check_pruned(meta, s_in, s_out, dev):
-    """Phase 3 for B2 at K = PRUNE_K -> per-B records."""
+def check_pruned(g_in, g_out, iv, tabs, k, svcref, in_phases, out_phases,
+                 inner):
+    """Phase 3 for B2 at K = k on the world's tables with the lanes' own
+    aggregate AND rows and interval rows -> record.  The bounds count this
+    run's data: the two g rows, iv and the output of every lane, and per
+    direction 128 B of each dimension row (a fourth with svcref) for each
+    of the min(nc, ke) candidates it scans; rows once counts each distinct
+    (table, row, superblock) once, per lane every lane's."""
     import torch
 
     from antrea_tpu_torch.ops import pruned_consumer as pc
 
-    ke_in, ke_out = min(PRUNE_K, s_in), min(PRUNE_K, s_out)
-    recs = {}
-    for b, seed, inner in ((256, 3, 50), (32768, 4, 5)):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        args = (pruned_inputs(b, ke_in, s_in, g, dev),
-                pruned_inputs(b, ke_out, s_out, g, dev), meta.in_phases,
-                meta.out_phases)
-        words = 32 * (ke_in + ke_out)
-        recs[b] = check_kernel(
-            f"B2 pruned consumer (K={PRUNE_K})",
-            lambda: pc.pruned_hits(*args), lambda: pc.pruned_plain(*args), b,
-            b * 4 * words * 4 + b * 8 * 4, b * 2 * words, inner)
-        del args
-    torch.cuda.empty_cache()
-    return recs
+    b = iv.shape[0]
+    ke = [min(k, g.shape[1]) for g in (g_in, g_out)]
+    io = (g_in.numel() + g_out.numel()) * 4 + b * 8 * 4 * 2
+    once = lane = 0
+    for d, g in ((0, g_in), (1, g_out)):
+        cand, valid = pc.candidate_ids(g, ke[d])
+        cols = [3 * d, 3 * d + 1, 3 * d + 2] + ([6] if d and svcref else [])
+        lane += int(valid.sum()) * len(cols) * 128
+        for col in cols:
+            keys = iv[:, col].long()[:, None] * g.shape[1] + cand
+            if d and col >= 5 and svcref:
+                continue  # the svc table's rows: counted once below
+            once += int(torch.unique(keys[valid]).numel()) * 128
+        if d and svcref:
+            keys = torch.cat([iv[:, c].long()[:, None] * g.shape[1] + cand
+                              for c in (5, 6)], dim=1)
+            once += int(torch.unique(
+                keys[torch.cat([valid, valid], dim=1)]).numel()) * 128
+    args = (g_in, g_out, iv, tabs, ke[0], ke[1], svcref, in_phases,
+            out_phases)
+    rec = check_kernel(
+        f"B2 pruned consumer (K={k})", lambda: pc.pruned_hits(*args),
+        lambda: pc.pruned_hits_plain(*args), b, once + io, lane // 2, inner)
+
+    def gather():
+        return [pc.candidate_mats(tabs[3 * d:3 * d + 3], g,
+                                  [iv[:, 3 * d + j] for j in range(3)],
+                                  iv[:, 6] if d and svcref else None, ke[d])
+                for d, g in ((0, g_in), (1, g_out))]
+
+    return with_gathers(rec, "B2", gather, lane + io, inner)
 
 
 def onepass_inputs(step, state, drs, dsvc, lanes, now):
@@ -270,6 +295,7 @@ def onepass_inputs(step, state, drs, dsvc, lanes, now):
     from antrea_tpu_torch.models import pipeline as pl
     from antrea_tpu_torch.ops import hashing
     from antrea_tpu_torch.ops import onepass as op
+    from antrea_tpu_torch.ops.match import tables
 
     meta = step.meta
     src_f, dst_f, proto, sport, dport = lanes
@@ -284,11 +310,8 @@ def onepass_inputs(step, state, drs, dsvc, lanes, now):
     x, _ = pl._onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
                               sport, dport, pp, h, ~hit, kr0, mr, ts0, now,
                               meta)
-    ing, eg = drs.ingress, drs.egress
-    tabs = op.OnepassTables(
-        inc=tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at, eg.peer,
-                                  eg.svc)),
-        act_in=ing.action, act_out=eg.action)
+    tabs = op.OnepassTables(inc=tables(drs), act_in=drs.ingress.action,
+                            act_out=drs.egress.action)
     mm = meta.match
     st = op.OnepassStatic(k=mm.prune_budget, in_phases=mm.in_phases,
                           out_phases=mm.out_phases, svcref=mm.svcref,
@@ -767,6 +790,8 @@ def main() -> int:
         return 2
     from antrea_tpu_torch import _build
     from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops import onepass
+    from antrea_tpu_torch.ops.match import tables
 
     dev = torch.device("cuda")
     card = card_line()
@@ -810,10 +835,26 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     lanes = to_lanes(tr, dev)
 
-    # 3. Kernels against their plain versions.
-    b1 = check_consumer(meta, dev)
-    s1 = check_consumer2(meta, dev)
-    b2 = check_pruned(pmeta, s_in, s_out, dev)
+    # 3. Kernels against their plain versions, on the world's own tables
+    # and the batch's own interval rows (B3's inputs on the empty cache:
+    # every lane a miss).
+    x, otabs, _ = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes, 100)
+    stabs = tables(drs)
+    b1, b2 = {}, {}
+    for b, inner in ((256, 50), (32768, 3)):
+        b1[b] = check_consumer(stabs, x.iv[:b], meta.svcref, meta.in_phases,
+                               meta.out_phases, f"first {b} lanes", inner)
+    s1 = {b: check_consumer2(stabs, x.iv[:b], meta.in_phases,
+                             meta.out_phases, inner)
+          for b, inner in ((256, 50), (32768, 3))}
+    g = [(x.agg[3 * d] & x.agg[3 * d + 1] & x.agg[3 * d + 2]).contiguous()
+         for d in (0, 1)]
+    for b, inner in ((256, 50), (32768, 5)):
+        b2[b] = check_pruned(g[0][:b], g[1][:b], x.iv[:b], otabs.inc,
+                             PRUNE_K, pmeta.svcref, pmeta.in_phases,
+                             pmeta.out_phases, inner)
+    del x, g
+    torch.cuda.empty_cache()
     b3 = {"cold": check_onepass(ostep, ostate, pdrs, pdsvc, lanes, 100,
                                 "empty cache")}
 
@@ -827,6 +868,16 @@ def main() -> int:
                                              lanes)
     b3["warm"] = check_onepass(ostep, ostate, pdrs, pdsvc, lanes,
                                7200 * (EXPIRE_STEPS + 1) + 1, "warm cache")
+    # B1 on every fallback lane of an expire-all batch (the one-pass
+    # fallback re-walk's own lanes and tables).
+    now = 7200 * (EXPIRE_STEPS + 2) + 1
+    x, otabs, ost = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes, now)
+    fb = torch.nonzero(onepass.onepass(x, otabs, now, 0, ost)[3][:, 1])
+    b1["fallback"] = check_consumer(
+        otabs.inc, x.iv[fb.flatten()], pmeta.svcref, pmeta.in_phases,
+        pmeta.out_phases, f"one-pass expire-all fallback, {fb.shape[0]} of "
+        f"{B} lanes", 2)
+    del x, fb
     del ostate
     torch.cuda.empty_cache()
 
@@ -864,18 +915,28 @@ def main() -> int:
                 "call_ms": r["call_ms"], **extra}
 
     def at(r):
-        return {k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+        keys = ("ms", "call_ms", "plain_ms", "bound_ms", "gather_ms",
+                "gather_call_ms", "bound_per_lane_ms", "share_rows_once",
+                "share_per_lane")
+        return {k: r[k] for k in keys if k in r}
+
+    def rows_bounds(r):
+        return {k: r[k] for k in ("gather_ms", "gather_call_ms",
+                                  "bound_per_lane_ms",
+                                  "share_rows_once", "share_per_lane")}
 
     kernels = [
         rec("B1 consumer", "antrea_tpu_torch/csrc/consumer.cu",
             "antrea_tpu/ops/match.py:1422", b1_launches, b1[256],
-            at_B32768=at(b1[32768]),
+            **rows_bounds(b1[256]), at_B32768=at(b1[32768]),
+            onepass_fallback={**at(b1["fallback"]),
+                              "lanes": b1["fallback"]["lanes"]},
             launches_onepass_path=op_launches[0],
             launches_async_staged_path=a_st_launches[0],
             launches_async_onepass_path=a_op_launches[0]),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
-            at_B32768=at(b2[32768])),
+            **rows_bounds(b2[256]), at_B32768=at(b2[32768])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, warm_cache={**at(b3["warm"]),

@@ -21,31 +21,6 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,w_in,w_out,in_ph,out_ph,w0", [
-    (256, 61, 40, (900, 700, 300), (600, 500, 180), (0, 0)),
-    (37, 5, 3, (37, 50, 60), (32, 0, 64), (0, 0)),
-    (129, 7, 9, (300, 40, 10), (21, 300, 40), (3, 7)),
-])
-def test_consumer_kernel_equals_plain(cuda, b, w_in, w_out, in_ph, out_ph, w0):
-    g = torch.Generator().manual_seed(b)
-
-    def rows(w):
-        out = []
-        for _ in range(3):
-            bits = torch.rand((b, w, 32), generator=g) < 0.25
-            words = (bits.long() << torch.arange(32)).sum(-1)
-            out.append(((words + 2**31) % 2**32 - 2**31).to(torch.int32))
-        return [r.to(cuda) for r in out]
-
-    rin, rout = rows(w_in), rows(w_out)
-    before = consumer.launches
-    got = consumer.fused_hits(rin, rout, in_ph, out_ph, *w0)
-    torch.cuda.synchronize()
-    assert consumer.launches == before + 1
-    want = consumer.consumer_plain(rin, rout, in_ph, out_ph, *w0)
-    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
-
-
 def _words(g, shape, dens, dev):
     """Random int32 words (u32 bits), each bit set with probability dens."""
     bits = torch.rand((*shape, 32), generator=g) < dens
@@ -53,30 +28,93 @@ def _words(g, shape, dens, dev):
     return ((words + 2**31) % 2**32 - 2**31).to(torch.int32).to(dev)
 
 
-@pytest.mark.parametrize("b,ke_in,s_in,ke_out,s_out,in_ph,out_ph", [
-    (256, 4, 59, 4, 40, (29432, 29764, 485), (20012, 20004, 303)),
-    (37, 3, 5, 1, 2, (1000, 1500, 600), (1024, 0, 64)),
-])
-def test_pruned_consumer_kernel_equals_plain(cuda, b, ke_in, s_in, ke_out,
-                                             s_out, in_ph, out_ph):
-    from antrea_tpu_torch.ops import match, pruned_consumer
+def _tables(g, widths, dens, dev, offset):
+    """Six seeded tables (rows, w) int32 with widths (w_in, w_out); with
+    offset the table's storage starts one word past an aligned address, so
+    every row lies at another alignment than its neighbour's."""
+    out = []
+    for k, n in enumerate((9, 13, 6, 11, 7, 10)):
+        w = widths[k // 3]
+        t = _words(g, (n, w), dens, dev)
+        t[k % n] = 0  # a row with no rule
+        if offset:
+            flat = torch.empty(n * w + 1, dtype=torch.int32, device=dev)
+            flat[1:] = t.flatten()
+            t = flat[1:].view(n, w)
+        out.append(t)
+    return out
 
-    g = torch.Generator().manual_seed(b)
 
-    def mats(ke, s):
-        cand = torch.sort(torch.randint(0, s, (b, ke), generator=g),
-                          dim=1).values
-        m = [_words(g, (b, ke * 32), 0.4, cuda) for _ in range(3)]
-        m[0][::5] = 0  # lanes with no candidate
-        return m + [match.candidate_base(cand).to(cuda)]
+def _interval_rows(g, tabs, b, dev):
+    """(b, 8) int32 interval rows, row 0 and the last row of every table
+    among them."""
+    iv = torch.zeros((b, 8), dtype=torch.int32)
+    for k in range(7):
+        n = tabs[min(k, 5)].shape[0]
+        iv[:, k] = torch.randint(0, n, (b,), generator=g)
+        iv[k % 4, k] = 0
+        iv[(4 + k) % b, k] = n - 1
+    return iv.to(dev)
 
-    m_in, m_out = mats(ke_in, s_in), mats(ke_out, s_out)
+
+@pytest.mark.parametrize("b,w_in,w_out,in_ph,out_ph,w0,svcref,offset", [
+    # The 100k-rule ingress width (odd rows only 8-byte aligned).
+    (256, 1866, 1260, (29432, 29764, 485), (20012, 20004, 303), (0, 0),
+     False, False),
+    (256, 61, 40, (900, 700, 300), (600, 500, 180), (0, 0), True, False),
+    (37, 5, 3, (37, 50, 60), (32, 0, 64), (0, 0), True, True),
+    (129, 61, 1866, (300, 40, 10), (21, 300, 40), (3, 7), True, True),
+    (33, 7, 9, (60, 100, 10), (100, 40, 100), (0, 5), False, True),
+], ids=["w1866", "w61", "w5-offset", "w0-offset", "odd-ragged"])
+def test_consumer_kernel_equals_plain(cuda, b, w_in, w_out, in_ph, out_ph, w0,
+                                      svcref, offset):
+    g = torch.Generator().manual_seed(b + w_in)
+    tabs = _tables(g, (w_in, w_out), 0.35, cuda, offset)
+    iv = _interval_rows(g, tabs, b, cuda)
+    before = consumer.launches
+    got = consumer.fused_hits(tabs, iv, svcref, in_ph, out_ph, *w0)
+    torch.cuda.synchronize()
+    assert consumer.launches == before + 1
+    want = consumer.fused_hits_plain(tabs, iv, svcref, in_ph, out_ph, *w0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (want[:, :6] < consumer.BIG).any()
+
+
+@pytest.mark.parametrize("b,s_in,s_out,ke_in,ke_out,in_ph,out_ph,svcref", [
+    # The 100k-rule widths at K = 4.
+    (256, 59, 40, 4, 4, (29432, 29764, 485), (20012, 20004, 303), False),
+    (256, 59, 40, 4, 4, (29432, 29764, 485), (20012, 20004, 303), True),
+    # Ragged, every candidate count from 0 to S, ke = S and ke = 1.
+    (37, 5, 2, 5, 1, (1000, 1500, 600), (1024, 0, 64), True),
+    (101, 40, 3, 16, 2, (20000, 500, 300), (40, 20, 40), False),
+], ids=["k4", "k4-svcref", "ragged", "k16"])
+def test_pruned_consumer_kernel_equals_plain(cuda, b, s_in, s_out, ke_in,
+                                             ke_out, in_ph, out_ph, svcref):
+    from antrea_tpu_torch.ops import pruned_consumer
+
+    g = torch.Generator().manual_seed(b + s_in + svcref)
+    tabs = _tables(g, (32 * s_in, 32 * s_out), 0.4, cuda, False)
+    iv = _interval_rows(g, tabs, b, cuda)
+
+    def agg(s):
+        # Lane i keeps about (i % (s + 1)) / s of its words: lanes with no
+        # candidate, with fewer than ke (the rest fill) and with more.
+        keep = torch.rand((b, s), generator=g) < (
+            torch.arange(b) % (s + 1) / s)[:, None]
+        return torch.where(keep, _words(g, (b, s), 0.5, "cpu"), 0).to(cuda)
+
+    g_in, g_out = agg(s_in), agg(s_out)
+    w0 = (0, 64) if svcref else (0, 0)
     before = pruned_consumer.launches
-    got = pruned_consumer.pruned_hits(m_in, m_out, in_ph, out_ph)
+    got = pruned_consumer.pruned_hits(g_in, g_out, iv, tabs, ke_in, ke_out,
+                                      svcref, in_ph, out_ph, *w0)
     torch.cuda.synchronize()
     assert pruned_consumer.launches == before + 1
-    want = pruned_consumer.pruned_plain(m_in, m_out, in_ph, out_ph)
+    want = pruned_consumer.pruned_hits_plain(g_in, g_out, iv, tabs, ke_in,
+                                             ke_out, svcref, in_ph, out_ph,
+                                             *w0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (want[:, :6] < consumer.BIG).any()
 
 
 @pytest.fixture(scope="module")
@@ -145,9 +183,35 @@ def test_pruned_pipeline_card_equals_cpu(cuda, pruned_world, onepass):
 def test_onepass_kernel_equals_plain(cuda, pruned_world, svcref, timeouts):
     """B3 against its plain version on prepared inputs after a cold step,
     with the svcref probe and per-state timeouts forced on."""
+    from antrea_tpu_torch.ops import onepass as op
+
+    x, tabs, st, drs = _onepass_case(cuda, pruned_world, timeouts)
+    if svcref:
+        g = torch.Generator().manual_seed(1)
+        iv = x.iv.clone()
+        rows = drs.egress.svc.inc.shape[0]
+        iv[:, 6] = torch.randint(0, rows, (iv.shape[0],), generator=g).to(
+            cuda, torch.int32)
+        x = x._replace(iv=iv)
+    # K = 1 < S_in = 2: fallback lanes too.
+    st = st._replace(k=1, svcref=svcref)
+    before = op.launches
+    got = op.onepass(x, tabs, 150, 3, st)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    want = op.onepass_plain(x, tabs, 150, 3, st)
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy())
+    assert got[0][:, 11].any() and got[3][:, 1].any()
+
+
+def _onepass_case(cuda, pruned_world, timeouts):
+    """B3's inputs for the pruned world's lanes after a cold step at
+    now = 100, probed at now = 150 -> (x, tabs, st (K = 2), drs)."""
     from antrea_tpu_torch.models import pipeline as pl
     from antrea_tpu_torch.ops import hashing
     from antrea_tpu_torch.ops import onepass as op
+    from antrea_tpu_torch.ops.match import tables
 
     cps, svc, tr = pruned_world
     step, state, (drs, dsvc) = pl.make_pipeline(
@@ -169,24 +233,40 @@ def test_onepass_kernel_equals_plain(cuda, pruned_world, svcref, timeouts):
     x, _ = pl._onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
                               sport, dport, pp, h, ~hit, kr0, mr, ts0, 150,
                               meta)
-    if svcref:
-        g = torch.Generator().manual_seed(1)
-        iv = x.iv.clone()
-        rows = drs.egress.svc.inc.shape[0]
-        iv[:, 6] = torch.randint(0, rows, (iv.shape[0],), generator=g).to(
-            cuda, torch.int32)
-        x = x._replace(iv=iv)
-    ing, eg = drs.ingress, drs.egress
-    tabs = op.OnepassTables(
-        inc=tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at, eg.peer,
-                                  eg.svc)),
-        act_in=ing.action, act_out=eg.action)
+    tabs = op.OnepassTables(inc=tables(drs), act_in=drs.ingress.action,
+                            act_out=drs.egress.action)
     mm = meta.match
-    # K = 1 < S_in = 2: fallback lanes too.
-    st = op.OnepassStatic(k=1, in_phases=mm.in_phases,
-                          out_phases=mm.out_phases, svcref=svcref,
+    st = op.OnepassStatic(k=2, in_phases=mm.in_phases,
+                          out_phases=mm.out_phases, svcref=mm.svcref,
                           timeouts=timeouts, n_slots=n,
                           pref_mask=pl.PREF_MASK)
+    return x, tabs, st, drs
+
+
+@pytest.mark.parametrize("k,svcref", [(3, True), (16, False)])
+def test_onepass_candidate_scan_equals_plain(cuda, pruned_world, k, svcref):
+    """B3 on the candidate scan it shares with B2 (csrc/candidate_scan.cuh):
+    the pruned world's lanes over seeded tables of 40 and 7 superblocks and
+    seeded aggregate rows, so a lane has up to 40 candidates in two ballot
+    words, batches of four and a short last batch; bitwise to its plain
+    version."""
+    from antrea_tpu_torch.ops import onepass as op
+
+    x, tabs, st, _ = _onepass_case(cuda, pruned_world,
+                                   (3600, 3600, 3600, 3600))
+    g = torch.Generator().manual_seed(k)
+    inc = _tables(g, (32 * 40, 32 * 7), 0.45, cuda, False)
+    b = x.iv.shape[0]
+    # Lane i keeps each aggregate word with probability (i % 11) / 10, so
+    # its candidate count runs from 0 to all of S; no key row matches, so
+    # every lane misses and scans.
+    keep = (torch.arange(b) % 11 / 10)[:, None]
+    agg = tuple(torch.where(torch.rand((b, s), generator=g) < keep, -1, 0)
+                .to(cuda, torch.int32) for s in (40, 40, 40, 7, 7, 7))
+    x = x._replace(agg=agg, iv=_interval_rows(g, inc, b, cuda),
+                   kr=torch.zeros_like(x.kr))
+    tabs = tabs._replace(inc=tuple(inc))
+    st = st._replace(k=k, svcref=svcref)
     before = op.launches
     got = op.onepass(x, tabs, 150, 3, st)
     torch.cuda.synchronize()
@@ -194,7 +274,7 @@ def test_onepass_kernel_equals_plain(cuda, pruned_world, svcref, timeouts):
     want = op.onepass_plain(x, tabs, 150, 3, st)
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy())
-    assert got[0][:, 11].any() and got[3][:, 1].any()
+    assert (want[3][:, 2] > 32).any()  # candidates past the first ballot
 
 
 @pytest.mark.parametrize("b,w_in,w_out,in_ph,out_ph", [

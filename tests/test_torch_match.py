@@ -133,10 +133,18 @@ def test_plain_consumer_equals_pallas_consumer(case):
         w0_out=None if w0 is None else jnp.int32(w0_out))
     want = np.stack([np.asarray(h) for h in (*jin, *jout)], axis=1)
 
+    # The port reads the same rows from tables at the lanes' interval rows:
+    # each row matrix becomes a table whose rows are the lanes' rows in a
+    # seeded order, and iv holds each lane's row in it.
+    perm = [rng.permutation(b) for _ in range(6)]
+    tabs = [np.empty_like(r) for r in (*rows_in, *rows_out)]
+    for t, r, p in zip(tabs, (*rows_in, *rows_out), perm):
+        t[p] = r
+    iv = np.zeros((b, 8), np.int32)
+    iv[:, :6] = np.stack(perm, axis=1)
     before = tc.launches
-    got = tc.fused_hits(tuple(_t(r) for r in rows_in),
-                        tuple(_t(r) for r in rows_out), in_ph, out_ph,
-                        w0_in, w0_out)
+    got = tc.fused_hits(tuple(_t(t) for t in tabs), _t(iv), False, in_ph,
+                        out_ph, w0_in, w0_out)
     assert tc.launches == before  # CPU tensors never launch the kernel
     assert got.shape == (b, 8) and got.dtype == torch.int32
     np.testing.assert_array_equal(got[:, :6].numpy(), want)
@@ -146,13 +154,102 @@ def test_plain_consumer_equals_pallas_consumer(case):
 
 def test_consumer_wrapper_checks_its_inputs():
     z = torch.zeros((4, 3), dtype=torch.int32)
+    iv = torch.zeros((5, 8), dtype=torch.int32)
+    tabs = (z, z, z, z[:, :2].contiguous(), z[:, :2].contiguous(),
+            z[:, :2].contiguous())
     ph = (10, 10, 10)
-    with pytest.raises(TypeError):
-        tc.fused_hits((z, z, z.long()), (z, z, z), ph, ph)
-    with pytest.raises(ValueError):
-        tc.fused_hits((z, z, z[:, :2].contiguous()), (z, z, z), ph, ph)
-    with pytest.raises(ValueError):
-        tc.fused_hits((z, z, z.t().contiguous().t()), (z, z, z), ph, ph)
+    got = tc.fused_hits(tabs, iv, True, ph, ph)
+    assert got.shape == (5, 8) and got.dtype == torch.int32
+    assert got.device == iv.device and got.is_contiguous()
+    with pytest.raises(TypeError):  # an int64 table
+        tc.fused_hits((z, z, z.long(), *tabs[3:]), iv, False, ph, ph)
+    with pytest.raises(TypeError):  # int64 interval rows
+        tc.fused_hits(tabs, iv.long(), False, ph, ph)
+    with pytest.raises(ValueError):  # iv not (B, 8)
+        tc.fused_hits(tabs, iv[:, :6].contiguous(), False, ph, ph)
+    with pytest.raises(ValueError):  # iv not contiguous
+        tc.fused_hits(tabs, torch.zeros((8, 5), dtype=torch.int32).t(),
+                      False, ph, ph)
+    with pytest.raises(ValueError):  # a table not contiguous
+        tc.fused_hits((z, z, z.t().contiguous().t(), *tabs[3:]), iv, False,
+                      ph, ph)
+    with pytest.raises(ValueError):  # ingress widths disagree
+        tc.fused_hits((z, z, z[:, :2].contiguous(), *tabs[3:]), iv, False,
+                      ph, ph)
+    with pytest.raises(ValueError):  # five tables
+        tc.fused_hits(tabs[:5], iv, False, ph, ph)
+    with pytest.raises(ValueError):  # a table on another device
+        tc.fused_hits((z.to("meta"), *tabs[1:]), iv, False, ph, ph)
+
+
+def _table_case(name, rng):
+    """-> (six u32 tables, in_phases, out_phases, (w0_in, w0_out)): the
+    small world's own tables (to_host of the JAX package), or seeded tables
+    of odd widths."""
+    if name == "world":
+        kw = dict(n_nodes=8, pods_per_node=8, seed=5)
+        jdrs, jmeta = jm.to_host(j_compile(j_gen_cluster(600, **kw).ps))
+        tabs = [t.inc for d in (jdrs.ingress, jdrs.egress)
+                for t in (d.at, d.peer, d.svc)]
+        return tabs, jmeta.in_phases, jmeta.out_phases, (0, 0)
+    w_in, w_out, w0 = {"odd-widths": (5, 61, (0, 0)),
+                       "word-offsets": (7, 3, (3, 11))}[name]
+    tabs = [_bit_rows(rng, n, w, [0.5] * n)
+            for n, w in ((9, w_in), (13, w_in), (6, w_in), (11, w_out),
+                         (7, w_out), (10, w_out))]
+    n_in, n_out = 32 * w_in, 32 * w_out
+    return (tabs, (n_in // 3, n_in // 4, n_in), (n_out // 5, n_out // 2,
+                                                 n_out), w0)
+
+
+# (id, tables, B, svcref)
+_TABLE_CASES = [
+    ("world", "world", 128, False),
+    ("world-svcref", "world", 128, True),
+    ("world-ragged", "world", 37, True),
+    ("odd-widths", "odd-widths", 37, True),
+    ("odd-widths-plain", "odd-widths", 64, False),
+    ("word-offsets", "word-offsets", 37, True),
+]
+
+
+@pytest.mark.parametrize("case", _TABLE_CASES, ids=lambda c: c[0])
+def test_fused_hits_from_tables_equals_pallas(case):
+    """B1's entry (tables + interval rows) against the JAX _fused_hits in
+    interpret mode on rows that JAX gathers itself from the same tables at
+    the same numpy iv; iv holds row 0 and the last row of every table."""
+    _, tables, b, svcref = case
+    rng = np.random.default_rng(b + len(tables))
+    tabs, in_ph, out_ph, (w0_in, w0_out) = _table_case(tables, rng)
+    iv = np.zeros((b, 8), np.int32)
+    for k in range(7):
+        n = tabs[min(k, 5)].shape[0]
+        iv[:, k] = rng.integers(0, n, b)
+        iv[k % 4, k] = 0
+        iv[4 + k % 4, k] = n - 1
+
+    jt = [jnp.asarray(t) for t in tabs]
+    rows = [t[jnp.asarray(iv[:, k])] for k, t in enumerate(jt)]
+    if svcref:
+        rows[5] = rows[5] | jt[5][jnp.asarray(iv[:, 6])]
+    meta = jm.StaticMeta(in_phases=in_ph, out_phases=out_ph,
+                         w_in=tabs[0].shape[1], w_out=tabs[3].shape[1],
+                         fused_interpret=True)
+    offsets = w0_in or w0_out
+    jin, jout = jm._fused_hits(
+        tuple(rows[:3]), tuple(rows[3:]), meta,
+        w0_in=jnp.int32(w0_in) if offsets else None,
+        w0_out=jnp.int32(w0_out) if offsets else None)
+    want = np.stack([np.asarray(h) for h in (*jin, *jout)], axis=1)
+
+    before = tc.launches
+    got = tc.fused_hits(tuple(_t(t) for t in tabs), _t(iv), svcref, in_ph,
+                        out_ph, w0_in, w0_out)
+    assert tc.launches == before  # CPU tensors never launch the kernel
+    assert got.shape == (b, 8) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got[:, :6].numpy(), want)
+    assert not got[:, 6:].any()
+    assert (want < tc.BIG).any()
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["scan", "fused"])

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from antrea_tpu.compiler.compile import compile_policy_set as j_compile
@@ -110,7 +111,7 @@ def _cand_case(rng, b, ke, s, w0, dens):
                  ).sum(axis=3).astype(np.uint32)
         mats.append(words)
     mats[0][~valid] = 0
-    base = tm.candidate_base(cand, w0).numpy()
+    base = tpc.candidate_base(cand, w0).numpy()
     return [m.reshape(b, ke * 32) for m in mats] + [base]
 
 
@@ -142,22 +143,140 @@ def test_plain_pruned_consumer_equals_pallas(case):
                                     True)
     want = np.asarray(call(*(jnp.asarray(pad(x)) for x in m_in + m_out)))[:b]
     before = tpc.launches
-    got = tpc.pruned_hits([_t(x) for x in m_in], [_t(x) for x in m_out],
-                          in_ph, out_ph)
-    assert tpc.launches == before  # CPU tensors never launch the kernel
+    got = tpc.pruned_plain([_t(x) for x in m_in], [_t(x) for x in m_out],
+                           in_ph, out_ph)
+    assert tpc.launches == before  # the plain version never launches
     assert got.shape == (b, 8) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want[:, :6] < jm.BIG).any() and (want[:, :6] == jm.BIG).any()
 
 
 def test_pruned_consumer_wrapper_checks_its_inputs():
-    z = torch.zeros((4, 64), dtype=torch.int32)
+    t = torch.zeros((4, 64), dtype=torch.int32)
+    tabs = (t,) * 6
+    g = torch.zeros((5, 2), dtype=torch.int32)
+    iv = torch.zeros((5, 8), dtype=torch.int32)
     ph = (10, 10, 10)
-    with pytest.raises(TypeError):
-        tpc.pruned_hits((z, z, z, z.long()), (z, z, z, z), ph, ph)
-    with pytest.raises(ValueError):
-        tpc.pruned_hits((z, z, z, z[:, :32].contiguous()), (z, z, z, z), ph,
+    got = tpc.pruned_hits(g, g, iv, tabs, 2, 1, True, ph, ph)
+    assert got.shape == (5, 8) and got.dtype == torch.int32
+    assert got.device == iv.device and got.is_contiguous()
+    assert (got[:, :6] == tm.BIG).all() and not got[:, 6:].any()
+    with pytest.raises(TypeError):  # int64 aggregate rows
+        tpc.pruned_hits(g.long(), g, iv, tabs, 2, 2, False, ph, ph)
+    with pytest.raises(TypeError):  # an int64 table
+        tpc.pruned_hits(g, g, iv, (t.long(),) + tabs[1:], 2, 2, False, ph, ph)
+    with pytest.raises(ValueError):  # g not (B, width / 32)
+        tpc.pruned_hits(g[:, :1].contiguous(), g, iv, tabs, 1, 2, False, ph,
                         ph)
+    with pytest.raises(ValueError):  # g of another batch
+        tpc.pruned_hits(g[:4].contiguous(), g, iv, tabs, 2, 2, False, ph, ph)
+    with pytest.raises(ValueError):  # g not contiguous
+        tpc.pruned_hits(torch.zeros((2, 5), dtype=torch.int32).t(), g, iv,
+                        tabs, 2, 2, False, ph, ph)
+    with pytest.raises(ValueError):  # iv not (B, 8)
+        tpc.pruned_hits(g, g, iv[:, :7].contiguous(), tabs, 2, 2, False, ph,
+                        ph)
+    with pytest.raises(ValueError):  # egress widths disagree
+        tpc.pruned_hits(g, g, iv, tabs[:5] + (t[:, :32].contiguous(),), 2, 2,
+                        False, ph, ph)
+    with pytest.raises(ValueError):  # ke outside [1, S]
+        tpc.pruned_hits(g, g, iv, tabs, 3, 2, False, ph, ph)
+    with pytest.raises(ValueError):
+        tpc.pruned_hits(g, g, iv, tabs, 2, 0, False, ph, ph)
+
+
+def _jax_cand_mats(tabs, g, iv3, iv_ref, ke, w0):
+    """The JAX package's cand_mats (antrea_tpu/ops/match.py:1656-1700, no
+    delta slots) for one direction, in jnp: top_k of the scores, the
+    candidate-block gathers, the zeroed fill words, the base matrix."""
+    B, S = g.shape
+    g = jnp.asarray(g)
+    score = jnp.where(g != jnp.uint32(0),
+                      jax.lax.broadcasted_iota(jnp.int32, (B, S), 1), S)
+    neg, _ = jax.lax.top_k(-score, ke)
+    cand = -neg
+    valid = cand < S
+    candc = jnp.minimum(cand, S - 1)
+
+    def cwords(tab, r):
+        inc2 = jnp.asarray(tab).reshape(-1, jm.AGG_BLOCK)
+        return inc2[jnp.asarray(r)[:, None] * S + candc]
+
+    ca, cp, cs = (cwords(t, r) for t, r in zip(tabs, iv3))
+    if iv_ref is not None:
+        cs = cs | cwords(tabs[2], iv_ref)
+    ca = jnp.where(valid[:, :, None], ca, jnp.uint32(0))
+    j = jnp.arange(jm.AGG_BLOCK, dtype=jnp.int32)[None, None, :]
+    base = (w0 + candc[:, :, None] * jm.AGG_BLOCK + j) * 32
+    return [x.reshape(B, ke * jm.AGG_BLOCK) for x in (ca, cp, cs, base)]
+
+
+def _agg_rows(rng, b, s, counts):
+    """(b, s) u32 aggregate AND rows: lane i has counts[i] nonzero words at
+    seeded positions."""
+    g = np.zeros((b, s), np.uint32)
+    for i, n in enumerate(counts):
+        pos = rng.choice(s, size=n, replace=False)
+        g[i, pos] = rng.integers(1, 2**32, n, dtype=np.uint64).astype(
+            np.uint32)
+    return g
+
+
+# (id, ke_in, ke_out, svcref, (w0_in, w0_out))
+_B2_TABLE_CASES = [
+    ("plain", 2, 3, False, (0, 0)),
+    ("svcref", 2, 3, True, (0, 0)),
+    ("one-candidate", 1, 1, True, (0, 0)),
+    ("word-offsets", 3, 2, True, (64, 96)),
+]
+
+
+@pytest.mark.parametrize("case", _B2_TABLE_CASES, ids=lambda c: c[0])
+def test_pruned_hits_from_tables_equals_pallas(case):
+    """B2's entry (aggregate AND rows, interval rows, tables) against the
+    JAX _pruned_consumer_call in interpret mode fed by the JAX cand_mats
+    logic on the same g, iv and tables.  Lanes hold 0 candidates, fewer than
+    ke, exactly ke and more than ke (whose ke-lowest scan is compared)."""
+    _, ke_in, ke_out, svcref, (w0_in, w0_out) = case
+    b, s_in, s_out = 37, 5, 4
+    rng = np.random.default_rng(ke_in * 11 + ke_out + svcref)
+    tabs = [_bit_rows(rng, n, 32 * s, [0.4] * n)
+            for n, s in ((6, s_in), (9, s_in), (5, s_in), (7, s_out),
+                         (8, s_out), (6, s_out))]
+    g_in = _agg_rows(rng, b, s_in, [i % (s_in + 1) for i in range(b)])
+    g_out = _agg_rows(rng, b, s_out, [(i + 2) % (s_out + 1) for i in range(b)])
+    iv = np.zeros((b, 8), np.int32)
+    for k in range(7):
+        n = tabs[min(k, 5)].shape[0]
+        iv[:, k] = rng.integers(0, n, b)
+        iv[k, k] = n - 1
+    in_ph = (1000 + w0_in * 32, 3000, 600)
+    out_ph = (w0_out * 32 + 40, 500, 300)
+
+    m_in = _jax_cand_mats(tabs[:3], g_in, [iv[:, k] for k in range(3)],
+                          None, ke_in, w0_in)
+    m_out = _jax_cand_mats(tabs[3:], g_out, [iv[:, k] for k in range(3, 6)],
+                           iv[:, 6] if svcref else None, ke_out, w0_out)
+    call = jm._pruned_consumer_call(128, ke_in * 32, ke_out * 32, in_ph,
+                                    out_ph, True)
+    pad = [jnp.pad(x, ((0, 128 - b), (0, 0))) for x in m_in + m_out]
+    want = np.asarray(call(*pad))[:b]
+
+    before = tpc.launches
+    got = tpc.pruned_hits(_t(g_in), _t(g_out), _t(iv),
+                          tuple(_t(t) for t in tabs), ke_in, ke_out, svcref,
+                          in_ph, out_ph, w0_in, w0_out)
+    assert tpc.launches == before  # CPU tensors never launch the kernel
+    assert got.shape == (b, 8) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:, :6] < jm.BIG).any() and (want[:, :6] == jm.BIG).any()
+
+
+def _bit_rows(rng, n, w, dens):
+    """(n, w) u32 words, row i's bits set with probability dens[i]."""
+    bits = rng.random((n, w, 32)) < np.asarray(dens)[:, None, None]
+    return (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(
+        axis=2).astype(np.uint32)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["scan", "fused"])
