@@ -15,9 +15,9 @@
 // (w0 + 32 * c + t) * 32, into the three phase minima.  Up to kBatch
 // candidates are fetched together so their loads are in flight at once; a
 // batch short of kBatch repeats its first candidate, which a min ignores.
-// B2 fetches four at a time.  B3 fetches one: its warp also decodes the
-// probe and resolves, and with four its registers rose from 56 to 72 and
-// its mostly-hit batches ran 10% slower on an H100 (fewer warps a SM).
+// B2 fetches four at a time.  B3 fetches one: its kernel also searches,
+// resolves and packs, and more in flight cost it registers and warps an SM
+// (chip_b3_variants.py).
 // Candidates past ke (the fill of top_k, whose words the JAX package zeroes)
 // are never read.  The caller reduces the minima over the warp.
 

@@ -50,9 +50,8 @@ from ..compiler.compile import ACT_ALLOW, ACT_REJECT, CompiledPolicySet
 from ..compiler.services import ServiceTables
 from ..ops import consumer, hashing, onepass
 from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
-                         _dim_index, _refuse, _resolve, _svcref_key,
-                         classify_batch, from_numpy, resolve_device,
-                         ruleset_from_numpy, tables, to_host)
+                         _refuse, _resolve, classify_batch, from_numpy,
+                         resolve_device, ruleset_from_numpy, to_host)
 
 MISS = -1
 # Generation tag reserved for conntrack-committed (ALLOW) entries; rule
@@ -873,54 +872,44 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta):
 def _onepass_probes(drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port,
                     miss, meta):
     """The one-pass path's classification probes on the post-DNAT tuple
-    (pipeline.py:1684-1711): the miss-masked interval rows (hit lanes take
-    row 0), the six aggregate rows (the svcref row ORed into egress svc)
-    and the isolation bits.  -> (iv6, iv_ref, aggs, iso_in, iso_out)."""
-    ing, eg = drs.ingress, drs.egress
-    svc_key = (proto << 16) | dnat_port
-
-    def midx(tab, x):
-        return torch.where(miss, _dim_index(tab, x), 0).to(_I32)
-
-    iv6 = [midx(ing.at, dnat_ip), midx(ing.peer, src_f),
-           midx(ing.svc, svc_key), midx(eg.at, src_f), midx(eg.peer, dnat_ip),
-           midx(eg.svc, svc_key)]
-    iv_ref = (midx(eg.svc, _svcref_key(svc_key, _svc_ref_of(svc_idx, dsvc)))
-              if meta.match.svcref else torch.zeros_like(src_f))
-    aggs = [t.agg[i] for t, i in zip(
-        (ing.at, ing.peer, ing.svc, eg.at, eg.peer, eg.svc), iv6)]
-    if meta.match.svcref:
-        aggs[5] = aggs[5] | eg.svc.agg[iv_ref]
-    iso_in = drs.iso_in.val[midx(drs.iso_in, dnat_ip)]
-    iso_out = drs.iso_out.val[midx(drs.iso_out, src_f)]
-    return iv6, iv_ref, aggs, iso_in, iso_out
+    (pipeline.py:1684-1711), in torch (ops/onepass.lane_probes): the
+    miss-masked interval rows (hit lanes take row 0), the six aggregate
+    rows (the svcref row ORed into egress svc) and the isolation bits.
+    B3 runs them itself; the PH_CLS_SUM chain runs them here.
+    -> (iv6, iv_ref, aggs, iso_in, iso_out)."""
+    svcref = meta.match.svcref
+    tabs = onepass.tables_of(drs, dsvc.prog_svc if svcref else None)
+    rows, ref_row, aggs, iso_in, iso_out = onepass.lane_probes(
+        tabs, svcref, miss, src_f, proto, svc_idx, dnat_ip, dnat_port)
+    return ([r.to(_I32) for r in rows], ref_row.to(_I32), aggs, iso_in,
+            iso_out)
 
 
 def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
-                    miss, kr0, mr, ts0, now, meta, lb=None):
-    """ServiceLB over the whole batch (under PH_LB) and B3's lane inputs
-    (pipeline.py:1670-1859): the miss-masked interval rows, the six
-    aggregate rows, the isolation bits.  kr0/mr/ts0 are the cache rows
-    gathered at batch start; lb is _lb_phase's result when the caller has
-    it.  -> (onepass.OnepassInputs, the affinity learn dict)."""
+                    kr0, mr, ts0, now, meta, lb=None):
+    """ServiceLB over the whole batch (under PH_LB) and B3's lane inputs,
+    tables and shape constants: the lane columns, the cache rows gathered
+    at batch start (kr0/mr/ts0) and the rule tables; B3 runs the probes
+    itself.  lb is _lb_phase's result when the caller has it.
+    -> (onepass.OnepassInputs, onepass.OnepassTables,
+    onepass.OnepassStatic, the affinity learn dict)."""
     if lb is None:
         lb = _lb_phase(meta, aff, dsvc, h, src_f, dst_f, proto, dport, now)
     svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = lb
-    iv6, iv_ref, aggs, iso_in, iso_out = _onepass_probes(
-        drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, miss, meta)
+    mm = meta.match
     z = torch.zeros_like(src_f)
     x = onepass.OnepassInputs(
         pkt=torch.stack([src_f, dst_f, proto, sport, dport, pp, z, z], dim=1),
-        kr=kr0,
-        prb=torch.stack([ts0, iso_in, iso_out, z], dim=1),
-        mrow=mr,
+        kr=kr0, ts=ts0, mrow=mr,
         msk=torch.stack([torch.ones_like(z), z, z, z], dim=1),
         lb=torch.stack([svc_idx, no_ep.to(_I32), dnat_ip, dnat_port, snat_m,
-                        dsr_m, z, z], dim=1),
-        agg=tuple(aggs),
-        iv=torch.stack([*iv6, iv_ref, z], dim=1),
-    )
-    return x, learn
+                        dsr_m, z, z], dim=1))
+    tabs = onepass.tables_of(drs, dsvc.prog_svc if mm.svcref else None)
+    st = onepass.OnepassStatic(
+        k=mm.prune_budget, in_phases=mm.in_phases, out_phases=mm.out_phases,
+        svcref=mm.svcref, timeouts=meta.timeouts, n_slots=meta.flow_slots,
+        pref_mask=PREF_MASK)
+    return x, tabs, st, learn
 
 
 def _fresh_code(drs, hits6, iso_in, iso_out, no_ep):
@@ -945,36 +934,34 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     Then, under PH_COMMIT, one interleaved commit of every lane's rows.
     -> (the miss lanes' images (B, 9), evictions, reclaims, (skips,
     fallbacks, candidate histogram))."""
-    ing, eg = drs.ingress, drs.egress
     mm = meta.match
     N = meta.flow_slots
     lb = _lb_phase(meta, state.aff, dsvc, h, src_f, dst_f, proto, dport, now)
     svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = lb
     zero = torch.zeros((), dtype=_I32, device=src_f.device)
     if meta.phases & PH_CLS:
-        x, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
-                               sport, dport, pp, h, miss, kr0, mr, ts0, now,
-                               meta, lb=lb)
-        tabs = onepass.OnepassTables(inc=tables(drs), act_in=ing.action,
-                                     act_out=eg.action)
-        st = onepass.OnepassStatic(
-            k=mm.prune_budget, in_phases=mm.in_phases,
-            out_phases=mm.out_phases, svcref=mm.svcref,
-            timeouts=meta.timeouts, n_slots=N, pref_mask=PREF_MASK)
-        main, keys8, meta8, aux = onepass.onepass(x, tabs, now, gen_w, st)
+        # B3 runs the probes (interval rows, isolation bits, aggregate
+        # rows) of its miss lanes itself and returns their interval rows.
+        x, tabs, st, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f,
+                                         proto, sport, dport, pp, h, kr0, mr,
+                                         ts0, now, meta, lb=lb)
+        main, keys8, meta8, aux, iv = onepass.onepass(x, tabs, now, gen_w,
+                                                      st)
 
         fb = torch.nonzero(aux[:, 1]).flatten()
         if fb.numel():
             # Lanes with more than K candidate superblocks: the exact
             # full-width walk (the function B1 computes, so through B1's
-            # wrapper), resolved and packed again, written back lane for
-            # lane.
-            hits = consumer.fused_hits(tabs.inc, x.iv[fb], mm.svcref,
+            # wrapper) at B3's interval rows, resolved with its isolation
+            # bits (iv column 7), packed again, written back lane for lane.
+            iv_f = iv[fb]
+            hits = consumer.fused_hits(tabs.inc, iv_f, mm.svcref,
                                        mm.in_phases, mm.out_phases)
-            lb_f, prb, pkt = x.lb[fb], x.prb[fb], x.pkt[fb]
+            lb_f, pkt = x.lb[fb], x.pkt[fb]
             no_ep_f = lb_f[:, 1] != 0
             f_code, f_ri, f_ro = _fresh_code(drs, hits[:, :6].unbind(1),
-                                             prb[:, 1], prb[:, 2], no_ep_f)
+                                             iv_f[:, 7] & 1, iv_f[:, 7] >> 1,
+                                             no_ep_f)
             fix = _fused_pack_rows(
                 *pkt[:, :6].unbind(1), f_code, lb_f[:, 0], lb_f[:, 2],
                 lb_f[:, 3], lb_f[:, 4], lb_f[:, 5], f_ri, f_ro, miss[fb],

@@ -20,8 +20,11 @@ measures three windows, first without and then under torch.profiler:
 For each window it prints the wall time (host clock around the work,
 ending in torch.cuda.synchronize()), the device busy time (the sum of the
 kernels' own device times in the profile), the device idle share, the
-device time of torch's row gathers (aten::index), the operators with the
-most device time, and each hand-written kernel's launches and device time.
+number of device launches (kernels, copies and fills) and of eager ops
+(operators not nested in another), both counted in the exported trace,
+the device time of torch's row gathers (aten::index), the
+operators with the most device time, and each hand-written kernel's
+launches and device time.
 Chrome traces go to OUT_DIR.
 
 Then two phase breakdowns (models/profile.py, telescoped differences over
@@ -62,6 +65,23 @@ def is_kernel(e) -> bool:
     return str(e.device_type).endswith("CUDA")
 
 
+def trace_counts(path) -> tuple[int, int]:
+    """(device launches: kernels, copies and fills; eager ops: CPU
+    operators not nested in another) of an exported Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches = sum(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   for e in events)
+    ops = sorted((e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "cpu_op")
+    n_ops, end = 0, {}
+    for tid, t0, t1 in ops:
+        if t0 >= end.get(tid, float("-inf")):
+            n_ops += 1
+            end[tid] = t1
+    return launches, n_ops
+
+
 def window(name, fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -77,7 +97,9 @@ def window(name, fn):
         fn()
         torch.cuda.synchronize()
     os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, f"profile_{name}.json"))
+    trace = os.path.join(OUT_DIR, f"profile_{name}.json")
+    prof.export_chrome_trace(trace)
+    n_launch, n_ops = trace_counts(trace)
     rows = sorted(prof.key_averages(), key=self_device_us, reverse=True)
     kernels = [e for e in rows if is_kernel(e)]
     busy_us = sum(self_device_us(e) for e in kernels)
@@ -90,7 +112,8 @@ def window(name, fn):
                    "ms": sum(self_device_us(e) for e in rows_k) / 1e3}
     print(f"[{name}] wall {wall * 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms, idle share "
-          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}; aten::index "
+          f"{max(0.0, 1 - busy_us / 1e6 / wall):.3f}, {n_launch} device "
+          f"launches, {n_ops} eager ops; aten::index "
           f"{sum(e.count for e in index)} calls {index_ms:.3f} ms; "
           + ", ".join(f"{k} {v['launches']} launches {v['ms']:.3f} ms"
                       for k, v in ours.items()), flush=True)
@@ -101,7 +124,9 @@ def window(name, fn):
         top.append({"op": e.key, "device_ms": us / 1e3, "calls": e.count})
         print(f"  {us / 1e3:9.3f} ms  {e.count:7d}x  {e.key[:90]}")
     return {"window": name, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy_us / 1e3, "aten_index_ms": index_ms,
+            "device_busy_ms": busy_us / 1e3, "device_launches": n_launch,
+            "eager_ops": n_ops,
+            "aten_index_ms": index_ms,
             "kernels": ours, "top": top}
 
 

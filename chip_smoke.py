@@ -22,9 +22,11 @@ package is missing, or when any phase fails.  Phases, in order:
      cache: every lane a miss): B1 (staged tables), S1 (their ANDed rows)
      and B2 (pruned tables, the lanes' own aggregate AND rows, K = 4) on the
      first 256 lanes (the staged step's miss round) and the first 32768; B3
-     on the whole batch.  For B1 and B2 also the time of the torch gathers
-     that their old call sites ran on the same lanes, and two bounds: each
-     distinct (table, row) read once, and every lane's rows read;
+     on the whole batch, from the lane columns and the tables (it runs the
+     probes itself).  For B1 and B2 also the time of the torch gathers that
+     their old call sites ran on the same lanes, for B3 the torch prologue
+     its old call site ran (prologue_ms), and two bounds: each distinct
+     (table, row) read once, and every lane's rows read;
   4. drive the staged fused step: one cold step, one warm step, 8 steady
      steps, with every launch count set to 0 just before and read just
      after; print ms/step and packets/s;
@@ -289,13 +291,11 @@ def check_pruned(g_in, g_out, iv, tabs, k, svcref, in_phases, out_phases,
 
 def onepass_inputs(step, state, drs, dsvc, lanes, now):
     """The one-pass step's B3 inputs for `lanes` against `state` (the
-    step's own preparation) -> (x, tabs, st)."""
+    step's own preparation) -> (x, tabs, st, the probe's hit mask)."""
     import torch
 
     from antrea_tpu_torch.models import pipeline as pl
     from antrea_tpu_torch.ops import hashing
-    from antrea_tpu_torch.ops import onepass as op
-    from antrea_tpu_torch.ops.match import tables
 
     meta = step.meta
     src_f, dst_f, proto, sport, dport = lanes
@@ -307,49 +307,112 @@ def onepass_inputs(step, state, drs, dsvc, lanes, now):
     hit, _, _, mr, kr0, ts0 = pl._cache_lookup(
         state.flow, slot, torch.stack([src_f, dst_f], 1), pp, pg,
         pg | (pl.GEN_ETERNAL << 9), now, proto, meta)
-    x, _ = pl._onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
-                              sport, dport, pp, h, ~hit, kr0, mr, ts0, now,
-                              meta)
-    tabs = op.OnepassTables(inc=tables(drs), act_in=drs.ingress.action,
-                            act_out=drs.egress.action)
-    mm = meta.match
-    st = op.OnepassStatic(k=mm.prune_budget, in_phases=mm.in_phases,
-                          out_phases=mm.out_phases, svcref=mm.svcref,
-                          timeouts=meta.timeouts, n_slots=meta.flow_slots,
-                          pref_mask=pl.PREF_MASK)
-    return x, tabs, st
+    x, tabs, st, _ = pl._onepass_inputs(state.aff, drs, dsvc, src_f, dst_f,
+                                        proto, sport, dport, pp, h, kr0, mr,
+                                        ts0, now, meta)
+    return x, tabs, st, hit
+
+
+def lane_probes(x, tabs, st, hit):
+    """The lanes' interval rows (column 7, B3's isolation bits, zeroed: the
+    staged layout) and the two aggregate-AND matrices, from B3's plain
+    probes on the card -> (iv (B, 8), g_in (B, S_in), g_out (B, S_out))."""
+    from antrea_tpu_torch.ops import onepass as op
+
+    iv, aggs, _, _ = op.probes_plain(x, tabs, st.svcref, ~hit)
+    iv[:, 7] = 0
+    g = [(aggs[3 * d] & aggs[3 * d + 1] & aggs[3 * d + 2]).contiguous()
+         for d in (0, 1)]
+    return iv, g[0], g[1]
 
 
 def check_onepass(step, state, drs, dsvc, lanes, now, what):
-    """Phase 3 / 5 for B3 on the step's own inputs -> record.  The byte
-    bound counts what these inputs need: every lane's input row (40 words),
-    its four action words and its 36 output words; a miss lane's six
-    aggregate rows and, per direction, min(nc, K) candidate rows of 128 B
-    per dimension (a fourth for the egress svcref row)."""
+    """Phase 3 / 5 for B3 on the step's own lane inputs and tables ->
+    record.  Bounds, both on this run's data: "rows once" (bound_ms) counts
+    every lane's 29 input and 44 output words, each bounds array once, and
+    each distinct aggregate row and candidate block (table, row,
+    superblock) that the miss lanes read, once; "per lane" counts the lane
+    words and, for every miss lane, its six (seven with svcref) aggregate
+    rows, its min(nc, K) candidate blocks of 128 B per dimension (a fourth
+    for the svcref row) and ceil(log2 n) words of each search.  Beside the
+    kernel, the torch prologue that the old call site ran on the same
+    lanes (_onepass_probes and the stacks of the old interval-row and
+    probe inputs), timed queued ahead (prologue_ms) and per call."""
+    import math
+
     import torch
 
+    from antrea_tpu_torch.models import pipeline as pl
     from antrea_tpu_torch.ops import onepass as op
+    from antrea_tpu_torch.ops import pruned_consumer as pc
+    from antrea_tpu_torch.utils.timing import device_time
 
-    x, tabs, st = onepass_inputs(step, state, drs, dsvc, lanes, now)
+    x, tabs, st, hit = onepass_inputs(step, state, drs, dsvc, lanes, now)
     b = x.pkt.shape[0]
     got = op.onepass(x, tabs, now, 0, st)
-    hit = got[0][:, 11] != 0
-    miss = int((~hit).sum())
-    s_in, s_out = x.agg[0].shape[1], x.agg[3].shape[1]
-    cand_rows = 0
-    for d, dims in ((0, 3), (1, 4 if st.svcref else 3)):
-        g = x.agg[3 * d] & x.agg[3 * d + 1] & x.agg[3 * d + 2]
-        nc = ((g != 0).sum(dim=1) * ~hit).clamp(max=min(st.k, g.shape[1]))
-        cand_rows += int(nc.sum()) * dims
-    agg_words = miss * 3 * (s_in + s_out)
-    nbytes = b * (40 + 4 + 36) * 4 + agg_words * 4 + cand_rows * 128
+    miss = got[0][:, 11] == 0  # every lane is valid
+    n_miss = int(miss.sum())
+    iv = got[4][miss].long()
+    s = [tabs.agg[0].shape[1], tabs.agg[3].shape[1]]
+    dims = [(0, 0), (1, 1), (2, 2), (3, 3), (4, 4), (5, 5)]
+    if st.svcref:
+        dims.append((5, 6))  # (table, iv column): the svcref row
+    lane_io = b * (29 + 44) * 4
+    once = lane_io + sum(t.shape[0] * 4 for t in (*tabs.bounds,
+                                                  *tabs.iso_bounds))
+    agg_words = n_miss * (3 * s[0] + (len(dims) - 3) * s[1])
+    per_lane = lane_io + agg_words * 4
+    blocks = cand_rows = 0
+    for d in (0, 1):
+        cols = [(t, c) for t, c in dims if t // 3 == d]
+        r = [tabs.agg[t][iv[:, c]] for t, c in cols]
+        g = r[0] & r[1] & (r[2] | r[3] if len(r) == 4 else r[2])
+        cand, valid = pc.candidate_ids(g, min(st.k, s[d]))
+        for t, c in cols:
+            key = iv[:, c, None] * s[d] + cand
+            blocks += int(torch.unique(key[valid]).numel())
+        cand_rows += int(valid.sum()) * len(cols)
+    per_lane += cand_rows * 128
+    for t in range(6):
+        cs = [c for tt, c in dims if tt == t]
+        once += int(torch.unique(iv[:, cs]).numel()) * s[t // 3] * 4
+    once += blocks * 128
+    searches = [t.shape[0] for t in (*tabs.bounds, *tabs.iso_bounds)]
+    if st.svcref:
+        searches.append(tabs.bounds[5].shape[0])
+    per_lane += n_miss * 4 * sum(math.ceil(math.log2(n)) for n in searches
+                                 if n > 1)
     ops = 2 * agg_words + 2 * 32 * cand_rows
     del got
     rec = check_kernel(
-        f"B3 one-pass ({what}, K={st.k}, {miss} miss lanes)",
+        f"B3 one-pass ({what}, K={st.k}, {n_miss} miss lanes)",
         lambda: op.onepass(x, tabs, now, 0, st),
-        lambda: op.onepass_plain(x, tabs, now, 0, st), b, nbytes, ops, 3)
-    rec.update(miss_lanes=miss, candidate_rows=cand_rows)
+        lambda: op.onepass_plain(x, tabs, now, 0, st), b, once, ops, 3)
+    # The old call site's prologue on the same lanes.
+    meta = step.meta
+    src_f, proto = x.pkt[:, 0].contiguous(), x.pkt[:, 2].contiguous()
+    svc_idx, dnat_ip, dnat_port = (x.lb[:, c].contiguous() for c in (0, 2, 3))
+    z = torch.zeros_like(src_f)
+
+    def prologue():
+        iv6, iv_ref, aggs, iso_in, iso_out = pl._onepass_probes(
+            drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, ~hit, meta)
+        return (torch.stack([x.ts, iso_in, iso_out, z], dim=1),
+                torch.stack([*iv6, iv_ref, z], dim=1), aggs)
+
+    pro_s = device_time(prologue, iters=7, inner=3, host_lead_s=3 * 2e-3)
+    pro_call_s = device_time(prologue, iters=7, inner=3)
+    lane_s, _ = bound(per_lane, 0)
+    rec.update(miss_lanes=n_miss, candidate_blocks=blocks,
+               prologue_ms=pro_s * 1e3, prologue_call_ms=pro_call_s * 1e3,
+               bound_per_lane_ms=lane_s * 1e3, bytes_per_lane=per_lane,
+               share_rows_once=rec["bound_ms"] / rec["ms"],
+               share_per_lane=lane_s * 1e3 / rec["ms"])
+    log(f"  B3: removed torch prologue {pro_s * 1e3:.4f} ms "
+        f"({pro_call_s * 1e3:.4f} ms per call); bounds: rows once "
+        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['share_rows_once']:.3f} "
+        f"reached), per lane {lane_s * 1e6:.2f} us ({per_lane / 1e6:.2f} MB, "
+        f"{rec['share_per_lane']:.3f} reached)")
     del x
     torch.cuda.empty_cache()
     return rec
@@ -838,22 +901,23 @@ def main() -> int:
     # 3. Kernels against their plain versions, on the world's own tables
     # and the batch's own interval rows (B3's inputs on the empty cache:
     # every lane a miss).
-    x, otabs, _ = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes, 100)
+    x, otabs, ost, hit = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes,
+                                        100)
+    iv, g_in, g_out = lane_probes(x, otabs, ost, hit)
+    del x
     stabs = tables(drs)
     b1, b2 = {}, {}
     for b, inner in ((256, 50), (32768, 3)):
-        b1[b] = check_consumer(stabs, x.iv[:b], meta.svcref, meta.in_phases,
+        b1[b] = check_consumer(stabs, iv[:b], meta.svcref, meta.in_phases,
                                meta.out_phases, f"first {b} lanes", inner)
-    s1 = {b: check_consumer2(stabs, x.iv[:b], meta.in_phases,
+    s1 = {b: check_consumer2(stabs, iv[:b], meta.in_phases,
                              meta.out_phases, inner)
           for b, inner in ((256, 50), (32768, 3))}
-    g = [(x.agg[3 * d] & x.agg[3 * d + 1] & x.agg[3 * d + 2]).contiguous()
-         for d in (0, 1)]
     for b, inner in ((256, 50), (32768, 5)):
-        b2[b] = check_pruned(g[0][:b], g[1][:b], x.iv[:b], otabs.inc,
+        b2[b] = check_pruned(g_in[:b], g_out[:b], iv[:b], otabs.inc,
                              PRUNE_K, pmeta.svcref, pmeta.in_phases,
                              pmeta.out_phases, inner)
-    del x, g
+    del iv, g_in, g_out
     torch.cuda.empty_cache()
     b3 = {"cold": check_onepass(ostep, ostate, pdrs, pdsvc, lanes, 100,
                                 "empty cache")}
@@ -871,13 +935,15 @@ def main() -> int:
     # B1 on every fallback lane of an expire-all batch (the one-pass
     # fallback re-walk's own lanes and tables).
     now = 7200 * (EXPIRE_STEPS + 2) + 1
-    x, otabs, ost = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes, now)
-    fb = torch.nonzero(onepass.onepass(x, otabs, now, 0, ost)[3][:, 1])
+    x, otabs, ost, _ = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes,
+                                      now)
+    out = onepass.onepass(x, otabs, now, 0, ost)
+    fb = torch.nonzero(out[3][:, 1]).flatten()
     b1["fallback"] = check_consumer(
-        otabs.inc, x.iv[fb.flatten()], pmeta.svcref, pmeta.in_phases,
+        otabs.inc, out[4][fb], pmeta.svcref, pmeta.in_phases,
         pmeta.out_phases, f"one-pass expire-all fallback, {fb.shape[0]} of "
         f"{B} lanes", 2)
-    del x, fb
+    del x, out, fb
     del ostate
     torch.cuda.empty_cache()
 
@@ -916,8 +982,9 @@ def main() -> int:
 
     def at(r):
         keys = ("ms", "call_ms", "plain_ms", "bound_ms", "gather_ms",
-                "gather_call_ms", "bound_per_lane_ms", "share_rows_once",
-                "share_per_lane")
+                "gather_call_ms", "prologue_ms", "prologue_call_ms",
+                "bound_per_lane_ms", "share_rows_once", "share_per_lane",
+                "miss_lanes")
         return {k: r[k] for k in keys if k in r}
 
     def rows_bounds(r):
@@ -939,8 +1006,10 @@ def main() -> int:
             **rows_bounds(b2[256]), at_B32768=at(b2[32768])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
-            batch=B, warm_cache={**at(b3["warm"]),
-                                 "miss_lanes": b3["warm"]["miss_lanes"]},
+            batch=B, **{k: v for k, v in at(b3["cold"]).items()
+                        if k not in ("ms", "call_ms", "plain_ms",
+                                     "bound_ms")},
+            warm_cache=at(b3["warm"]),
             launches_async_onepass_path=a_op_launches[2]),
         rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
             "bench_cold_study.py:129", s1_launches, s1[32768],

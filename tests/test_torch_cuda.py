@@ -178,21 +178,44 @@ def test_pruned_pipeline_card_equals_cpu(cuda, pruned_world, onepass):
         assert k1[1] > k0[1] and k1[0] == k0[0]
 
 
+def _svcref_svc(svc, refs, g):
+    """Egress svc DimTable `svc` with interval bounds at SVCREF_BASE + r and
+    SVCREF_BASE + r + 1 for each r in refs inserted after its v4 space (a
+    toServices-bearing table); each new row copies a v4 row with a nonzero
+    aggregate row, chosen by g."""
+    from antrea_tpu_torch.compiler.compile import SVCREF_BASE
+
+    n4 = svc.bounds.shape[0]
+    new = torch.unique(torch.cat([refs, refs + 1]).cpu().long() + SVCREF_BASE)
+    full = torch.nonzero(svc.agg[:n4 + 1].cpu().any(dim=1)).flatten()
+    pick = full[torch.randint(0, full.numel(), (new.numel(),), generator=g)]
+    rows = torch.cat([torch.arange(n4 + 1), pick,
+                      torch.arange(n4 + 1, svc.agg.shape[0])]).to(
+                          svc.agg.device)
+    return svc._replace(
+        bounds=torch.cat([svc.bounds, new.to(svc.bounds)]),
+        agg=svc.agg[rows].contiguous(), inc=svc.inc[rows].contiguous())
+
+
 @pytest.mark.parametrize("svcref,timeouts", [
     (False, (3600, 3600, 3600, 3600)), (True, (30, 3600, 60, 120))])
 def test_onepass_kernel_equals_plain(cuda, pruned_world, svcref, timeouts):
-    """B3 against its plain version on prepared inputs after a cold step,
-    with the svcref probe and per-state timeouts forced on."""
+    """B3 against its plain version on the pruned world's own tables and
+    lanes after a cold step, with per-state timeouts, and with the
+    toServices probe forced on (egress svc extended with reference
+    intervals, the world's prog_svc)."""
     from antrea_tpu_torch.ops import onepass as op
 
-    x, tabs, st, drs = _onepass_case(cuda, pruned_world, timeouts)
+    x, tabs, st, drs, dsvc = _onepass_case(cuda, pruned_world, timeouts)
     if svcref:
         g = torch.Generator().manual_seed(1)
-        iv = x.iv.clone()
-        rows = drs.egress.svc.inc.shape[0]
-        iv[:, 6] = torch.randint(0, rows, (iv.shape[0],), generator=g).to(
-            cuda, torch.int32)
-        x = x._replace(iv=iv)
+        svc_lanes = x.lb[:, 0][x.lb[:, 0] >= 0].long()
+        refs = torch.unique(dsvc.prog_svc[svc_lanes])[:6]
+        svc = _svcref_svc(drs.egress.svc, refs, g)
+        tabs = tabs._replace(
+            bounds=tabs.bounds[:5] + (svc.bounds,),
+            agg=tabs.agg[:5] + (svc.agg,), inc=tabs.inc[:5] + (svc.inc,),
+            prog_svc=dsvc.prog_svc)
     # K = 1 < S_in = 2: fallback lanes too.
     st = st._replace(k=1, svcref=svcref)
     before = op.launches
@@ -203,15 +226,15 @@ def test_onepass_kernel_equals_plain(cuda, pruned_world, svcref, timeouts):
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy())
     assert got[0][:, 11].any() and got[3][:, 1].any()
+    if svcref:
+        assert (want[4][:, 6] > drs.egress.svc.bounds.shape[0]).any()
 
 
 def _onepass_case(cuda, pruned_world, timeouts):
     """B3's inputs for the pruned world's lanes after a cold step at
-    now = 100, probed at now = 150 -> (x, tabs, st (K = 2), drs)."""
+    now = 100, probed at now = 150 -> (x, tabs, st (K = 2), drs, dsvc)."""
     from antrea_tpu_torch.models import pipeline as pl
     from antrea_tpu_torch.ops import hashing
-    from antrea_tpu_torch.ops import onepass as op
-    from antrea_tpu_torch.ops.match import tables
 
     cps, svc, tr = pruned_world
     step, state, (drs, dsvc) = pl.make_pipeline(
@@ -220,52 +243,71 @@ def _onepass_case(cuda, pruned_world, timeouts):
     lanes = _lanes(tr, cuda)
     state, _ = step(state, drs, dsvc, *lanes, 100, 0)
     src_f, dst_f, proto, sport, dport = lanes
-    meta = step.meta
+    t_syn, t_est, t_onew, t_oest = timeouts
+    meta = step.meta._replace(ct_syn_timeout_s=t_syn, ct_timeout_s=t_est,
+                              ct_other_new_s=t_onew, ct_other_est_s=t_oest)
     n = meta.flow_slots
     pp = pl._pair16(sport, dport)
     h = hashing.flow_hash(pl._raw_bits(src_f), pl._raw_bits(dst_f), proto,
                           sport, dport)
-    slot = h & (n - 1)
     hit, _, _, mr, kr0, ts0 = pl._cache_lookup(
-        state.flow, slot, torch.stack([src_f, dst_f], 1), pp,
+        state.flow, h & (n - 1), torch.stack([src_f, dst_f], 1), pp,
         proto | 0x100, proto | 0x100 | (pl.GEN_ETERNAL << 9), 150, proto,
         meta)
-    x, _ = pl._onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
-                              sport, dport, pp, h, ~hit, kr0, mr, ts0, 150,
-                              meta)
-    tabs = op.OnepassTables(inc=tables(drs), act_in=drs.ingress.action,
-                            act_out=drs.egress.action)
-    mm = meta.match
-    st = op.OnepassStatic(k=2, in_phases=mm.in_phases,
-                          out_phases=mm.out_phases, svcref=mm.svcref,
-                          timeouts=timeouts, n_slots=n,
-                          pref_mask=pl.PREF_MASK)
-    return x, tabs, st, drs
+    x, tabs, st, _ = pl._onepass_inputs(state.aff, drs, dsvc, src_f, dst_f,
+                                        proto, sport, dport, pp, h, kr0, mr,
+                                        ts0, 150, meta)
+    return x, tabs, st._replace(k=2), drs, dsvc
+
+
+def _rank_tables(g, keys, s, dev):
+    """A seeded dimension table over the lanes' keys: its bounds are the
+    distinct keys but the least, so the lanes with the least key land on
+    row 0 and every other lane on the row of its key's rank; row r keeps
+    each aggregate word (as all ones) with probability 1 when r % 3 == 0
+    and (r % 11) / 10 otherwise, so the lanes' candidate counts run from 0
+    to S; incidence words are seeded.  -> (bounds, agg, inc) int32 on
+    dev."""
+    bounds = torch.unique(keys.cpu())[1:].to(torch.int32)
+    rows = bounds.shape[0] + 2  # the v4 rows and one v6 row
+    r = torch.arange(rows)
+    keep = torch.rand((rows, s), generator=g) < torch.where(
+        r % 3 == 0, 1.0, r % 11 / 10)[:, None]
+    agg = torch.where(keep, -1, 0).to(torch.int32)
+    return (bounds.to(dev), agg.to(dev),
+            _words(g, (rows, 32 * s), 0.45, dev))
 
 
 @pytest.mark.parametrize("k,svcref", [(3, True), (16, False)])
 def test_onepass_candidate_scan_equals_plain(cuda, pruned_world, k, svcref):
     """B3 on the candidate scan it shares with B2 (csrc/candidate_scan.cuh):
-    the pruned world's lanes over seeded tables of 40 and 7 superblocks and
-    seeded aggregate rows, so a lane has up to 40 candidates in two ballot
-    words, batches of four and a short last batch; bitwise to its plain
-    version."""
+    the pruned world's lanes over seeded tables of 40 and 7 superblocks
+    whose bounds put the lanes on chosen rows (_rank_tables), so a lane
+    has up to 40 candidates in two ballot words, batches of four and a
+    short last batch; bitwise to its plain version."""
+    from antrea_tpu_torch.compiler.compile import SVCREF_BASE
     from antrea_tpu_torch.ops import onepass as op
 
-    x, tabs, st, _ = _onepass_case(cuda, pruned_world,
-                                   (3600, 3600, 3600, 3600))
+    x, tabs, st, _, dsvc = _onepass_case(cuda, pruned_world,
+                                         (3600, 3600, 3600, 3600))
     g = torch.Generator().manual_seed(k)
-    inc = _tables(g, (32 * 40, 32 * 7), 0.45, cuda, False)
-    b = x.iv.shape[0]
-    # Lane i keeps each aggregate word with probability (i % 11) / 10, so
-    # its candidate count runs from 0 to all of S; no key row matches, so
-    # every lane misses and scans.
-    keep = (torch.arange(b) % 11 / 10)[:, None]
-    agg = tuple(torch.where(torch.rand((b, s), generator=g) < keep, -1, 0)
-                .to(cuda, torch.int32) for s in (40, 40, 40, 7, 7, 7))
-    x = x._replace(agg=agg, iv=_interval_rows(g, inc, b, cuda),
-                   kr=torch.zeros_like(x.kr))
-    tabs = tabs._replace(inc=tuple(inc))
+    src, proto = x.pkt[:, 0], x.pkt[:, 2]
+    dnat, port = x.lb[:, 2], x.lb[:, 3]
+    svc_key = (proto << 16) | port
+    keys = (dnat, src, svc_key, src, dnat, svc_key)
+    if svcref:
+        # The toServices keys of the service lanes get rows of their own.
+        ref = dsvc.prog_svc[x.lb[:, 0].clamp(min=0).long()]
+        svc_key = torch.where(x.lb[:, 0] >= 0, SVCREF_BASE + ref, svc_key)
+        keys = keys[:5] + (torch.cat([keys[5], svc_key]),)
+    t = [_rank_tables(g, kk, 40 if i < 3 else 7, cuda)
+         for i, kk in enumerate(keys)]
+    # No key row matches, so every lane misses and scans.
+    x = x._replace(kr=torch.zeros_like(x.kr))
+    tabs = tabs._replace(bounds=tuple(a for a, _, _ in t),
+                         agg=tuple(b for _, b, _ in t),
+                         inc=tuple(c for _, _, c in t),
+                         prog_svc=dsvc.prog_svc)
     st = st._replace(k=k, svcref=svcref)
     before = op.launches
     got = op.onepass(x, tabs, 150, 3, st)
@@ -275,6 +317,181 @@ def test_onepass_candidate_scan_equals_plain(cuda, pruned_world, k, svcref):
     for g_, w_ in zip(got, want):
         np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy())
     assert (want[3][:, 2] > 32).any()  # candidates past the first ballot
+    assert (want[4][:, :6] == 0).any() and (want[4][:, 0] > 1).any()
+
+
+def _sorted_keys(g, n, lo, hi):
+    """n distinct ascending int32 values in [lo, hi)."""
+    pool = torch.unique(torch.randint(lo, hi, (n + n // 4 + 16,),
+                                      generator=g, dtype=torch.int64))
+    pick = pool[torch.randperm(pool.numel(), generator=g)[:n]]
+    return pick.sort().values.to(torch.int32)
+
+
+def _seeded_b3(g, b, ns, s, hit_share, valid_share, svcref, dev):
+    """Seeded B3 inputs and tables with the given bounds lengths ns (six
+    dimensions, then iso_in, iso_out) and superblocks s = (S_in, S_out):
+    hit_share of the lanes hit (a fresh key row, in one of the current,
+    established and reply generations), the rest carry a key row that
+    differs or has expired (under per-state timeouts); valid_share of the
+    lanes are valid.  Lane keys are the tables' own bounds, their
+    neighbours, the address space's ends and random values, so the searches
+    reach row 0, row n and everything between.  -> (x, tabs, now, gen_w)."""
+    from antrea_tpu_torch.compiler.compile import SVCREF_BASE
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops import onepass as op
+
+    i32 = torch.int32
+    imin, imax = -2**31, 2**31 - 1
+    n_prog = 7
+    bounds = []
+    for k, n in enumerate(ns):
+        svc_dim = k in (2, 5)
+        bd = _sorted_keys(g, n, 0, 1 << 24) if svc_dim else _sorted_keys(
+            g, n, imin, imax)
+        if k == 5 and svcref:
+            ref = torch.arange(0, n_prog + 1, 2, dtype=i32) + SVCREF_BASE
+            bd = torch.cat([bd, ref])
+        bounds.append(bd)
+
+    def keys(tabs_k, lo, hi):
+        # 60% a bound or its neighbour, 15% an end (below every table's
+        # first bound, at its last, the range's ends), 25% random.
+        def draw(pool):
+            pool = pool.to(torch.int64).clamp(lo, hi - 1)
+            return pool[torch.randint(0, pool.numel(), (b,), generator=g)]
+
+        near = draw(torch.cat([torch.cat([t, t - 1, t + 1])
+                               for t in tabs_k] + [torch.tensor([lo])]))
+        ends = draw(torch.cat([torch.tensor([lo, hi - 1])] + [
+            t[[0, -1]] - torch.tensor([1, 0]) for t in tabs_k if t.numel()]))
+        rand = torch.randint(lo, hi, (b,), generator=g, dtype=torch.int64)
+        u = torch.rand(b, generator=g)
+        return torch.where(u < 0.6, near, torch.where(u < 0.75, ends,
+                                                      rand)).to(i32)
+
+    ip_tabs = [bounds[i] for i in (0, 1, 3, 4, 6, 7)]
+    src = keys(ip_tabs, imin, imax + 1)
+    dnat = keys(ip_tabs, imin, imax + 1)
+    dst = torch.where(torch.rand(b, generator=g) < 0.5, dnat,
+                      keys(ip_tabs, imin, imax + 1))
+    svc_key = keys([bounds[2], bounds[5]], 0, 1 << 24)
+    proto = (svc_key >> 16) & 0xFF
+    port = svc_key & 0xFFFF
+    sport = torch.randint(0, 1 << 16, (b,), generator=g, dtype=i32)
+    dport = torch.randint(0, 1 << 16, (b,), generator=g, dtype=i32)
+    pp = pl._pair16(sport, dport)
+    z = torch.zeros(b, dtype=i32)
+
+    def bit(p):
+        return (torch.rand(b, generator=g) < p).to(i32)
+
+    svc_idx = torch.randint(-1, n_prog, (b,), generator=g, dtype=i32)
+    lb = torch.stack([svc_idx, bit(0.1), dnat, port, bit(0.3), bit(0.2),
+                      z, z], dim=1)
+    now, gen_w = 5000, 3
+    gen = torch.randint(0, 3, (b,), generator=g)
+    pg_cur = proto | 0x100 | (gen_w << 9)
+    pg_est = proto | 0x100 | (pl.GEN_ETERNAL << 9)
+    pg = torch.where(gen == 0, pg_cur, torch.where(
+        gen == 1, pg_est, pg_est | pl.REPLY_BIT)).to(i32)
+    fresh = torch.rand(b, generator=g) < hit_share
+    kr = torch.stack([src, dst, pp, pg], dim=1)
+    # A missing lane's key row differs in one field, or has expired under
+    # every timeout; a fresh one is at most 200 s old (past some per-state
+    # timeouts).
+    wrong = torch.randint(0, 5, (b,), generator=g)
+    for f in range(4):
+        kr[:, f] = torch.where(~fresh & (wrong == f), kr[:, f] ^ 0x10,
+                               kr[:, f])
+    age = torch.where(fresh, torch.randint(0, 200, (b,), generator=g),
+                      torch.randint(3601, 10000, (b,), generator=g))
+    ts = (now - age).to(i32)
+    mrow = torch.randint(imin, imax, (b, 4), generator=g,
+                         dtype=torch.int64).to(i32)
+    msk = torch.stack([(torch.rand(b, generator=g) < valid_share).to(i32),
+                       bit(0.1), bit(0.05), z], dim=1)
+    x = op.OnepassInputs(
+        pkt=torch.stack([src, dst, proto, sport, dport, pp, z, z], dim=1),
+        kr=kr, ts=ts, mrow=mrow, msk=msk, lb=lb)
+    rows = [bd.shape[0] + 2 for bd in bounds]
+    tabs = op.OnepassTables(
+        bounds=tuple(bounds[:6]),
+        agg=tuple(torch.where(
+            torch.rand((r, s[k // 3]), generator=g)
+            < (torch.arange(r) % 7 / 6)[:, None],
+            _words(g, (r, s[k // 3]), 0.6, "cpu"), 0)
+            for k, r in enumerate(rows[:6])),
+        inc=tuple(_words(g, (r, 32 * s[k // 3]), 0.3, "cpu")
+                  for k, r in enumerate(rows[:6])),
+        iso_bounds=(bounds[6], bounds[7]),
+        iso_val=tuple(torch.randint(0, 2, (r,), generator=g, dtype=i32)
+                      for r in rows[6:]),
+        act_in=torch.randint(0, 4, (32 * 32 * s[0],), generator=g, dtype=i32),
+        act_out=torch.randint(0, 4, (32 * 32 * s[1],), generator=g,
+                              dtype=i32),
+        prog_svc=torch.randint(-1, n_prog, (n_prog,), generator=g, dtype=i32))
+    def to(t):
+        if isinstance(t, torch.Tensor):
+            return t.contiguous().to(dev)
+        return tuple(to(u) for u in t)
+
+    return (op.OnepassInputs(*map(to, x)), op.OnepassTables(*map(to, tabs)),
+            now, gen_w)
+
+
+@pytest.mark.parametrize("case,b,hit_share,ns,svcref,timeouts", [
+    ("ragged-1", 1, 0.0, (5, 3, 2, 4, 1, 6, 2, 3), False, None),
+    ("ragged-37", 37, 0.4, (40, 33, 31, 32, 1, 64, 0, 7), True, None),
+    ("ragged-129", 129, 0.5, (300, 17, 9, 1000, 33, 8, 5, 1), False, None),
+    ("all-hit", 300, 1.0, (100, 50, 20, 70, 30, 10, 12, 9), True, None),
+    ("all-miss", 300, 0.0, (100, 50, 20, 70, 30, 10, 12, 9), False, None),
+    ("per-state", 257, 0.6, (64, 64, 16, 64, 64, 16, 8, 8), False,
+     (30, 3600, 60, 120)),
+    ("svcref", 200, 0.3, (64, 100, 40, 80, 90, 60, 20, 20), True, None),
+    ("largest", 256, 0.2, (33431, 2000, 900, 24000, 33431, 700, 3000, 5000),
+     True, None),
+])
+def test_onepass_seeded_equals_plain(cuda, case, b, hit_share, ns, svcref,
+                                     timeouts):
+    """B3 against its plain version on seeded lanes and tables: ragged B
+    (1, 37, 129), all-hit and all-miss batches, per-state timeouts, the
+    toServices probe, and searches over the largest table of the headline
+    world (33,431 bounds, three 32-ary levels); tables of 0 and 1 bounds
+    too.  Invalid, no-commit, forced-fallback and no-endpoint lanes
+    throughout."""
+    from antrea_tpu_torch.ops import onepass as op
+
+    g = torch.Generator().manual_seed(b * 31 + len(case))
+    valid = 1.0 if case in ("all-hit", "all-miss") else 0.9
+    x, tabs, now, gen_w = _seeded_b3(g, b, ns, (5, 3), hit_share, valid,
+                                     svcref, cuda)
+    tmo = timeouts or (3600, 3600, 3600, 3600)
+    st = op.OnepassStatic(k=2, in_phases=(1500, 2000, 1620),
+                          out_phases=(1000, 1000, 1072), svcref=svcref,
+                          timeouts=tmo, n_slots=1 << 12,
+                          pref_mask=(1 << 29) - 1)
+    before = op.launches
+    got = op.onepass(x, tabs, now, gen_w, st)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    want = op.onepass_plain(x, tabs, now, gen_w, st)
+    for name, g_, w_ in zip(("main", "keys8", "meta8", "aux", "iv"), got,
+                            want):
+        np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy(),
+                                      err_msg=f"{case}: {name}")
+    hit = want[0][:, 11] != 0
+    if case == "all-hit":
+        assert hit.all()
+    elif case == "all-miss":
+        assert not hit.any()
+    elif b > 1:
+        assert hit.any() and not hit.all()
+    iv = want[4][~hit & (x.msk[:, 0] != 0)]
+    if case == "largest":
+        assert (iv[:, 0] > 32 * 32).any() and (iv[:, 0] == 0).any()
+    if svcref and iv.shape[0]:
+        assert (iv[:, 6] > ns[5]).any()
 
 
 @pytest.mark.parametrize("b,w_in,w_out,in_ph,out_ph", [

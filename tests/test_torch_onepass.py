@@ -7,7 +7,8 @@ every output key and every flow-cache and affinity column must be equal
 
 One world and one set of shapes (B = 120 lanes, padded to 128 on the JAX
 side, K = 1, 2**10 slots) serve every test, so the JAX package's compiled
-one-pass kernel is shared between them."""
+one-pass kernel is shared between them; the B3 edge cases add one more
+compile (256 lanes, the toServices probe on)."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from antrea_tpu.compiler.compile import compile_policy_set
+from antrea_tpu.compiler.compile import (SVCREF_BASE, SVCREF_NONE,
+                                         compile_policy_set)
 from antrea_tpu.compiler.services import compile_services
 from antrea_tpu.models import pipeline as jpl
 from antrea_tpu.ops import match as jm
@@ -178,66 +180,251 @@ def test_staged_pruned_pipeline_equals_reference(world):
     assert out["n_miss"] > 0
 
 
-def test_plain_onepass_equals_pallas(world):
-    """B3's plain version against the Pallas kernel (interpret mode) on
-    inputs made by the port's own one-pass input preparation, after a cold
-    step, so the batch has hit, miss, skip, fallback and no-endpoint
-    lanes.  The port's batch is ragged; the JAX kernel takes 128 lanes."""
-    cluster, services, _, _, tcps, tsvc = world
-    step, state, (drs, dsvc) = tpl.make_pipeline(tcps, tsvc, device="cpu",
-                                                 **KW)
-    meta = step.meta
-    fwd = [_t(a) for a in _traffic(cluster, services, seed=3)]
-    state, _ = step(state, drs, dsvc, *fwd, 100, 0)
-    lanes = [torch.cat([a[:B // 2], b[B // 2:]]) for a, b in zip(
-        fwd, (_t(a) for a in _traffic(cluster, services, seed=5)))]
-    src_f, dst_f, proto, sport, dport = lanes
-    now, gen_w = 101, 0
-    n = meta.flow_slots
-    pp = tpl._pair16(sport, dport)
-    h = thash.flow_hash(tpl._raw_bits(src_f), tpl._raw_bits(dst_f), proto,
-                        sport, dport)
-    slot = h & (n - 1)
-    pg_cur = proto | 0x100 | (gen_w << 9)
-    pg_est = proto | 0x100 | (tpl.GEN_ETERNAL << 9)
-    hit, _, _, mr, kr0, ts0 = tpl._cache_lookup(
-        state.flow, slot, torch.stack([src_f, dst_f], 1), pp, pg_cur, pg_est,
-        now, proto, meta)
-    x, _ = tpl._onepass_inputs(state.aff, drs, dsvc, src_f, dst_f, proto,
-                               sport, dport, pp, h, ~hit, kr0, mr, ts0, now,
-                               meta)
-    ing, eg = drs.ingress, drs.egress
-    tabs = top.OnepassTables(
-        inc=tuple(t.inc for t in (ing.at, ing.peer, ing.svc, eg.at, eg.peer,
-                                  eg.svc)),
-        act_in=ing.action, act_out=eg.action)
-    mm = meta.match
-    st = top.OnepassStatic(k=K, in_phases=mm.in_phases,
-                           out_phases=mm.out_phases, svcref=mm.svcref,
-                           timeouts=meta.timeouts, n_slots=n,
-                           pref_mask=tpl.PREF_MASK)
-    got = top.onepass(x, tabs, now, gen_w, st)
+def _np_probes(dims, iso, x, miss, prog_svc=None):
+    """B3's probes made with numpy from host tables: dims the six DimTables
+    (ingress at/peer/svc, egress at/peer/svc), iso the two IsoTables, x the
+    lane inputs, prog_svc for the toServices probe (None: off).  Non-miss
+    lanes take row 0.  -> (iv (B, 8) with column 7 zero, as the Pallas
+    kernel takes it; the six aggregate rows, svcref ORed; prb (B, 4)
+    [ts, iso_in, iso_out, 0]; the isolation column iso_in | iso_out << 1
+    of the port's iv)."""
+    pkt, lb = x.pkt.numpy(), x.lb.numpy()
+    src, proto = pkt[:, 0], pkt[:, 2]
+    svc_idx, dnat, dnat_port = lb[:, 0], lb[:, 2], lb[:, 3]
+    svc_key = ((proto << 16) | dnat_port).astype(np.int32)
 
-    def pad(t, u32=False):
-        a = np.pad(t.numpy(), ((0, 128 - B), (0, 0)))
+    def midx(bounds, key):
+        return np.where(miss, np.searchsorted(bounds, key, side="right"), 0)
+
+    keys = (dnat, src, svc_key, src, dnat, svc_key)
+    rows = [midx(t.bounds, k) for t, k in zip(dims, keys)]
+    aggs = [np.asarray(t.agg)[r] for t, r in zip(dims, rows)]
+    ref_row = np.zeros_like(rows[0])
+    if prog_svc is not None:
+        ref = np.where(svc_idx >= 0,
+                       prog_svc[np.clip(svc_idx, 0, len(prog_svc) - 1)], -1)
+        ref_key = np.where(ref >= 0, SVCREF_BASE + ref,
+                           SVCREF_NONE).astype(np.int32)
+        ref_row = midx(dims[5].bounds, ref_key)
+        aggs[5] = aggs[5] | np.asarray(dims[5].agg)[ref_row]
+    iso_in = np.asarray(iso[0].val)[midx(iso[0].bounds, dnat)]
+    iso_out = np.asarray(iso[1].val)[midx(iso[1].bounds, src)]
+    z = np.zeros_like(src)
+    iv = np.stack([*rows, ref_row, z], axis=1).astype(np.int32)
+    prb = np.stack([x.ts.numpy(), iso_in, iso_out, z], axis=1)
+    return (iv, [np.ascontiguousarray(a) for a in aggs], prb,
+            np.where(miss, iso_in | (iso_out << 1), 0))
+
+
+def _pallas(x, dims, iso, act, miss, meta, k, now, gen_w, prog_svc=None):
+    """The JAX package's one-pass kernel (interpret mode) on x, with its
+    probes made by _np_probes -> ((main, keys8, meta8, aux) numpy, the
+    numpy iv and isolation column)."""
+    b = x.pkt.shape[0]
+    bp = -(-b // 128) * 128
+    iv, aggs, prb, iso_col = _np_probes(dims, iso, x, miss, prog_svc)
+
+    def pad(a, u32=False):
+        a = np.pad(np.asarray(a), ((0, bp - b), (0, 0)))
         return jnp.asarray(a.view(np.uint32) if u32 else a)
 
-    s_in, s_out = x.agg[0].shape[1], x.agg[3].shape[1]
-    call = jm._onepass_call(128, s_in, s_out, K, K, mm.in_phases,
-                            mm.out_phases, mm.svcref, True, meta.timeouts, n,
-                            tpl.PREF_MASK, True)
+    mm = meta.match
+    s_in, s_out = aggs[0].shape[1], aggs[3].shape[1]
+    call = jm._onepass_call(bp, s_in, s_out, k, k, mm.in_phases,
+                            mm.out_phases, prog_svc is not None, True,
+                            meta.timeouts, meta.flow_slots, tpl.PREF_MASK,
+                            True)
     scal = jnp.asarray([[now, gen_w, 0, 0]], jnp.int32)
-    inc2 = [jnp.asarray(t.numpy().view(np.uint32).reshape(-1, 32))
-            for t in tabs.inc]
-    want = call(pad(x.pkt), pad(x.kr), pad(x.prb), pad(x.mrow), pad(x.msk),
-                pad(x.lb), *(pad(a, u32=True) for a in x.agg), pad(x.iv),
-                scal, *inc2, jnp.asarray(ing.action.numpy()),
-                jnp.asarray(eg.action.numpy()))
+    inc2 = [jnp.asarray(np.asarray(t.inc).view(np.uint32).reshape(-1, 32))
+            for t in dims]
+    if prog_svc is not None:
+        inc2.append(inc2[5])  # the svcref row's source: egress svc again
+    want = call(pad(x.pkt.numpy()), pad(x.kr.numpy()), pad(prb),
+                pad(x.mrow.numpy()), pad(x.msk.numpy()), pad(x.lb.numpy()),
+                *(pad(a, u32=True) for a in aggs), pad(iv), scal, *inc2,
+                jnp.asarray(act[0]), jnp.asarray(act[1]))
+    return [np.asarray(w)[:b] for w in want], iv, iso_col
+
+
+def _assert_b3(got, want, iv, iso_col, what):
     for name, g, w in zip(("main", "keys8", "meta8", "aux"), got, want):
         assert g.dtype == torch.int32
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:B],
-                                      err_msg=name)
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{what} {name}")
+    np.testing.assert_array_equal(got[4][:, :7].numpy(), iv[:, :7],
+                                  err_msg=f"{what} iv")
+    np.testing.assert_array_equal(got[4][:, 7].numpy(), iso_col,
+                                  err_msg=f"{what} iv isolation column")
+
+
+@pytest.fixture(scope="module")
+def b3(world):
+    """The port's one-pass pipeline after a cold step at now = 100, the
+    JAX package's host tables of the same rule set, and a probe helper:
+    lanes -> (B3's inputs against the warm state at now = 101, the probe
+    hit mask)."""
+    cluster, services, cps, svc, tcps, tsvc = world
+    step, state, (drs, dsvc) = tpl.make_pipeline(tcps, tsvc, device="cpu",
+                                                 **KW)
+    fwd = [_t(a) for a in _traffic(cluster, services, seed=3)]
+    state, _ = step(state, drs, dsvc, *fwd, 100, 0)
+    meta = step.meta
+    drs_np, _ = jm.to_host(cps, prune_budget=K)
+
+    def inputs(lanes, now=101, gen_w=0):
+        src_f, dst_f, proto, sport, dport = lanes
+        pp = tpl._pair16(sport, dport)
+        h = thash.flow_hash(tpl._raw_bits(src_f), tpl._raw_bits(dst_f),
+                            proto, sport, dport)
+        slot = h & (meta.flow_slots - 1)
+        hit, _, _, mr, kr0, ts0 = tpl._cache_lookup(
+            state.flow, slot, torch.stack([src_f, dst_f], 1), pp,
+            proto | 0x100 | (gen_w << 9),
+            proto | 0x100 | (tpl.GEN_ETERNAL << 9), now, proto, meta)
+        x, tabs, st, _ = tpl._onepass_inputs(
+            state.aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
+            kr0, mr, ts0, now, meta)
+        return x, tabs, st, hit.numpy()
+
+    ing, eg = drs_np.ingress, drs_np.egress
+    host = dict(dims=(ing.at, ing.peer, ing.svc, eg.at, eg.peer, eg.svc),
+                iso=(drs_np.iso_in, drs_np.iso_out),
+                act=(np.asarray(ing.action), np.asarray(eg.action)),
+                prog_svc=np.asarray(jpl.svc_to_host(svc).prog_svc))
+    return dict(meta=meta, fwd=fwd, inputs=inputs, host=host)
+
+
+def test_plain_onepass_equals_pallas(world, b3):
+    """B3's plain version against the Pallas kernel (interpret mode), after
+    a cold step, so the batch has hit, miss, skip, fallback and no-endpoint
+    lanes.  The Pallas kernel gets its interval rows, aggregate rows and
+    isolation bits from numpy (searchsorted on the JAX package's host
+    bounds, non-miss lanes on row 0); the port's plain version runs its own
+    probes, and its iv output must equal numpy's.  The port's batch is
+    ragged; the JAX kernel takes 128 lanes."""
+    cluster, services = world[:2]
+    lanes = [torch.cat([a[:B // 2], b[B // 2:]]) for a, b in zip(
+        b3["fwd"], (_t(a) for a in _traffic(cluster, services, seed=5)))]
+    x, tabs, st, hit = b3["inputs"](lanes)
+    got = top.onepass(x, tabs, 101, 0, st)
+    host = b3["host"]
+    want, iv, iso_col = _pallas(x, host["dims"], host["iso"], host["act"],
+                                ~hit, b3["meta"], K, 101, 0)
+    _assert_b3(got, want, iv, iso_col, "half-warm")
     main, aux = got[0].numpy(), got[3].numpy()
-    assert main[:, 11].any() and not main[:, 11].all()  # hit and miss lanes
+    np.testing.assert_array_equal(main[:, 11], hit)
+    assert hit.any() and not hit.all()  # hit and miss lanes
     assert aux[:, 0].any() and aux[:, 1].any()  # skip and fallback lanes
     assert (main[:, 0] == 2).any()  # no-endpoint REJECT lanes
+
+
+def _svcref_dim(t, refs, rng):
+    """The DimTable t (host) with interval bounds at SVCREF_BASE + r and
+    SVCREF_BASE + r + 1 for each r in refs inserted after its v4 space: a
+    toServices-bearing egress svc table.  Each new row copies a v4 row with
+    a nonzero aggregate row, chosen by rng."""
+    base = SVCREF_BASE
+    bounds = np.asarray(t.bounds)
+    new = np.unique(np.concatenate([[base + r, base + r + 1] for r in refs]))
+    n4 = bounds.shape[0]
+    agg, inc = np.asarray(t.agg), np.asarray(t.inc)
+    full = np.flatnonzero(agg[:n4 + 1].any(axis=1))
+    pick = rng.choice(full, size=new.shape[0])
+    rows = np.concatenate([np.arange(n4 + 1), pick,
+                           np.arange(n4 + 1, agg.shape[0])])
+    return t._replace(bounds=np.concatenate([bounds, new]).astype(np.int32),
+                      agg=agg[rows], inc=inc[rows])
+
+
+def test_plain_onepass_edge_cases_equal_pallas(world, b3):
+    """One more Pallas call, 256 lanes: an all-hit tile (the warm lanes of
+    the cold step's batch) and a miss tile whose keys lie below the first
+    bound and above the last of the tables, with service lanes; the
+    toServices probe on (egress svc extended with reference intervals, the
+    world's prog_svc) and iso_in.val[0] = 1, so every hit lane's fresh code
+    in meta8 reads isolation row 0.  The all-hit tile alone is also run
+    through the plain version as a batch of its own."""
+    cluster, services = world[:2]
+    host = b3["host"]
+    rng = np.random.default_rng(11)
+    _, _, _, hit0 = b3["inputs"](b3["fwd"])
+    warm = np.flatnonzero(hit0)
+    hot = [a[torch.from_numpy(warm[np.arange(128) % warm.size])]
+           for a in b3["fwd"]]
+    # Keys at and beside the first and last bound of every IP table, and
+    # the address space's ends.
+    ip_tabs = [host["dims"][i] for i in (0, 1, 3, 4)] + list(host["iso"])
+    edge = {np.iinfo(np.int32).min, np.iinfo(np.int32).max}
+    for t in ip_tabs:
+        bd = np.asarray(t.bounds)
+        edge |= {int(bd[0]) - 1, int(bd[0]), int(bd[-1]) - 1, int(bd[-1])}
+    edge = np.array(sorted(v for v in edge
+                           if -2**31 <= v < 2**31), dtype=np.int32)
+    fresh = _traffic(cluster, services, seed=17)
+    n = edge.size
+    cold = [np.asarray(c[:128]).copy() for c in fresh]
+    cold[0][:n] = edge
+    cold[1][:n] = edge[::-1]
+    cold[4][:n:2] = 0
+    cold[4][1:n:2] = 65535
+    lanes = [torch.cat([h, _t(c)]) for h, c in zip(hot, cold)]
+
+    x, tabs, st, hit = b3["inputs"](lanes)
+    assert hit[:128].all() and not hit[128:].any()
+    refs = np.unique(host["prog_svc"][x.lb[128:, 0].numpy()[
+        x.lb[128:, 0].numpy() >= 0]])[:4]
+    assert refs.size > 0
+    dims = list(host["dims"])
+    dims[5] = _svcref_dim(dims[5], refs, rng)
+    iso = [host["iso"][0]._replace(val=np.asarray(host["iso"][0].val).copy()),
+           host["iso"][1]]
+    iso[0].val[0] = 1
+    tabs = tabs._replace(
+        bounds=tuple(_t(t.bounds) for t in dims),
+        agg=tuple(_t(t.agg) for t in dims),
+        inc=tuple(_t(t.inc) for t in dims),
+        iso_val=(_t(iso[0].val), tabs.iso_val[1]),
+        prog_svc=_t(host["prog_svc"]))
+    st = st._replace(svcref=True)
+    want, iv, iso_col = _pallas(x, dims, iso, host["act"], ~hit, b3["meta"],
+                                K, 101, 0, prog_svc=host["prog_svc"])
+    _assert_b3(top.onepass(x, tabs, 101, 0, st), want, iv, iso_col,
+               "edge cases")
+    x_hot = top.OnepassInputs(*(t[:128] for t in x))
+    _assert_b3(top.onepass(x_hot, tabs, 101, 0, st), [w[:128] for w in want],
+               iv[:128], iso_col[:128], "all-hit batch")
+    # The searches reached both ends of the tables, and the toServices
+    # rows inserted above.
+    miss = ~hit
+    ends = [(iv[miss, i] == 0).any() and (iv[miss, i] == len(d.bounds)).any()
+            for i, d in enumerate(dims)]
+    assert sum(ends) >= 2, ends
+    assert (iv[miss, 6] > len(host["dims"][5].bounds)).any()
+    # Hit lanes: iso_in row 0 isolates them, so their fresh code is a DROP
+    # (a REJECT where the service has no endpoint).
+    f_code = want[2][:128, 1] & 3
+    no_ep = x.lb[:128, 1].numpy() != 0
+    assert (f_code[~no_ep] == 1).all() and (~no_ep).any()
+
+
+def test_onepass_wrapper_checks(b3):
+    """B3's wrapper refuses what the kernel cannot take, on the CPU as on
+    the card: a lane input of another type or shape, a table with fewer
+    rows than intervals, the toServices probe without prog_svc; and a table
+    swapped in after an accepted call is checked again."""
+    x, tabs, st, _ = b3["inputs"](b3["fwd"])
+    top.onepass(x, tabs, 101, 0, st)  # accepted: its tables are remembered
+    with pytest.raises(TypeError, match="ts"):
+        top.onepass(x._replace(ts=x.ts.long()), tabs, 101, 0, st)
+    with pytest.raises(ValueError, match="pkt"):
+        top.onepass(x._replace(pkt=x.pkt[:, :7].contiguous()), tabs, 101, 0,
+                    st)
+    short = tabs._replace(agg=(tabs.agg[0][:1],) + tabs.agg[1:],
+                          inc=(tabs.inc[0][:1],) + tabs.inc[1:])
+    with pytest.raises(ValueError, match="row per interval"):
+        top.onepass(x, short, 101, 0, st)
+    with pytest.raises(ValueError, match="prog_svc"):
+        top.onepass(x, tabs._replace(prog_svc=None), 101, 0,
+                    st._replace(svcref=True))
+    wide = tabs._replace(act_in=tabs.act_in.long())
+    with pytest.raises(TypeError, match="act_in"):
+        top.onepass(x, wide, 101, 0, st)
