@@ -1,9 +1,10 @@
 // B3: the one-pass slow path, CUDA C++ for sm_90a.
 //
-// Replaces the Pallas kernel antrea_tpu/ops/match.py:_onepass_call in its
-// single-card resolve variant, and the probes the JAX step runs ahead of it
+// Replaces the Pallas kernel antrea_tpu/ops/match.py:_onepass_call in both
+// its variants, and the probes the JAX step runs ahead of it
 // (antrea_tpu/models/pipeline.py:1684-1711: interval rows, isolation bits,
-// aggregate rows).  For every lane of the batch, in one pass:
+// aggregate rows).  The resolve variant (one card) does, for every lane of
+// the batch, in one pass:
 //   - the flow-cache probe decode on the key, meta and ts rows gathered at
 //     batch start (key compare, generation, per-state freshness);
 //   - for miss lanes, on the post-DNAT tuple: the interval row of each
@@ -22,6 +23,12 @@
 //     the isolation bits, the ServiceLB / no-endpoint overlay, the merge
 //     with the cached image of hit lanes;
 //   - the forward and reply commit rows, with the reply slot's FNV-1a hash.
+// The hits-only variant (resolve=False: a rule shard of the mesh, whose
+// tables are the shard's word slice) stops after the first matches, which
+// it emits as global rule indices (hits8), with aux and iv; the caller
+// re-walks the fallback lanes, combines across the rule shards and then
+// resolves and packs.  It is a compile-time instantiation of the same
+// kernel, so the resolve variant's code and registers are unchanged.
 // Non-miss lanes take interval row 0 everywhere, as the JAX step's masked
 // probes do; every lane writes every output column, hit lanes included
 // (their fresh code in meta8 reads isolation row 0).  Outputs (int32):
@@ -34,7 +41,10 @@
 //
 // What bounds it: bytes.  Every lane streams 29 input words and 44 output
 // words: about 38 MB and 11.4 us at the H100's 3.35 TB/s for 2**17 lanes,
-// which is all a warm batch (a few dozen misses) needs.  A miss lane adds
+// which is all a warm batch (a few dozen misses) needs.  The hits-only
+// variant streams 17 input words a lane (pkt, kr, ts, msk; the meta row
+// too under per-state timeouts) and 20 output words, and reads the lb row
+// of a miss lane only.  A miss lane adds
 // its searches (ceil(log32 n) levels of one load a thread per table), its
 // six or seven aggregate rows (S = 59 / 40 words at the 100k-rule widths)
 // and up to 6 * K * 128 B of candidate blocks; the bounds arrays (346 KB)
@@ -294,6 +304,12 @@ __device__ __forceinline__ void store_rows(int* buf, int32_t* out,
   }
 }
 
+// kResolve: the single-card resolve variant (outputs main, keys8, meta8,
+// aux, iv).  !kResolve: the rule shard's hits-only variant (p.main is
+// hits8 (B, 8) [in0, ink, inb, out0, outk, outb, 0, 0], global rule
+// indices through w0_in / w0_out, then aux and iv): it stops after the
+// first matches, with no action fetch, resolve, merge or row packing.
+template <bool kResolve>
 __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {
   __shared__ int s_count[kWarps];
   __shared__ int s_slot[kThreads * kSlot];
@@ -317,7 +333,6 @@ __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {
     const int src_f = pk0.x, dst_f = pk0.y, proto = pk0.z;
     const int pp = load4(p.pkt + lane * 8 + 4).y;
     const int4 kr = load4(p.kr + lane * 4);
-    const int4 mr = load4(p.mrow + lane * 4);
     const int4 msk = load4(p.msk + lane * 4);
     const bool valid = msk.x != 0;
     no_commit = msk.y != 0;
@@ -333,7 +348,8 @@ __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {
                          (kpg == pg_cur || kpg == pg_est || kpg == pg_rpl);
     int timeout = p.t_est;
     if (!p.uniform) {
-      const bool conf = ((mr.w >> 29) & 1) != 0;
+      // The meta row's CONFIRMED bit: read only for per-state timeouts.
+      const bool conf = ((p.mrow[lane * 4 + 3] >> 29) & 1) != 0;
       timeout = proto == kProtoTcp ? (conf ? p.t_est : p.t_syn)
                                    : (conf ? p.t_oest : p.t_onew);
     }
@@ -409,7 +425,7 @@ __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {
 
   // 4. Resolve, merge and pack, a thread a lane.  Non-miss lanes: no
   // match, isolation row 0.
-  int o_main[16], o_keys[8], o_meta[8], o_aux[4], o_iv[8];
+  int o_main[16], o_keys[8], o_meta[8], o_aux[4], o_iv[8], o_hits[8];
   if (live) {
     int best[6] = {kBig, kBig, kBig, kBig, kBig, kBig};
     int nc_in = 0, nc_out = 0;
@@ -434,6 +450,15 @@ __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {
     const bool skip = miss && nc_in == 0 && nc_out == 0;
     const bool fb = miss && (nc_in > p.ke_in || nc_out > p.ke_out || fb_force);
     const int cand = max(nc_in, nc_out);
+    if constexpr (!kResolve) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) o_hits[k] = best[k];
+      o_hits[6] = o_hits[7] = 0;
+      o_aux[0] = skip;
+      o_aux[1] = fb;
+      o_aux[2] = cand;
+      o_aux[3] = 0;
+    } else {
 
     // Resolution from the actions at the clipped first-match indices (a
     // lane with no first match reads no action: resolve ignores it).
@@ -531,10 +556,15 @@ __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {
     o_aux[1] = fb;
     o_aux[2] = cand;
     o_aux[3] = 0;
+    }
   }
-  store_rows<16>(s_buf, p.main, lane0, nl, live, o_main);
-  store_rows<8>(s_buf, p.keys8, lane0, nl, live, o_keys);
-  store_rows<8>(s_buf, p.meta8, lane0, nl, live, o_meta);
+  if constexpr (kResolve) {
+    store_rows<16>(s_buf, p.main, lane0, nl, live, o_main);
+    store_rows<8>(s_buf, p.keys8, lane0, nl, live, o_keys);
+    store_rows<8>(s_buf, p.meta8, lane0, nl, live, o_meta);
+  } else {
+    store_rows<8>(s_buf, p.main, lane0, nl, live, o_hits);
+  }
   store_rows<4>(s_buf, p.aux, lane0, nl, live, o_aux);
   store_rows<8>(s_buf, p.iv, lane0, nl, live, o_iv);
 }
@@ -543,12 +573,14 @@ __global__ void __launch_bounds__(kThreads) onepass_kernel(const Params p) {
 
 // C entry point (loaded with ctypes).  ptrs: pkt, kr, ts, mrow, msk, lb,
 // bounds x 6, iso bounds x 2, agg x 6, inc x 6, iso val x 2, prog_svc,
-// act_in, act_out, main, keys8, meta8, aux, iv (device pointers).  ints: b,
+// act_in, act_out, main (hits8 for the hits-only variant), keys8, meta8
+// (unread by the hits-only variant), aux, iv (device pointers).  ints: b,
 // s_in, s_out, ke_in, ke_out, n_act_in, n_act_out, n_prog, now, gen_w,
 // w0_in, w0_out, in_n0, in_nk, out_n0, out_nk, svcref, t_syn, t_est,
 // t_onew, t_oest, uniform, slot_mask, pref_mask, then the eight bounds
-// lengths (six dimensions, iso_in, iso_out).  Launches on `stream`,
-// allocates nothing, and returns cudaGetLastError().
+// lengths (six dimensions, iso_in, iso_out), then resolve (1: the resolve
+// variant, 0: hits-only).  Launches on `stream`, allocates nothing, and
+// returns cudaGetLastError().
 extern "C" int b3_onepass(void* const* ptrs, const int* ints, void* stream) {
   Params p;
   const int32_t* const* in = reinterpret_cast<const int32_t* const*>(ptrs);
@@ -582,6 +614,11 @@ extern "C" int b3_onepass(void* const* ptrs, const int* ints, void* stream) {
   for (int i = 0; i < nf; ++i) *f[i] = ints[i];
   for (int i = 0; i < 8; ++i) p.n_bounds[i] = ints[nf + i];
   const int blocks = (p.b + kThreads - 1) / kThreads;
-  onepass_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ints[nf + 8]) {
+    onepass_kernel<true><<<blocks, kThreads, 0, s>>>(p);
+  } else {
+    onepass_kernel<false><<<blocks, kThreads, 0, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,7 +51,8 @@ from ..compiler.services import ServiceTables
 from ..ops import consumer, hashing, onepass
 from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
                          _refuse, _resolve, classify_batch, from_numpy,
-                         resolve_device, ruleset_from_numpy, to_host)
+                         resolve_device, ruleset_from_numpy, shard_offsets,
+                         to_host)
 
 MISS = -1
 # Generation tag reserved for conntrack-committed (ALLOW) entries; rule
@@ -585,10 +586,16 @@ def pipeline_step(
     v6=None,
 ):
     """One step, synchronous at meta.phases == PH_ALL; see the module
-    docstring and PH_*.  hit_combine (rule-axis sharding), valid, no_commit
-    and v6 are not ported."""
-    _refuse(hit_combine=hit_combine is not None, valid=valid is not None,
-            no_commit=no_commit is not None, v6=v6 is not None)
+    docstring and PH_*.
+
+    valid / no_commit are optional (B,) lane masks (the forwarding walk's,
+    models/forwarding.py): lanes outside valid neither hit, refresh,
+    classify nor commit, and keep the plain ALLOW image; no_commit lanes
+    classify but write no cache entry and report committed 0.  hit_combine
+    is the rule-axis seam (ops/match.classify_batch; parallel/mesh.py): the
+    tables are then one rule shard's, the one-pass slow path runs B3's
+    hits-only variant and resolves after the combine.  v6 is not ported."""
+    _refuse(v6=v6 is not None)
     if meta.onepass and meta.match.prune_budget <= 0:
         raise ValueError(
             "the one-kernel fast path (onepass) requires the narrow v4 "
@@ -616,6 +623,13 @@ def pipeline_step(
     pg_est = proto | 0x100 | (GEN_ETERNAL << 9)
     hit, est, rpl, mr, kr0, ts0 = _cache_lookup(
         flow, slot, addr, pp, pg_cur, pg_est, now, proto, meta)
+    if valid is not None:
+        # Lanes outside the mask (SpoofGuard, ARP, IGMP punt: handled
+        # before conntrack) neither refresh nor commit any state.
+        valid = valid != 0
+        hit, est, rpl = hit & valid, est & valid, rpl & valid
+    if no_commit is not None:
+        no_commit = no_commit != 0
     c_code, c_svc, c_dport = _unpack_meta1(mr[:, M1C])
     c_dnat_ip = mr[:, DC]
     c_rule_in, c_rule_out = _unpack_rules(mr[:, RC])
@@ -637,7 +651,7 @@ def pipeline_step(
     # directions after this packet's own verdict.
     td = (est & (proto == PROTO_TCP) & ((flags & _TEARDOWN_FLAGS) != 0)
           if flags is not None else torch.zeros_like(est))
-    miss = ~hit
+    miss = ~hit if valid is None else ~hit & valid
     # The step's one read-back: which conditional phases run, and the
     # miss count that sizes the round loop.
     any_p, any_c, any_t, n_miss = torch.stack([
@@ -690,11 +704,13 @@ def pipeline_step(
     # rule_in, rule_out, svc, dnat_ip_f, dnat_port, snat, dsr, committed],
     # plus a dump row for masked slow-path writes.  SNAT / DSR marks are
     # cached in meta3 bits 31 / 30 at commit time.  Miss lanes default to
-    # meta.miss_code, the verdict they keep when the slow path is masked.
+    # meta.miss_code, the verdict they keep when the slow path is masked;
+    # lanes outside valid are not misses and keep the plain ALLOW image.
     zero = torch.zeros(B, dtype=_I32, device=dev)
     fwd_hit = hit & ~rpl
     img = torch.cat([torch.stack([
-        torch.where(hit, c_code, meta.miss_code),
+        torch.where(hit, c_code, torch.where(miss, meta.miss_code,
+                                             ACT_ALLOW)),
         torch.where(hit, c_rule_in, MISS),
         torch.where(hit, c_rule_out, MISS), torch.where(hit, c_svc, MISS),
         torch.where(hit, c_dnat_ip, dst_f), torch.where(hit, c_dport, dport),
@@ -715,7 +731,8 @@ def pipeline_step(
     if slow and meta.onepass:
         fresh, n_evict, n_reclaim, prune = _slow_onepass(
             state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h, slot,
-            miss, mr, kr0, ts0, now, gen_w, meta)
+            miss, mr, kr0, ts0, now, gen_w, meta, valid, no_commit,
+            hit_combine)
         img[:B] = torch.where(miss[:, None], fresh, img[:B])
     elif slow:
         rounds = -(-n_miss // M)
@@ -728,10 +745,14 @@ def pipeline_step(
             torch.full((rounds * M - n_miss,), B, dtype=torch.int64,
                        device=dev)])
         no_commit_m = torch.zeros(M, dtype=torch.bool, device=dev)
+        # Every rank of a rule group runs the same rounds: they hold the
+        # same state and lanes, and each round's combine is collective.
         for r in range(rounds):
             idx = midx[r * M:(r + 1) * M]
             valid_m = idx < B
             safe = idx.clamp(0, B - 1)
+            if no_commit is not None:
+                no_commit_m = no_commit[safe]
             s_f = src_f[safe]
             d_f = dst_f[safe]
             p_m = proto[safe]
@@ -748,7 +769,8 @@ def pipeline_step(
                                         and meta.phases & PH_CLS_SUM):
                 cls = classify_batch(
                     drs, s_f, dnat_ip, p_m, dnat_port, meta=meta.match,
-                    fused=meta.fused, svc_ref=_svc_ref_of(svc_idx, dsvc),
+                    hit_combine=hit_combine, fused=meta.fused,
+                    svc_ref=_svc_ref_of(svc_idx, dsvc),
                     summary_only=not meta.phases & PH_CLS)
                 # SvcReject happens before the policy tables: no
                 # attribution.
@@ -886,10 +908,12 @@ def _onepass_probes(drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port,
 
 
 def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
-                    kr0, mr, ts0, now, meta, lb=None):
+                    kr0, mr, ts0, now, meta, lb=None, valid=None,
+                    no_commit=None):
     """ServiceLB over the whole batch (under PH_LB) and B3's lane inputs,
     tables and shape constants: the lane columns, the cache rows gathered
-    at batch start (kr0/mr/ts0) and the rule tables; B3 runs the probes
+    at batch start (kr0/mr/ts0), the lane masks (valid / no_commit bool,
+    None for all valid / none) and the rule tables; B3 runs the probes
     itself.  lb is _lb_phase's result when the caller has it.
     -> (onepass.OnepassInputs, onepass.OnepassTables,
     onepass.OnepassStatic, the affinity learn dict)."""
@@ -901,7 +925,9 @@ def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     x = onepass.OnepassInputs(
         pkt=torch.stack([src_f, dst_f, proto, sport, dport, pp, z, z], dim=1),
         kr=kr0, ts=ts0, mrow=mr,
-        msk=torch.stack([torch.ones_like(z), z, z, z], dim=1),
+        msk=torch.stack([
+            torch.ones_like(z) if valid is None else valid.to(_I32),
+            z if no_commit is None else no_commit.to(_I32), z, z], dim=1),
         lb=torch.stack([svc_idx, no_ep.to(_I32), dnat_ip, dnat_port, snat_m,
                         dsr_m, z, z], dim=1))
     tabs = onepass.tables_of(drs, dsvc.prog_svc if mm.svcref else None)
@@ -924,27 +950,36 @@ def _fresh_code(drs, hits6, iso_in, iso_out, no_ep):
 
 
 def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
-                  slot, miss, mr, kr0, ts0, now, gen_w, meta):
-    """The one-pass slow path (pipeline.py:1638-2071, resolve variant).
-    Under PH_CLS: B3 over the whole batch, the full-width re-walk of its
-    fallback lanes (through B1) and the prune counters.  Without it B3 does
-    not run: under PH_CLS_SUM the aggregate AND alone gives the skip and
-    candidate counts of the miss lanes and every live lane the
-    default-verdict image; with neither bit every lane default-allows.
-    Then, under PH_COMMIT, one interleaved commit of every lane's rows.
+                  slot, miss, mr, kr0, ts0, now, gen_w, meta, valid=None,
+                  no_commit=None, hit_combine=None):
+    """The one-pass slow path (pipeline.py:1638-2071).  Under PH_CLS: B3
+    over the whole batch, the full-width re-walk of its fallback lanes
+    (through B1) and the prune counters.  On one card B3 runs its resolve
+    variant; under hit_combine (a rule shard) its hits-only variant, and
+    the re-walk at the shard's own width, the combine of the hits and the
+    prune observables, the resolve and the row packing follow in torch
+    (pipeline.py:1910-1935).  Without PH_CLS B3 does not run: under
+    PH_CLS_SUM the aggregate AND alone gives the skip and candidate counts
+    of the miss lanes and every live lane the default-verdict image; with
+    neither bit every lane default-allows.  Then, under PH_COMMIT, one
+    interleaved commit of every lane's rows.
     -> (the miss lanes' images (B, 9), evictions, reclaims, (skips,
     fallbacks, candidate histogram))."""
     mm = meta.match
     N = meta.flow_slots
     lb = _lb_phase(meta, state.aff, dsvc, h, src_f, dst_f, proto, dport, now)
     svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = lb
+    nc = (torch.zeros_like(miss) if no_commit is None else no_commit)
+    pv = torch.ones_like(miss) if valid is None else valid  # counted lanes
     zero = torch.zeros((), dtype=_I32, device=src_f.device)
-    if meta.phases & PH_CLS:
+    rows = None
+    if meta.phases & PH_CLS and hit_combine is None:
         # B3 runs the probes (interval rows, isolation bits, aggregate
         # rows) of its miss lanes itself and returns their interval rows.
         x, tabs, st, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f,
                                          proto, sport, dport, pp, h, kr0, mr,
-                                         ts0, now, meta, lb=lb)
+                                         ts0, now, meta, lb=lb, valid=valid,
+                                         no_commit=no_commit)
         main, keys8, meta8, aux, iv = onepass.onepass(x, tabs, now, gen_w,
                                                       st)
 
@@ -965,7 +1000,7 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
             fix = _fused_pack_rows(
                 *pkt[:, :6].unbind(1), f_code, lb_f[:, 0], lb_f[:, 2],
                 lb_f[:, 3], lb_f[:, 4], lb_f[:, 5], f_ri, f_ro, miss[fb],
-                torch.zeros_like(no_ep_f), now, gen_w, N, PREF_MASK)
+                nc[fb], now, gen_w, N, PREF_MASK)
             main[fb, 0] = f_code
             main[fb, 1] = f_ri
             main[fb, 2] = f_ro
@@ -974,40 +1009,65 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
             keys8[fb] = fix["keys8"]
             meta8[fb] = fix["meta8"]
 
-        prune = ((aux[:, 0] != 0).sum(dtype=_I32),
-                 (aux[:, 1] != 0).sum(dtype=_I32),
-                 _prune_bucket_counts(aux[:, 2], miss))
+        skip, fbv, cand = aux[:, 0], aux[:, 1], aux[:, 2]
         rows = dict(rev_slot=main[:, 10], keys8=keys8, meta8=meta8,
                     ins=main[:, 14] != 0, rev_ins=main[:, 9] != 0)
         fresh = main[:, :9]
+    elif meta.phases & PH_CLS:
+        # A rule shard: the hits of this shard's words, its fallback lanes
+        # re-walked at the shard's width (fb is shard-local: no collective
+        # may depend on it), then one combine of the six hits and the three
+        # prune observables.
+        x, tabs, st, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f,
+                                         proto, sport, dport, pp, h, kr0, mr,
+                                         ts0, now, meta, lb=lb, valid=valid,
+                                         no_commit=no_commit)
+        w0 = shard_offsets(hit_combine)
+        hits8, aux, iv = onepass.onepass(x, tabs, now, gen_w, st, *w0,
+                                         resolve=False)
+        fb = torch.nonzero(aux[:, 1]).flatten()
+        if fb.numel():
+            hits8[fb] = consumer.fused_hits(tabs.inc, iv[fb], mm.svcref,
+                                            mm.in_phases, mm.out_phases, *w0)
+        comb = hit_combine(torch.cat(
+            [hits8[:, :6], aux[:, :1], 1 - aux[:, 1:2], -aux[:, 2:3]], dim=1))
+        skip, fbv, cand = comb[:, 6], 1 - comb[:, 7], -comb[:, 8]
+        f_code, f_ri, f_ro = _fresh_code(drs, comb[:, :6].unbind(1),
+                                         iv[:, 7] & 1, iv[:, 7] >> 1, no_ep)
+    elif meta.phases & PH_CLS_SUM:
+        # The aggregate AND and short circuit only, over the miss lanes:
+        # live lanes take the default-verdict image.
+        _, _, aggs, iso_in, iso_out = _onepass_probes(
+            drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, miss, meta)
+        ncs = [torch.where(miss, ((a & p & s) != 0).sum(dim=1, dtype=_I32), 0)
+               for a, p, s in (aggs[:3], aggs[3:])]
+        cand = torch.maximum(ncs[0], ncs[1])
+        skip = (miss & (cand == 0)).to(_I32)
+        if hit_combine is not None:
+            comb = hit_combine(torch.stack([skip, -cand], dim=1))
+            skip, cand = comb[:, 0], -comb[:, 1]
+        fbv = torch.zeros_like(skip)
+        bigs = torch.full_like(src_f, BIG)
+        f_code, f_ri, f_ro = _fresh_code(drs, (bigs,) * 6, iso_in, iso_out,
+                                         no_ep)
     else:
-        if meta.phases & PH_CLS_SUM:
-            # The aggregate AND and short circuit only, over the miss lanes:
-            # live lanes take the default-verdict image.
-            _, _, aggs, iso_in, iso_out = _onepass_probes(
-                drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, miss,
-                meta)
-            nc = [torch.where(miss, ((a & p & s) != 0).sum(
-                dim=1, dtype=_I32), 0)
-                for a, p, s in (aggs[:3], aggs[3:])]
-            cand = torch.maximum(nc[0], nc[1])
-            bigs = torch.full_like(src_f, BIG)
-            f_code, f_ri, f_ro = _fresh_code(drs, (bigs,) * 6, iso_in,
-                                             iso_out, no_ep)
-            prune = ((miss & (cand == 0)).sum(dtype=_I32), zero,
-                     _prune_bucket_counts(cand, miss))
-        else:
-            # Neither classify bit: the staged default-allow image.
-            f_code = torch.where(no_ep, ACT_REJECT, ACT_ALLOW).to(_I32)
-            f_ri = f_ro = torch.full_like(f_code, MISS)
-            prune = (zero, zero, torch.zeros(len(PRUNE_HIST_BOUNDS) + 2,
-                                             dtype=_I32, device=zero.device))
+        # Neither classify bit: the staged default-allow image.
+        f_code = torch.where(no_ep, ACT_REJECT, ACT_ALLOW).to(_I32)
+        f_ri = f_ro = torch.full_like(f_code, MISS)
+    if rows is None:
         rows = _fused_pack_rows(
             src_f, dst_f, proto, sport, dport, pp, f_code, svc_idx, dnat_ip,
-            dnat_port, snat_m, dsr_m, f_ri, f_ro, miss,
-            torch.zeros_like(miss), now, gen_w, N, PREF_MASK)
+            dnat_port, snat_m, dsr_m, f_ri, f_ro, miss, nc, now, gen_w, N,
+            PREF_MASK)
         fresh = torch.stack([f_code, f_ri, f_ro, svc_idx, dnat_ip, dnat_port,
                              snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
+    if meta.phases & (PH_CLS | PH_CLS_SUM):
+        prune = (((skip != 0) & pv).sum(dtype=_I32),
+                 ((fbv != 0) & pv).sum(dtype=_I32),
+                 _prune_bucket_counts(cand, miss))
+    else:
+        prune = (zero, zero, torch.zeros(len(PRUNE_HIST_BOUNDS) + 2,
+                                         dtype=_I32, device=zero.device))
 
     n_evict = n_reclaim = zero
     if meta.phases & PH_COMMIT:

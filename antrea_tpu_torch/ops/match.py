@@ -1,5 +1,6 @@
 """Batched conjunctive-match classification: the PyTorch port of
-antrea_tpu/ops/match.py (v4, single card, no delta patching).
+antrea_tpu/ops/match.py (v4, no delta patching), on one card or on one rule
+shard of a mesh (parallel/mesh.py).
 
 Per packet and direction: an interval lookup per dimension (appliedTo, peer,
 service) over that dimension's own boundaries, one incidence-row gather per
@@ -535,6 +536,14 @@ def interval_rows(drs: DeviceRuleSet, src_ip_f, dst_ip_f, svc_key,
     return torch.stack([*cols, ref, z], dim=1).to(torch.int32)
 
 
+def shard_offsets(hit_combine=None) -> tuple[int, int]:
+    """The global index of the tables' first word per direction, which the
+    kernels add to emit global rule indices: (0, 0) on one card (no
+    combine, the whole table), else the combine's w0 (host ints, fixed
+    per rule shard: no read-back)."""
+    return (0, 0) if hit_combine is None else tuple(hit_combine.w0)
+
+
 def _refuse(**knobs) -> None:
     """Raise NotImplementedError naming the first knob set to a value this
     port does not implement (a truthy value)."""
@@ -567,32 +576,45 @@ def classify_batch(
     meta.prune_budget > 0 (tables with an aggregate level) routes through
     the two-level pruned walk, _classify_pruned; summary_only is its
     profiling sub-mode (the aggregate phase alone, live lanes take the
-    default verdicts) and is ignored without pruning.  Rule-axis sharding
-    (hit_combine) and v6 lanes are not ported."""
-    _refuse(hit_combine=hit_combine is not None, v6=v6 is not None)
+    default verdicts) and is ignored without pruning.
+
+    hit_combine is the rule-axis seam (parallel/mesh.py): a callable that
+    takes a (B, n) int32 tensor and returns its elementwise minimum over
+    the rule shards, with an attribute w0 = (w0_in, w0_out), the global
+    index of this shard's first word per direction (host ints).  The
+    tables are then this shard's word slice, and the per-phase first
+    matches are combined between the scan and the resolution.  v6 lanes
+    are not ported."""
+    _refuse(v6=v6 is not None)
     if meta.prune_budget > 0 and drs.ingress.at.agg is not None:
         return _classify_pruned(drs, src_ip_f, dst_ip_f, proto, dst_port,
                                 meta=meta, fused=fused, svc_ref=svc_ref,
-                                summary_only=summary_only)
+                                summary_only=summary_only,
+                                hit_combine=hit_combine)
     ing, eg = drs.ingress, drs.egress
     svc_key = (proto << 16) | dst_port
     ref_key = _svcref_key(svc_key, svc_ref) if meta.svcref else None
     iso_in = drs.iso_in.val[_dim_index(drs.iso_in, dst_ip_f)]
     iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
     iv = interval_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key)
+    w0_in, w0_out = shard_offsets(hit_combine)
 
     if fused:
         hits = consumer.fused_hits(tables(drs), iv, meta.svcref,
-                                   meta.in_phases, meta.out_phases)
-        in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
-        out_hits = (hits[:, 3], hits[:, 4], hits[:, 5])
+                                   meta.in_phases, meta.out_phases, w0_in,
+                                   w0_out)[:, :6]
     else:
         (in_at, in_peer, in_svc), (out_at, out_peer, out_svc) = (
             consumer.gather_rows(tables(drs), iv, meta.svcref))
-        in_hits = consumer.phase_hits(in_at & in_peer & in_svc, 0,
-                                      meta.in_phases)
-        out_hits = consumer.phase_hits(out_at & out_peer & out_svc, 0,
-                                       meta.out_phases)
+        hits = torch.stack(
+            consumer.phase_hits(in_at & in_peer & in_svc, w0_in,
+                                meta.in_phases)
+            + consumer.phase_hits(out_at & out_peer & out_svc, w0_out,
+                                  meta.out_phases), dim=1)
+    if hit_combine is not None:
+        hits = hit_combine(hits.contiguous())
+    in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
+    out_hits = (hits[:, 3], hits[:, 4], hits[:, 5])
 
     in_code, in_rule = _resolve(ing.action, in_hits, iso_in)
     out_code, out_rule = _resolve(eg.action, out_hits, iso_out)
@@ -609,9 +631,9 @@ def classify_batch(
 
 def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
                      dst_port, *, meta: StaticMeta, fused: bool, svc_ref,
-                     summary_only: bool = False):
-    """The two-level pruned classify (match.py:_classify_pruned), v4, one
-    card.  An aggregate bit is set iff its incidence word is nonzero, so a
+                     summary_only: bool = False, hit_combine=None):
+    """The two-level pruned classify (match.py:_classify_pruned), v4, on
+    one card or one rule shard.  An aggregate bit is set iff its incidence word is nonzero, so a
     zero aggregate AND proves no match and the candidate superblocks cover
     every matching word.  Candidates are scanned lowest first, so a phase
     hit among the K lowest is the true first match; lanes with more than K
@@ -624,7 +646,13 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
 
     summary_only (the PH_CLS_SUM profiling surface, match.py:1719): stop
     after the aggregate AND; every lane takes the default verdicts and
-    nothing falls back."""
+    nothing falls back.
+
+    Under hit_combine the walk, its candidates and its fallback are this
+    shard's own; the hits and the three observables are then combined in
+    one call (match.py:1800-1815): skip as the minimum (no shard had a
+    candidate), fb as one minus the minimum of 1 - fb (any shard fell
+    back), cand as minus the minimum of -cand (the most on any shard)."""
     ing, eg = drs.ingress, drs.egress
     B = src_ip_f.shape[0]
     K = meta.prune_budget
@@ -633,6 +661,7 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
     iv = interval_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key)
     iso_in = drs.iso_in.val[_dim_index(drs.iso_in, dst_ip_f)]
     iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
+    w0_in, w0_out = shard_offsets(hit_combine)
 
     g, nc, ke = [], [], []
     for d, dd in enumerate((ing, eg)):
@@ -661,20 +690,29 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
         scan = (pruned_consumer.pruned_hits if fused
                 else pruned_consumer.pruned_hits_plain)
         hits = scan(g[0], g[1], iv, tables(drs), ke[0], ke[1], meta.svcref,
-                    meta.in_phases, meta.out_phases)
+                    meta.in_phases, meta.out_phases, w0_in, w0_out)[:, :6]
         if n_fb:
             # Full-width walk of the compacted fallback lanes: the function
             # B1 computes, so it goes through B1's wrapper (the kernel on
             # the card), written back lane for lane.
             idx = torch.nonzero(fb).flatten()
-            hits[idx] = consumer.fused_hits(tables(drs), iv[idx], meta.svcref,
-                                            meta.in_phases, meta.out_phases)
-        in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
-        out_hits = (hits[:, 3], hits[:, 4], hits[:, 5])
+            hits[idx] = consumer.fused_hits(
+                tables(drs), iv[idx], meta.svcref, meta.in_phases,
+                meta.out_phases, w0_in, w0_out)[:, :6]
     else:
-        bigs = torch.full((B,), BIG, dtype=torch.int32,
+        hits = torch.full((B, 6), BIG, dtype=torch.int32,
                           device=src_ip_f.device)
-        in_hits = out_hits = (bigs, bigs, bigs)
+    skip = ((nc[0] == 0) & (nc[1] == 0)).to(torch.int32)
+    cand = torch.maximum(nc[0], nc[1])
+    fbi = fb.to(torch.int32)
+    if hit_combine is not None:
+        # The shard-local observables ride the hits' all-reduce.
+        comb = hit_combine(torch.cat(
+            [hits, torch.stack([skip, 1 - fbi, -cand], dim=1)], dim=1))
+        hits, skip, fbi, cand = (comb[:, :6], comb[:, 6], 1 - comb[:, 7],
+                                 -comb[:, 8])
+    in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
+    out_hits = (hits[:, 3], hits[:, 4], hits[:, 5])
 
     in_code, in_rule = _resolve(ing.action, in_hits, iso_in)
     out_code, out_rule = _resolve(eg.action, out_hits, iso_out)
@@ -685,9 +723,9 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
         "egress_rule": out_rule,
         "ingress_code": in_code,
         "ingress_rule": in_rule,
-        "prune_skip": (nc[0] == 0) & (nc[1] == 0),
-        "prune_fb": fb,
-        "prune_cand": torch.maximum(nc[0], nc[1]),
+        "prune_skip": skip > 0,
+        "prune_fb": fbi > 0,
+        "prune_cand": cand,
     }
 
 

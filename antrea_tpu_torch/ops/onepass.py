@@ -7,19 +7,23 @@ resolution, the ServiceLB overlay, the cached/fresh image merge, and the
 forward and reply commit rows (with the reply slot's flow hash), in one
 pass.
 
-Replaces the Pallas kernel antrea_tpu/ops/match.py:_onepass_call in its
-single-card resolve variant (resolve=True), together with the probes that
-the JAX step runs ahead of it (antrea_tpu/models/pipeline.py:1684-1711);
-the rule-sharded hits-only variant (resolve=False) belongs to the mesh,
-which is not ported.  The CUDA kernel is csrc/onepass.cu.  It takes the
-lane columns gathered at batch start and the rule tables (interval bounds,
-aggregate and incidence tables, isolation tables, actions, and the
-program-to-service map for the toServices probe), so no (B, S) matrix is
-built per step.  It is bound by bytes: a lane's 29 input and 44 output
-words stream once (about 38 MB at B = 2**17, 11.4 us at the H100's
-3.35 TB/s); a miss lane adds its searches, its six or seven aggregate rows
-and up to 6 * K * 128 B of candidate blocks, which the lanes share through
-L2.
+Replaces the Pallas kernel antrea_tpu/ops/match.py:_onepass_call in both
+its variants, together with the probes that the JAX step runs ahead of it
+(antrea_tpu/models/pipeline.py:1684-1711): the single-card resolve variant
+(resolve=True), and the rule shard's hits-only variant (resolve=False),
+which stops after the per-phase first matches over the shard's words and
+emits them as global rule indices (hits8), for the caller to re-walk its
+fallback lanes, combine across the rule shards (parallel/mesh.py) and
+resolve.  The CUDA kernel is csrc/onepass.cu, one template instantiation
+per variant.  It takes the lane columns gathered at batch start and the
+rule tables (interval bounds, aggregate and incidence tables, isolation
+tables, actions, and the program-to-service map for the toServices probe),
+so no (B, S) matrix is built per step.  It is bound by bytes: a lane's 29
+input and 44 output words stream once (about 38 MB at B = 2**17, 11.4 us
+at the H100's 3.35 TB/s; hits-only: 17 and 20 words, the lb row of a miss
+lane and the meta row only under per-state timeouts); a miss lane adds
+its searches, its six or seven aggregate rows and up to 6 * K * 128 B of
+candidate blocks, which the lanes share through L2.
 
 onepass() is the wrapper: on CPU tensors it runs onepass_plain(), the plain
 PyTorch version (torch searchsorted and gathers for the probes, then a
@@ -40,9 +44,11 @@ from . import match
 from .consumer import phase_first_from_base
 from .pruned_consumer import candidate_mats
 
-# Kernel launches since the counter was last set to 0.  Only the CUDA
-# launch in onepass() adds to it.
+# Kernel launches since the counter was last set to 0: launches of the
+# resolve variant, launches_hits of the hits-only variant (B3h).  Only the
+# CUDA launch in onepass() adds to them.
 launches = 0
+launches_hits = 0
 
 
 class OnepassInputs(NamedTuple):
@@ -148,12 +154,15 @@ def probes_plain(x: OnepassInputs, tabs: OnepassTables, svcref: bool,
 
 def onepass_plain(x: OnepassInputs, tabs: OnepassTables, now: int,
                   gen_w: int, st: OnepassStatic, w0_in: int = 0,
-                  w0_out: int = 0):
-    """Plain PyTorch version of the kernel -> (main (B, 16), keys8 (B, 8),
-    meta8 (B, 8), aux (B, 4), iv (B, 8)) int32; the first four are the
-    columns of match.py:2136-2152: main [code, rule_in, rule_out, svc,
-    dnat_ip_f, dnat_port, snat, dsr, committed, rev_ins, rev_slot, hit,
-    est, rpl, ins, 0]; aux [skip, fb, cand, 0]; iv is probes_plain's."""
+                  w0_out: int = 0, resolve: bool = True):
+    """Plain PyTorch version of the kernel.  resolve -> (main (B, 16),
+    keys8 (B, 8), meta8 (B, 8), aux (B, 4), iv (B, 8)) int32; the first four
+    are the columns of match.py:2136-2152: main [code, rule_in, rule_out,
+    svc, dnat_ip_f, dnat_port, snat, dsr, committed, rev_ins, rev_slot, hit,
+    est, rpl, ins, 0]; aux [skip, fb, cand, 0]; iv is probes_plain's.
+    Hits-only (resolve=False) -> (hits8 (B, 8) [in0, ink, inb, out0, outk,
+    outb, 0, 0], aux, iv), the hits global rule indices (w0_in, w0_out
+    added), BIG where a phase has no match."""
     from ..models import pipeline as pl  # the bit layouts live with the step
 
     src_f, dst_f, proto, sport, dport, pp = x.pkt[:, :6].unbind(1)
@@ -196,6 +205,12 @@ def onepass_plain(x: OnepassInputs, tabs: OnepassTables, now: int,
     skip = miss & (ncs[0] == 0) & (ncs[1] == 0)
     fb = miss & ((ncs[0] > kes[0]) | (ncs[1] > kes[1]) | fb_force)
     cand = torch.maximum(ncs[0], ncs[1])
+    i32 = torch.int32
+    aux = torch.stack([skip.to(i32), fb.to(i32), cand,
+                       torch.zeros_like(cand)], dim=1)
+    if not resolve:
+        z = torch.zeros_like(cand)
+        return torch.stack([*hits, z, z], dim=1).to(i32), aux, iv
 
     # Resolution from the actions at the clipped first-match indices.
     i0, ik, ib, o0, ok_, ob = hits
@@ -232,7 +247,6 @@ def onepass_plain(x: OnepassInputs, tabs: OnepassTables, now: int,
         src_f, dst_f, proto, sport, dport, pp, f_code, svc_idx, dnat_ip,
         dnat_port, snat_m, dsr_m, f_ri, f_ro, miss, nc, now, gen_w,
         st.n_slots, st.pref_mask)
-    i32 = torch.int32
     main = torch.stack([
         merge(c_code, f_code, ACT_ALLOW), merge(c_ri, f_ri, pl.MISS),
         merge(c_ro, f_ro, pl.MISS), merge(c_svc, svc_idx, pl.MISS),
@@ -242,8 +256,6 @@ def onepass_plain(x: OnepassInputs, tabs: OnepassTables, now: int,
         rows["committed"].to(i32), rows["rev_ins"].to(i32), rows["rev_slot"],
         hit.to(i32), est.to(i32), rpl.to(i32), rows["ins"].to(i32),
         torch.zeros_like(src_f)], dim=1).to(i32)
-    aux = torch.stack([skip.to(i32), fb.to(i32), cand,
-                       torch.zeros_like(cand)], dim=1)
     return main, rows["keys8"], rows["meta8"], aux, iv
 
 
@@ -310,19 +322,22 @@ def _kernel():
 
 
 def onepass(x: OnepassInputs, tabs: OnepassTables, now: int, gen_w: int,
-            st: OnepassStatic, w0_in: int = 0, w0_out: int = 0):
-    """-> (main (B, 16), keys8 (B, 8), meta8 (B, 8), aux (B, 4), iv (B, 8))
-    int32, see onepass_plain.  CPU tensors: the plain version.  CUDA
-    tensors: the B3 kernel."""
-    global launches
+            st: OnepassStatic, w0_in: int = 0, w0_out: int = 0,
+            resolve: bool = True):
+    """resolve -> (main (B, 16), keys8 (B, 8), meta8 (B, 8), aux (B, 4),
+    iv (B, 8)); hits-only (resolve=False) -> (hits8 (B, 8), aux (B, 4),
+    iv (B, 8)); int32, see onepass_plain.  w0_in / w0_out: the tables' first
+    global word (a rule shard's offset).  CPU tensors: the plain version.
+    CUDA tensors: the B3 kernel."""
+    global launches, launches_hits
     b, s_in, s_out = _check(x, tabs, st.svcref)
     dev = x.pkt.device
     if dev.type == "cpu":
-        return onepass_plain(x, tabs, now, gen_w, st, w0_in, w0_out)
+        return onepass_plain(x, tabs, now, gen_w, st, w0_in, w0_out, resolve)
     if dev.type != "cuda":
         raise ValueError(f"onepass runs on cpu or cuda tensors, not {dev}")
     outs = tuple(torch.empty((b, n), dtype=torch.int32, device=dev)
-                 for n in (16, 8, 8, 4, 8))
+                 for n in ((16, 8, 8, 4, 8) if resolve else (8, 4, 8)))
     if b == 0:
         return outs
     if st.k < 1 or st.n_slots & (st.n_slots - 1):
@@ -337,19 +352,26 @@ def onepass(x: OnepassInputs, tabs: OnepassTables, now: int, gen_w: int,
     ptrs = [t.data_ptr() for t in (
         x.pkt, x.kr, x.ts, x.mrow, x.msk, x.lb, *tabs.bounds,
         *tabs.iso_bounds, *tabs.agg, *tabs.inc, *tabs.iso_val, prog_svc,
-        tabs.act_in, tabs.act_out, *outs)]
+        tabs.act_in, tabs.act_out)]
+    # main (hits8), keys8, meta8 (none for hits-only), aux, iv.
+    ptrs += ([t.data_ptr() for t in outs] if resolve else
+             [outs[0].data_ptr(), None, None, outs[1].data_ptr(),
+              outs[2].data_ptr()])
     ints = [b, s_in, s_out, min(st.k, s_in), min(st.k, s_out),
             tabs.act_in.shape[0], tabs.act_out.shape[0], prog_svc.shape[0],
             int(now), int(gen_w), int(w0_in), int(w0_out), st.in_phases[0],
             st.in_phases[1], st.out_phases[0], st.out_phases[1], int(svcref),
             *tmo, int(tmo[0] == tmo[1] == tmo[2] == tmo[3]), st.n_slots - 1,
             st.pref_mask, *(t.shape[0] for t in tabs.bounds),
-            *(t.shape[0] for t in tabs.iso_bounds)]
+            *(t.shape[0] for t in tabs.iso_bounds), int(resolve)]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel()(c_ptrs, c_ints, stream)
     if rc != 0:
         raise RuntimeError(f"B3 one-pass launch failed: cudaError {rc}")
-    launches += 1
+    if resolve:
+        launches += 1
+    else:
+        launches_hits += 1
     return outs

@@ -55,7 +55,27 @@ package is missing, or when any phase fails.  Phases, in order:
      entry expired), on the card and on the CPU, bitwise;
   9. S1's path: bench_cold_study_torch.py's case 4 (the six interval rows
      gathered and ANDed in torch, then S1) on its own 100k-rule world at
-     B = 2**15, in this process.
+     B = 2**15, in this process;
+ 10. the full per-packet walk (models/forwarding.pipeline_step_full) at the
+     headline width, with node-0's topology (its 32 pods at ofports from 3,
+     the other 63 nodes remote at their pod CIDRs) and in_port (1/16 of
+     the lanes spoofed), flags and arp_op columns: the one-pass and the
+     staged fused step, one cold, one warm and 8 steady steps each, ms/step
+     and packets/s; then a 4096-lane card-vs-CPU cross-check of each;
+ 11. the (1, 1) mesh (parallel/mesh.make_sharded_pipeline_full) on NCCL,
+     world size 1, in this process, one-pass (B3h and the fallback's B1)
+     and staged, over the same world, batch and steps: every output and
+     the flow and affinity tables bitwise equal to phase 10's, ms/step
+     beside phase 10's (the seam's overhead);
+ 12. the (1, 2) mesh, one-pass: two gloo processes sharing the card, each
+     building its own rule shard on the host; every output of every step
+     and both ranks' final state bitwise equal (sha256) to phase 10's; each
+     shard's incidence and aggregate bytes on the card.
+
+In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
+plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
+of a 2-way word split (shard 1 at w0 = W / 2); in phase 5 on the warm
+cache with valid = 0, no_commit = 1 and fb_force = 1 lanes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -84,6 +104,8 @@ B_COLD = 1 << 15
 N_NEW = B // 8
 POOL = 1 << 18
 CROSS_SLOTS = 1 << 12
+# Node-0's local pods in the full walk's topology.
+N_LOCAL = 32
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, and
 # the 32-bit non-tensor lane rate used for the kernels' integer operations.
 HBM_BYTES_S = 3.35e12
@@ -104,7 +126,7 @@ def card_line() -> str:
 
 def build_world():
     """-> (compiled policy set, service tables, the 2**17-lane batch, a
-    POOL-lane pool of fresh flows, one lane per flow)."""
+    POOL-lane pool of fresh flows, one lane per flow, the pod IPs)."""
     from antrea_tpu_torch.compiler.compile import compile_policy_set
     from antrea_tpu_torch.compiler.services import compile_services
     from antrea_tpu_torch.simulator import (gen_cluster, gen_services,
@@ -119,7 +141,7 @@ def build_world():
     pool = gen_traffic(cluster.pod_ips, POOL, n_flows=POOL, seed=7,
                        services=services, svc_fraction=0.3,
                        one_per_flow=True)
-    return cps, svc, tr, pool
+    return cps, svc, tr, pool, cluster.pod_ips
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -328,36 +350,65 @@ def lane_probes(x, tabs, st, hit):
 
 def check_onepass(step, state, drs, dsvc, lanes, now, what):
     """Phase 3 / 5 for B3 on the step's own lane inputs and tables ->
-    record.  Bounds, both on this run's data: "rows once" (bound_ms) counts
-    every lane's 29 input and 44 output words, each bounds array once, and
-    each distinct aggregate row and candidate block (table, row,
-    superblock) that the miss lanes read, once; "per lane" counts the lane
-    words and, for every miss lane, its six (seven with svcref) aggregate
-    rows, its min(nc, K) candidate blocks of 128 B per dimension (a fourth
-    for the svcref row) and ceil(log2 n) words of each search.  Beside the
+    record, with both bounds of b3_work on this run's data.  Beside the
     kernel, the torch prologue that the old call site ran on the same
     lanes (_onepass_probes and the stacks of the old interval-row and
     probe inputs), timed queued ahead (prologue_ms) and per call."""
-    import math
-
     import torch
 
-    from antrea_tpu_torch.models import pipeline as pl
     from antrea_tpu_torch.ops import onepass as op
-    from antrea_tpu_torch.ops import pruned_consumer as pc
-    from antrea_tpu_torch.utils.timing import device_time
 
     x, tabs, st, hit = onepass_inputs(step, state, drs, dsvc, lanes, now)
     b = x.pkt.shape[0]
     got = op.onepass(x, tabs, now, 0, st)
     miss = got[0][:, 11] == 0  # every lane is valid
     n_miss = int(miss.sum())
-    iv = got[4][miss].long()
+    once, per_lane, ops, blocks = b3_work(tabs, st, got[4][miss], b)
+    del got
+    rec = check_kernel(
+        f"B3 one-pass ({what}, K={st.k}, {n_miss} miss lanes)",
+        lambda: op.onepass(x, tabs, now, 0, st),
+        lambda: op.onepass_plain(x, tabs, now, 0, st), b, once, ops, 3)
+    rec.update(miss_lanes=n_miss, candidate_blocks=blocks)
+    with_lane_bound(rec, "B3", per_lane)
+    prologue_time(rec, x, hit, drs, dsvc, step.meta)
+    del x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def b3_work(tabs, st, iv_miss, b, resolve=True):
+    """The work of a B3 call on this run's data, for its bounds: iv_miss the
+    miss lanes' interval rows (B3's iv output).  The lane words: the
+    resolve variant needs every lane's 29 input words (pkt, kr, ts, mrow,
+    msk, lb) and writes 44; the hits-only variant (resolve=False) needs
+    every lane's pkt, kr, ts and msk (17 words), its meta row only under
+    per-state timeouts (the CONFIRMED bit picks the timeout), the lb row
+    of a miss lane only (the post-DNAT probe keys), and writes 20.  "Rows
+    once" counts the lane words, each bounds array once, and each distinct
+    aggregate row and candidate block (table, row, superblock) that the
+    miss lanes read, once; "per lane" counts the lane words and, for every
+    miss lane, its six (seven with svcref) aggregate rows, its min(nc, K)
+    candidate blocks of 128 B per dimension (a fourth for the svcref row)
+    and ceil(log2 n) words of each search.  -> (rows-once bytes, per-lane
+    bytes, operations, distinct candidate blocks)."""
+    import math
+
+    import torch
+
+    from antrea_tpu_torch.ops import pruned_consumer as pc
+
+    iv = iv_miss.long()
+    n_miss = iv.shape[0]
     s = [tabs.agg[0].shape[1], tabs.agg[3].shape[1]]
     dims = [(0, 0), (1, 1), (2, 2), (3, 3), (4, 4), (5, 5)]
     if st.svcref:
         dims.append((5, 6))  # (table, iv column): the svcref row
-    lane_io = b * (29 + 44) * 4
+    if resolve:
+        lane_io = b * (29 + 44) * 4
+    else:
+        uniform = len(set(st.timeouts)) == 1
+        lane_io = (b * (17 + (0 if uniform else 4) + 20) + n_miss * 8) * 4
     once = lane_io + sum(t.shape[0] * 4 for t in (*tabs.bounds,
                                                   *tabs.iso_bounds))
     agg_words = n_miss * (3 * s[0] + (len(dims) - 3) * s[1])
@@ -383,13 +434,31 @@ def check_onepass(step, state, drs, dsvc, lanes, now, what):
     per_lane += n_miss * 4 * sum(math.ceil(math.log2(n)) for n in searches
                                  if n > 1)
     ops = 2 * agg_words + 2 * 32 * cand_rows
-    del got
-    rec = check_kernel(
-        f"B3 one-pass ({what}, K={st.k}, {n_miss} miss lanes)",
-        lambda: op.onepass(x, tabs, now, 0, st),
-        lambda: op.onepass_plain(x, tabs, now, 0, st), b, once, ops, 3)
-    # The old call site's prologue on the same lanes.
-    meta = step.meta
+    return once, per_lane, ops, blocks
+
+
+def with_lane_bound(rec, name, per_lane):
+    """Add the per-lane bound of per_lane bytes to a record beside its
+    rows-once bound, and print both shares."""
+    lane_s, _ = bound(per_lane, 0)
+    rec.update(bound_per_lane_ms=lane_s * 1e3, bytes_per_lane=per_lane,
+               share_rows_once=rec["bound_ms"] / rec["ms"],
+               share_per_lane=lane_s * 1e3 / rec["ms"])
+    log(f"  {name}: bounds: rows once {rec['bound_ms'] * 1e3:.2f} us "
+        f"({rec['share_rows_once']:.3f} reached), per lane "
+        f"{lane_s * 1e6:.2f} us ({per_lane / 1e6:.2f} MB, "
+        f"{rec['share_per_lane']:.3f} reached)")
+    return rec
+
+
+def prologue_time(rec, x, hit, drs, dsvc, meta):
+    """The torch prologue of B3's old call site on the same lanes, timed
+    queued ahead (prologue_ms) and per call, added to rec."""
+    import torch
+
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.utils.timing import device_time
+
     src_f, proto = x.pkt[:, 0].contiguous(), x.pkt[:, 2].contiguous()
     svc_idx, dnat_ip, dnat_port = (x.lb[:, c].contiguous() for c in (0, 2, 3))
     z = torch.zeros_like(src_f)
@@ -402,18 +471,36 @@ def check_onepass(step, state, drs, dsvc, lanes, now, what):
 
     pro_s = device_time(prologue, iters=7, inner=3, host_lead_s=3 * 2e-3)
     pro_call_s = device_time(prologue, iters=7, inner=3)
-    lane_s, _ = bound(per_lane, 0)
-    rec.update(miss_lanes=n_miss, candidate_blocks=blocks,
-               prologue_ms=pro_s * 1e3, prologue_call_ms=pro_call_s * 1e3,
-               bound_per_lane_ms=lane_s * 1e3, bytes_per_lane=per_lane,
-               share_rows_once=rec["bound_ms"] / rec["ms"],
-               share_per_lane=lane_s * 1e3 / rec["ms"])
+    rec.update(prologue_ms=pro_s * 1e3, prologue_call_ms=pro_call_s * 1e3)
     log(f"  B3: removed torch prologue {pro_s * 1e3:.4f} ms "
-        f"({pro_call_s * 1e3:.4f} ms per call); bounds: rows once "
-        f"{rec['bound_ms'] * 1e3:.2f} us ({rec['share_rows_once']:.3f} "
-        f"reached), per lane {lane_s * 1e6:.2f} us ({per_lane / 1e6:.2f} MB, "
-        f"{rec['share_per_lane']:.3f} reached)")
-    del x
+        f"({pro_call_s * 1e3:.4f} ms per call)")
+
+
+def check_hits_only(x, tabs, st, now, w0, what):
+    """B3h (onepass(resolve=False)) against its plain version on the same
+    inputs, bit for bit, timed with CUDA events -> record, with both bounds
+    of b3_work's hits-only accounting."""
+    import torch
+
+    from antrea_tpu_torch.ops import onepass as op
+
+    b = x.pkt.shape[0]
+    # Which lanes miss: the resolve variant's hit column (held to its plain
+    # version above) and the valid bit.
+    hit = op.onepass(x, tabs, now, 0, st, *w0)[0][:, 11] != 0
+    miss = ~hit & (x.msk[:, 0] != 0)
+    iv = op.onepass(x, tabs, now, 0, st, *w0, resolve=False)[2]
+    n_miss = int(miss.sum())
+    once, per_lane, ops, blocks = b3_work(tabs, st, iv[miss], b,
+                                        resolve=False)
+    del iv
+    rec = check_kernel(
+        f"B3h hits-only ({what}, K={st.k}, w0={w0}, {n_miss} miss lanes)",
+        lambda: op.onepass(x, tabs, now, 0, st, *w0, resolve=False),
+        lambda: op.onepass_plain(x, tabs, now, 0, st, *w0, resolve=False),
+        b, once, ops, 3)
+    rec.update(miss_lanes=n_miss, candidate_blocks=blocks, w0=list(w0))
+    with_lane_bound(rec, "B3h", per_lane)
     torch.cuda.empty_cache()
     return rec
 
@@ -454,7 +541,7 @@ def reset_counts():
                                       pruned_consumer)
 
     consumer.launches = pruned_consumer.launches = onepass.launches = 0
-    consumer2.launches = 0
+    consumer2.launches = onepass.launches_hits = 0
 
 
 def counts() -> tuple[int, int, int]:
@@ -826,6 +913,378 @@ def cross_check_async(step, drs, dsvc, tr, pool, dev, what):
     torch.cuda.empty_cache()
 
 
+def node0_topology(pod_ips):
+    """Node-0's forwarding world in the headline cluster (pods at
+    10.0.<node>.x, 32 a node): its 32 pods at ofports from 3, the other 63
+    nodes remote at their pod CIDRs.  -> compiled ForwardingTables."""
+    from antrea_tpu_torch.compiler.topology import (NodeRoute, Topology,
+                                                    compile_topology)
+    from antrea_tpu_torch.utils import ip as iputil
+
+    return compile_topology(Topology(
+        node_name="node-0", gateway_ip="10.0.0.1", pod_cidr="10.0.0.0/24",
+        local_pods=[(iputil.u32_to_ip(int(u)), 3 + i)
+                    for i, u in enumerate(pod_ips[:N_LOCAL])],
+        remote_nodes=[NodeRoute(name=f"node-{k}", node_ip=f"192.168.0.{k}",
+                                pod_cidr=f"10.0.{k}.0/24")
+                      for k in range(1, 64)]))
+
+
+def full_lanes(tr, pod_ips, dev):
+    """The batch's columns for the full walk -> {"headline": ...,
+    "coverage": ...}, each 8 int32 columns on dev (the five tuple columns,
+    in_port, flags, arp_op).  headline: the bench's own tuples as node-0
+    sees them, in_port honest (a node-0 pod's own ofport; every other
+    source is another node's pod and comes in on the tunnel), flags and
+    arp_op zero; it is what the timed steps run.  coverage: the same
+    tuples with 1/16 of the lanes spoofed (another local pod's port), FIN
+    or RST on 1/128 and an ARP request on 1/512, from a seed.  These rates
+    come from no workload: they only put SpoofGuard, the teardown and the
+    ARP lanes through the bitwise checks, and their steps are not reported
+    as performance."""
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.compiler.topology import OFPORT_TUNNEL
+
+    rng = np.random.default_rng(21)
+    b = tr.src_ip.shape[0]
+    port_of = np.zeros(1 << 16, np.int32)  # by the low 16 address bits
+    local = np.asarray(pod_ips[:N_LOCAL], np.uint32)
+    port_of[local & 0xFFFF] = 3 + np.arange(N_LOCAL)
+    src = tr.src_ip.astype(np.uint32)
+    in_port = np.where(np.isin(src, local), port_of[src & 0xFFFF],
+                       OFPORT_TUNNEL)
+    spoof = rng.random(b) < 1 / 16
+    cover_port = np.where(spoof, 3 + (in_port + 1) % N_LOCAL, in_port)
+    flags = np.where(rng.random(b) < 1 / 128,
+                     rng.choice(np.array([1, 4], np.int32), b), 0)
+    arp_op = np.where(rng.random(b) < 1 / 512, 1, 0)
+    zero = np.zeros(b, np.int32)
+    tup = to_lanes(tr, dev)
+
+    def on(*cols):
+        return tup + tuple(torch.from_numpy(np.ascontiguousarray(
+            c, dtype=np.int32)).to(dev) for c in cols)
+
+    return {"headline": on(in_port, zero, zero),
+            "coverage": on(cover_port, flags, arp_op)}
+
+
+def full_step(meta, state, drs, dsvc, dft, cols, now):
+    from antrea_tpu_torch.models import forwarding as fw
+
+    return fw.pipeline_step_full(state, drs, dsvc, dft, *cols[:6], now, 0,
+                                 cols[6], cols[7], meta=meta)
+
+
+NOWS = (100, 101) + tuple(102 + i for i in range(STEADY_STEPS))
+# The full walk's steps, (columns, now): cold, warm and STEADY_STEPS steady
+# steps on the headline columns (timed), then two coverage steps (checked
+# bitwise, not reported as performance).
+FULL_STEPS = (tuple(("headline", now) for now in NOWS)
+              + (("coverage", NOWS[-1] + 1), ("coverage", NOWS[-1] + 2)))
+N_TIMED = len(NOWS)
+
+
+def step_stats(times) -> dict:
+    """Cold, warm and steady median of the timed (headline) steps."""
+    steady = sorted(times[2:N_TIMED])
+    med = steady[len(steady) // 2]
+    return dict(cold_ms=times[0] * 1e3, warm_ms=times[1] * 1e3,
+                steady_ms=med * 1e3, steady_min_ms=steady[0] * 1e3,
+                steady_max_ms=steady[-1] * 1e3, steady_pps=B / med)
+
+
+def drive_full(meta, drs, dsvc, dft, cols, dev, what):
+    """Phase 10: pipeline_step_full on the card on a fresh state over
+    FULL_STEPS, with every launch count set to 0 just before and read just
+    after.  -> (record, each step's outputs (CPU), the final state (CPU),
+    launches)."""
+    import torch
+
+    from antrea_tpu_torch.models import pipeline as pl
+
+    state = pl.init_state(FLOW_SLOTS, meta.aff_slots, device=dev)
+    reset_counts()
+    outs, times = [], []
+    for key, now in FULL_STEPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = full_step(meta, state, drs, dsvc, dft, cols[key], now)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check_out(out, B)
+        outs.append({k: v.cpu() for k, v in out.items()})
+    launches = counts()
+    want = (0, 0, 1) if meta.onepass else (1, 0, 0)
+    if any(w and not n for w, n in zip(want, launches)) or launches[1]:
+        raise SystemExit(f"full walk {what}: (B1, B2, B3) launches "
+                         f"{launches}")
+    rec = step_stats(times)
+    cold, cover = outs[0], outs[N_TIMED:]
+    kinds = torch.bincount(cold["fwd_kind"], minlength=10).tolist()
+    log(f"full walk {what}, headline traffic: cold {rec['cold_ms']:.1f} ms "
+        f"(n_miss {int(cold['n_miss'])}, spoofed "
+        f"{int(cold['spoofed'].sum())}, committed "
+        f"{int(cold['committed'].sum())}, fwd_kind counts {kinds}), warm "
+        f"{rec['warm_ms']:.2f} ms, steady median {rec['steady_ms']:.3f} "
+        f"ms/step (min {rec['steady_min_ms']:.3f}, max "
+        f"{rec['steady_max_ms']:.3f}), {rec['steady_pps'] / 1e6:.2f} M "
+        f"packets/s; n_miss per step "
+        f"{[int(o['n_miss']) for o in outs[:N_TIMED]]}")
+    log(f"full walk {what}, coverage steps (not performance): n_miss "
+        f"{[int(o['n_miss']) for o in cover]}, spoofed "
+        f"{[int(o['spoofed'].sum()) for o in cover]}, fwd_kind counts "
+        f"{[torch.bincount(o['fwd_kind'], minlength=10).tolist() for o in cover]}"
+        f"; (B1, B2, B3) launches over all {len(FULL_STEPS)} steps "
+        f"{launches}")
+    if not all(int(o["spoofed"].sum()) for o in cover):
+        raise SystemExit(f"full walk {what}: no spoofed lane in a coverage "
+                         f"step")
+    st_cpu = pl.PipelineState(*(type(p)(*(t.cpu() for t in p))
+                                for p in state))
+    del state
+    torch.cuda.empty_cache()
+    return rec, outs, st_cpu, launches
+
+
+def cross_check_full(meta, drs, dsvc, dft, cols, dev, what):
+    """Phase 10b: CROSS_LANES lanes of the full walk on a fresh state on
+    the card and on the CPU (plain versions), same tables: cold on the
+    headline columns, then warm on the coverage columns; outputs and state
+    bitwise equal."""
+    import torch
+
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops.match import tree_map
+
+    cpu = [tree_map(lambda t: t.cpu(), x) for x in (drs, dsvc, dft)]
+    st_g = pl.init_state(FLOW_SLOTS, meta.aff_slots, device=dev)
+    st_c = pl.init_state(FLOW_SLOTS, meta.aff_slots, device="cpu")
+    for key, now in (("headline", 100), ("coverage", 101)):
+        sub = tuple(c[:CROSS_LANES] for c in cols[key])
+        st_g, og = full_step(meta, st_g, drs, dsvc, dft, sub, now)
+        st_c, oc = full_step(meta, st_c, *cpu, tuple(c.cpu() for c in sub),
+                             now)
+        for k in oc:
+            if not torch.equal(og[k].cpu(), oc[k]):
+                raise SystemExit(f"full-walk cross-check {what} now={now}: "
+                                 f"out[{k}] differs")
+        for part in ("flow", "aff"):
+            for f, tg, tc in zip(getattr(st_c, part)._fields,
+                                 getattr(st_g, part), getattr(st_c, part)):
+                if not torch.equal(tg[:-1].cpu(), tc[:-1]):
+                    raise SystemExit(f"full-walk cross-check {what} "
+                                     f"now={now}: {part}.{f} differs")
+        log(f"full-walk cross-check {what} {key} now={now}: {CROSS_LANES} "
+            f"lanes, "
+            f"n_miss {int(oc['n_miss'])}, spoofed {int(oc['spoofed'].sum())}"
+            f", outputs and state bitwise equal (card vs CPU)")
+    del st_g, st_c, cpu
+    torch.cuda.empty_cache()
+
+
+def same_as(outs, state, ref_outs, ref_state, what):
+    """Every output of every step and the final flow and affinity tables
+    (dump row excluded) bitwise equal to the single-card walk's; the mesh's
+    per-data-shard counters have a leading axis of 1."""
+    import torch
+
+    for t, (o, r) in enumerate(zip(outs, ref_outs)):
+        if set(o) != set(r):
+            raise SystemExit(f"{what} step {t}: output keys differ")
+        for k, v in r.items():
+            if not torch.equal(o[k].cpu().reshape(v.shape), v):
+                raise SystemExit(f"{what} step {t}: out[{k}] differs from "
+                                 f"the single-card walk")
+    for p, rp in zip(state, ref_state):
+        for f, a, b in zip(type(rp)._fields, p, rp):
+            if not torch.equal(a[:-1].cpu(), b[:-1]):
+                raise SystemExit(f"{what}: {f} differs from the single-card "
+                                 f"walk")
+
+
+def drive_mesh11(cps, svc, ft, cols, dev, ref, what, **kw):
+    """Phase 11: make_sharded_pipeline_full on a (1, 1) mesh, NCCL, world
+    size 1, in this process, over the same world, batch and steps as phase
+    10 (kw: the builder's knobs, onepass=True for B3h); every output and
+    the final flow and affinity tables bitwise equal to phase 10's.
+    -> (record, launches)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from antrea_tpu_torch.ops import onepass
+    from antrea_tpu_torch.parallel import mesh as pm
+
+    ref_rec, ref_outs, ref_state = ref
+    with tempfile.TemporaryDirectory() as tmp:
+        # NCCL: a one-process world on the card.
+        dist.init_process_group(pm.default_backend(dev, 1),
+                                init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = pm.make_mesh(1, 1, dev)
+            step, state, tabs = pm.make_sharded_pipeline_full(
+                cps, svc, ft, mesh, flow_slots=FLOW_SLOTS,
+                miss_chunk=MISS_CHUNK, fused=True, **kw)
+            reset_counts()
+            outs, times = [], []
+            for key, now in FULL_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, out = step(state, *tabs, *cols[key], now, 0)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                outs.append({k: v.cpu() for k, v in out.items()})
+            launches = counts() + (onepass.launches_hits,)
+        finally:
+            dist.destroy_process_group()
+    same_as(outs, state, ref_outs, ref_state, f"(1, 1) mesh {what}")
+    want_h = 1 if step.meta.onepass else 0
+    if (launches[2] != 0 or (launches[3] == 0) == bool(want_h)
+            or (not want_h and launches[0] == 0)):
+        raise SystemExit(f"(1, 1) mesh {what}: (B1, B2, B3, B3h) launches "
+                         f"{launches}")
+    rec = step_stats(times)
+    log(f"(1, 1) mesh {what} (NCCL), headline traffic: cold "
+        f"{rec['cold_ms']:.1f} ms, warm {rec['warm_ms']:.2f} ms, steady "
+        f"median {rec['steady_ms']:.3f} ms/step (min "
+        f"{rec['steady_min_ms']:.3f}, max {rec['steady_max_ms']:.3f}) "
+        f"against the single-card walk's {ref_rec['steady_ms']:.3f} (cold "
+        f"{ref_rec['cold_ms']:.1f}); every output of all "
+        f"{len(FULL_STEPS)} steps (coverage steps included) and the flow "
+        f"and affinity tables bitwise equal to it; (B1, B2, B3, B3h) "
+        f"launches {launches}")
+    del state, tabs
+    torch.cuda.empty_cache()
+    return dict(rec, single_card_steady_ms=ref_rec["steady_ms"]), launches
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+# The prune observables that count per rule shard: a lane's candidate
+# superblocks are the most on any one shard, and it falls back when any
+# shard has more than K (match.py:1800-1815), so under a rule split they
+# differ from one card's by design; every other output is the same.
+RULE_LOCAL = ("n_prune_fb", "prune_cand_hist")
+
+
+def digests(outs, state):
+    """sha256 of every output of every step (RULE_LOCAL's kept as values)
+    and of every flow and affinity column (dump row excluded): how the
+    (1, 2) ranks' results are held to this process's bitwise."""
+    return ([{k: v.cpu().reshape(-1).tolist() if k in RULE_LOCAL
+              else _digest(v) for k, v in o.items()} for o in outs],
+            [_digest(t[:-1]) for p in state for t in p])
+
+
+def table_bytes(drs) -> tuple[int, int]:
+    """(incidence bytes, aggregate bytes) of a rule set's tables."""
+    dims = [getattr(getattr(drs, d), k) for d in ("ingress", "egress")
+            for k in ("at", "peer", "svc")]
+    return (sum(t.inc.numel() * 4 for t in dims),
+            sum(t.agg.numel() * 4 for t in dims if t.agg is not None))
+
+
+def mesh_rank(mesh, cps, svc, ft, cols, kw):
+    """A (1, 2) rank: its shard of the full walk over phase 10's steps ->
+    dict(digests, step seconds, (B1, B3h) launches, the shard's incidence
+    and aggregate bytes on the card)."""
+    import torch
+
+    from antrea_tpu_torch.ops import consumer, onepass
+    from antrea_tpu_torch.parallel import mesh as pm
+
+    step, state, tabs = pm.make_sharded_pipeline_full(
+        cps, svc, ft, mesh, flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK,
+        fused=True, **kw)
+    drs = tabs[0]
+    inc_b, agg_b = table_bytes(drs)
+    cols = {k: [torch.from_numpy(c).to(mesh.device) for c in v]
+            for k, v in cols.items()}
+    consumer.launches = onepass.launches_hits = 0
+    outs, times = [], []
+    for key, now in FULL_STEPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, *tabs, *cols[key], now, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        outs.append(out)
+    return dict(digests=digests(outs, state), times=times,
+                launches=(consumer.launches, onepass.launches_hits),
+                inc_bytes=inc_b, agg_bytes=agg_b,
+                w0=[int(drs.ingress.word_idx[0]), int(drs.egress.word_idx[0])])
+
+
+def drive_mesh12(cps, svc, ft, cols, dev, ref, one_card, **kw):
+    """Phase 12: the (1, 2) mesh, two gloo processes sharing the card, over
+    the same world, batch and steps; every output of every step and the
+    final state of both ranks bitwise equal (sha256) to phase 10's one-pass
+    walk.  one_card: the single card's table_bytes.  -> record."""
+    from antrea_tpu_torch.parallel import mesh as pm
+
+    ref_rec, ref_outs, ref_state = ref
+    want = digests(ref_outs, ref_state)
+    t0 = time.perf_counter()
+    ranks = pm.spawn(mesh_rank, 1, 2, device=dev, args=(
+        cps, svc, ft, {k: [c.cpu().numpy() for c in v]
+                       for k, v in cols.items()}, kw))
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        got_outs, got_state = res["digests"]
+        for t, (g, w) in enumerate(zip(got_outs, want[0])):
+            bad = [k for k in w if k not in RULE_LOCAL and g.get(k) != w[k]]
+            if bad or set(g) != set(w):
+                raise SystemExit(f"(1, 2) mesh rank {r} step {t}: {bad} "
+                                 f"differ from the single-card walk")
+        if got_state != want[1]:
+            raise SystemExit(f"(1, 2) mesh rank {r}: the flow or affinity "
+                             f"tables differ from the single-card walk")
+        if res["digests"][0] != ranks[0]["digests"][0]:
+            raise SystemExit("(1, 2) mesh: the two rule shards' outputs "
+                             "differ")
+        if res["launches"][1] == 0:
+            raise SystemExit(f"(1, 2) mesh rank {r}: B3h never launched")
+    stats = [step_stats(res["times"]) for res in ranks]
+    for r, res in enumerate(ranks):
+        log(f"(1, 2) mesh rank {r} (gloo, w0 {res['w0']}): incidence "
+            f"{res['inc_bytes'] / 2**20:.1f} MiB, aggregate "
+            f"{res['agg_bytes'] / 2**20:.2f} MiB on the card; headline "
+            f"traffic: cold {stats[r]['cold_ms']:.1f} ms, warm "
+            f"{stats[r]['warm_ms']:.2f} ms, steady median "
+            f"{stats[r]['steady_ms']:.3f} ms/step (min "
+            f"{stats[r]['steady_min_ms']:.3f}, max "
+            f"{stats[r]['steady_max_ms']:.3f}); (B1, B3h) launches "
+            f"{res['launches']}")
+    log(f"one card's tables: incidence {one_card[0] / 2**20:.1f} MiB, "
+        f"aggregate {one_card[1] / 2**20:.2f} MiB")
+    log(f"(1, 2) mesh: {len(FULL_STEPS)} steps (coverage steps included), "
+        f"every output but {RULE_LOCAL} "
+        f"and both ranks' state bitwise equal to the single-card walk, the "
+        f"two ranks' outputs equal; cold step's (n_prune_fb, "
+        f"prune_cand_hist): mesh {[ranks[0]['digests'][0][0][k] for k in RULE_LOCAL]}"
+        f", one card {[want[0][0][k] for k in RULE_LOCAL]}; {wall:.1f} s "
+        f"for the group, the host build of each rank's tables included")
+    return dict(steady_ms=max(st["steady_ms"] for st in stats),
+                cold_ms=max(st["cold_ms"] for st in stats),
+                warm_ms=max(st["warm_ms"] for st in stats),
+                launches_b3h=[r["launches"][1] for r in ranks],
+                launches_b1=[r["launches"][0] for r in ranks],
+                inc_bytes=[r["inc_bytes"] for r in ranks],
+                agg_bytes=[r["agg_bytes"] for r in ranks],
+                one_card_inc_bytes=one_card[0],
+                one_card_agg_bytes=one_card[1],
+                single_card_steady_ms=ref_rec["steady_ms"], group_s=wall)
+
+
 def drive_study():
     """Phase 9: S1's path, bench_cold_study_torch.py's case 4 on the card,
     in this process.  -> (S1 launches, seconds per batch)."""
@@ -869,12 +1328,13 @@ def main() -> int:
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in report.items()))
     for k, v in report.items():
         for line in v["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 log(f"  {k}: {line.strip()}")
 
     # 2. World and the two pipelines.
     t0 = time.perf_counter()
-    cps, svc, tr, pool_tr = build_world()
+    cps, svc, tr, pool_tr, pod_ips = build_world()
     log(f"world built on the host in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     step, state, (drs, dsvc) = pl.make_pipeline(
@@ -921,6 +1381,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     b3 = {"cold": check_onepass(ostep, ostate, pdrs, pdsvc, lanes, 100,
                                 "empty cache")}
+    # B3h on the same inputs: the whole tables (w0 = 0), then each half of
+    # a 2-way word split on its own table slices (shard 1 at w0 = W / 2).
+    from antrea_tpu_torch.ops.match import ruleset_from_numpy
+    from antrea_tpu_torch.parallel import mesh as pm
+
+    x, otabs, ost, _ = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes, 100)
+    b3h = {"cold": check_hits_only(x, otabs, ost, 100, (0, 0),
+                                   "empty cache, whole tables")}
+    t0 = time.perf_counter()
+    host2, _ = pm.host_rule_set(cps, 2, PRUNE_K)
+    log(f"2-way rule split built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in (0, 1):
+        sl = pm.rule_slice(host2, 2, r)
+        sdrs, w0 = ruleset_from_numpy(sl, dev), pm.first_words(sl)
+        b3h[f"shard{r}"] = check_hits_only(
+            x, onepass.tables_of(sdrs), ost, 100, w0,
+            f"empty cache, rule shard {r} of 2")
+        del sdrs
+    del x, host2
+    torch.cuda.empty_cache()
 
     # 4. The staged fused step.
     staged, b1_launches = drive_staged(step, state, drs, dsvc, lanes)
@@ -930,8 +1411,21 @@ def main() -> int:
     # 5. The one-pass step; then B3 once more on its warm cache.
     one, op_launches, ostate = drive_onepass(ostep, ostate, pdrs, pdsvc,
                                              lanes)
-    b3["warm"] = check_onepass(ostep, ostate, pdrs, pdsvc, lanes,
-                               7200 * (EXPIRE_STEPS + 1) + 1, "warm cache")
+    now = 7200 * (EXPIRE_STEPS + 1) + 1
+    b3["warm"] = check_onepass(ostep, ostate, pdrs, pdsvc, lanes, now,
+                               "warm cache")
+    # B3h on the warm cache with mixed lane bits: valid = 0, no_commit = 1
+    # and fb_force = 1 lanes.
+    x, otabs, ost, _ = onepass_inputs(ostep, ostate, pdrs, pdsvc, lanes, now)
+    g = torch.Generator().manual_seed(5)
+    bits = torch.rand((B, 3), generator=g).to(dev)
+    msk = x.msk.clone()
+    msk[:, 0] = (bits[:, 0] >= 1 / 16).to(torch.int32)
+    msk[:, 1] = (bits[:, 1] < 1 / 16).to(torch.int32)
+    msk[:, 2] = (bits[:, 2] < 1 / 64).to(torch.int32)
+    b3h["warm"] = check_hits_only(x._replace(msk=msk), otabs, ost, now,
+                                  (0, 0), "warm cache, mixed lane bits")
+    del x, msk
     # B1 on every fallback lane of an expire-all batch (the one-pass
     # fallback re-walk's own lanes and tables).
     now = 7200 * (EXPIRE_STEPS + 2) + 1
@@ -973,6 +1467,38 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
         f" GiB")
 
+    # 10. The full per-packet walk at the headline width, one-pass and
+    # staged, and its card-vs-CPU cross-checks.
+    ft = node0_topology(pod_ips)
+    from antrea_tpu_torch.models import forwarding as fw
+
+    dft = fw.fwd_to_device(ft, dev)
+    cols = full_lanes(tr, pod_ips, dev)
+    full = {"onepass": drive_full(ostep.meta, pdrs, pdsvc, dft, cols, dev,
+                                  "one-pass"),
+            "staged": drive_full(step.meta, drs, dsvc, dft, cols, dev,
+                                 "staged fused")}
+    cross_check_full(ostep.meta, pdrs, pdsvc, dft, cols, dev, "one-pass")
+    cross_check_full(step.meta, drs, dsvc, dft, cols, dev, "staged fused")
+    one_card = table_bytes(pdrs)
+    del drs, dsvc, pdrs, pdsvc
+    torch.cuda.empty_cache()
+
+    # 11. The (1, 1) mesh on NCCL, one-pass (B3h) and staged.
+    mesh11 = {"onepass": drive_mesh11(cps, svc, ft, cols, dev,
+                                      full["onepass"][:3], "one-pass",
+                                      prune_budget=PRUNE_K, onepass=True,
+                                      ct_timeout_s=3600),
+              "staged": drive_mesh11(cps, svc, ft, cols, dev,
+                                     full["staged"][:3], "staged fused")}
+
+    # 12. The (1, 2) mesh: two gloo processes on the one card, one-pass.
+    mesh12 = drive_mesh12(cps, svc, ft, cols, dev, full["onepass"][:3],
+                          one_card, prune_budget=PRUNE_K, onepass=True,
+                          ct_timeout_s=3600)
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB")
+
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
         return {"name": name, "route": "cuda", "source": src,
@@ -1011,13 +1537,24 @@ def main() -> int:
                                      "bound_ms")},
             warm_cache=at(b3["warm"]),
             launches_async_onepass_path=a_op_launches[2]),
+        rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
+            "antrea_tpu/ops/match.py:1854 (resolve=False)",
+            mesh11["onepass"][1][3], b3h["cold"], batch=B,
+            **{k: v for k, v in at(b3h["cold"]).items()
+               if k not in ("ms", "call_ms", "plain_ms", "bound_ms")},
+            rule_shard0=at(b3h["shard0"]), rule_shard1=at(b3h["shard1"]),
+            warm_mixed_bits=at(b3h["warm"]),
+            launches_mesh_1x2=mesh12["launches_b3h"]),
         rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
             "bench_cold_study.py:129", s1_launches, s1[32768],
             at_B256=at(s1[256]), study_case4_ms=study_s * 1e3),
     ]
     log(json.dumps({"card": card, "staged": staged, "onepass": one,
                     "pruned_classify": pcls, "staged_pruned": spruned,
-                    "async_staged": a_staged, "async_onepass": a_one}))
+                    "async_staged": a_staged, "async_onepass": a_one,
+                    "full_walk": {k: v[0] for k, v in full.items()},
+                    "mesh_1x1": {k: v[0] for k, v in mesh11.items()},
+                    "mesh_1x2": mesh12}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

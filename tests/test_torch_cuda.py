@@ -494,6 +494,86 @@ def test_onepass_seeded_equals_plain(cuda, case, b, hit_share, ns, svcref,
         assert (iv[:, 6] > ns[5]).any()
 
 
+@pytest.mark.parametrize("case,b,hit_share,w0,svcref", [
+    ("ragged-1", 1, 0.0, (0, 0), False),
+    ("ragged-37", 37, 0.4, (160, 96), True),
+    ("ragged-129", 129, 0.5, (3, 1), False),
+    ("all-miss", 300, 0.0, (32 * 59, 32 * 40), True),
+])
+def test_onepass_hits_only_equals_plain(cuda, case, b, hit_share, w0,
+                                        svcref):
+    """B3h (onepass(resolve=False)) against its plain version on seeded
+    lanes and tables: ragged B, a rule shard's global word offsets
+    (w0 > 0), the toServices probe, and invalid, no-commit and
+    forced-fallback lanes."""
+    from antrea_tpu_torch.ops import onepass as op
+
+    g = torch.Generator().manual_seed(b * 17 + len(case))
+    x, tabs, now, gen_w = _seeded_b3(
+        g, b, (40, 33, 31, 32, 5, 64, 9, 7), (5, 3), hit_share,
+        1.0 if case == "all-miss" else 0.9, svcref, cuda)
+    st = op.OnepassStatic(k=2, in_phases=(1500, 2000, 1620),
+                          out_phases=(1000, 1000, 1072), svcref=svcref,
+                          timeouts=(3600,) * 4, n_slots=1 << 12,
+                          pref_mask=(1 << 29) - 1)
+    before = (op.launches, op.launches_hits)
+    got = op.onepass(x, tabs, now, gen_w, st, *w0, resolve=False)
+    torch.cuda.synchronize()
+    assert (op.launches, op.launches_hits) == (before[0], before[1] + 1)
+    want = op.onepass_plain(x, tabs, now, gen_w, st, *w0, resolve=False)
+    for name, g_, w_ in zip(("hits8", "aux", "iv"), got, want):
+        np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy(),
+                                      err_msg=f"{case}: {name}")
+    hits = want[0][:, :6]
+    if b > 1:
+        assert (hits < consumer.BIG).any()
+        assert (hits[hits < consumer.BIG] >= 32 * min(w0)).all()
+
+
+@pytest.mark.parametrize("n_rule", [1, 2])
+def test_sharded_full_walk_on_the_card_equals_cpu(cuda, pruned_world, n_rule):
+    """make_sharded_pipeline_full on the card, on a (1, 1) mesh (NCCL) and
+    on a (1, 2) mesh of two gloo processes sharing the card (B3h, and B1
+    at the shard's offset for the fallback), against the single-card walk
+    on the CPU, over two steps."""
+    from antrea_tpu_torch.compiler.topology import Topology, compile_topology
+    from antrea_tpu_torch.models import forwarding as fw
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.parallel import mesh as pm
+
+    import torch_mesh_ranks
+
+    cps, svc, tr = pruned_world
+    ft = compile_topology(Topology(pod_cidr="10.0.0.0/24"))
+    kw = dict(flow_slots=1 << 10, aff_slots=1 << 6, miss_chunk=64,
+              fused=True, prune_budget=1, onepass=True)
+    lanes = [t.numpy() for t in _lanes(tr, "cpu")]
+    z = np.zeros(300, np.int32)
+    steps = [(*lanes, z + 2, z, z, now) for now in (100, 101)]
+    ranks = pm.spawn(torch_mesh_ranks.run, 1, n_rule, device="cuda", args=(
+        dict(cps=cps, svc=svc, ft=ft), [("full", kw, steps)]))
+    step, sc, (drs, dsvc) = pl.make_pipeline(cps, svc, device="cpu", **kw)
+    dft = fw.fwd_to_device(ft, "cpu")
+    for t, (*cols, now) in enumerate(steps):
+        sc, oc = fw.pipeline_step_full(
+            sc, drs, dsvc, dft, *(torch.from_numpy(c) for c in cols[:6]),
+            now, 0, torch.from_numpy(cols[6]), torch.from_numpy(cols[7]),
+            meta=step.meta)
+        for r in range(n_rule):
+            got = ranks[r][0][0][t]
+            for k, v in oc.items():
+                if n_rule > 1 and k in ("n_prune_fb", "prune_cand_hist"):
+                    continue  # counted per rule shard (match.py:1800)
+                want = v.numpy() if k not in pm._COUNTERS else v.numpy()[None]
+                np.testing.assert_array_equal(got[k], want,
+                                              err_msg=f"{t} {r} {k}")
+    for part in ("flow", "aff"):
+        for f, tc in zip(getattr(sc, part)._fields, getattr(sc, part)):
+            got = getattr(getattr(ranks[0][0][1], part), f)[0]
+            np.testing.assert_array_equal(got[:-1], tc.numpy()[:-1],
+                                          err_msg=f"{part}.{f}")
+
+
 @pytest.mark.parametrize("b,w_in,w_out,in_ph,out_ph", [
     # Every phase boundary inside a word.
     (256, 5, 3, (37, 50, 73), (20, 33, 43)),

@@ -341,8 +341,10 @@ def test_plain_onepass_edge_cases_equal_pallas(world, b3):
     bound and above the last of the tables, with service lanes; the
     toServices probe on (egress svc extended with reference intervals, the
     world's prog_svc) and iso_in.val[0] = 1, so every hit lane's fresh code
-    in meta8 reads isolation row 0.  The all-hit tile alone is also run
-    through the plain version as a batch of its own."""
+    in meta8 reads isolation row 0.  Lanes of both tiles carry the msk bits
+    the step sets from its lane masks: valid = 0 (one of them a lane that
+    would hit), no_commit = 1, and fb_force = 1.  The all-hit tile alone is
+    also run through the plain version as a batch of its own."""
     cluster, services = world[:2]
     host = b3["host"]
     rng = np.random.default_rng(11)
@@ -370,6 +372,14 @@ def test_plain_onepass_edge_cases_equal_pallas(world, b3):
 
     x, tabs, st, hit = b3["inputs"](lanes)
     assert hit[:128].all() and not hit[128:].any()
+    # msk bits, on lanes past the edge keys: valid = 0, no_commit = 1 and
+    # fb_force = 1 (some lanes with two of them).
+    msk = x.msk.clone()
+    msk[[5, 230, 231, 232], 0] = 0
+    msk[[7, 232, 236, 237, 238], 1] = 1
+    msk[[236, 240, 241, 242], 2] = 1
+    x = x._replace(msk=msk)
+    valid = msk[:, 0].numpy() != 0
     refs = np.unique(host["prog_svc"][x.lb[128:, 0].numpy()[
         x.lb[128:, 0].numpy() >= 0]])[:4]
     assert refs.size > 0
@@ -385,16 +395,25 @@ def test_plain_onepass_edge_cases_equal_pallas(world, b3):
         iso_val=(_t(iso[0].val), tabs.iso_val[1]),
         prog_svc=_t(host["prog_svc"]))
     st = st._replace(svcref=True)
-    want, iv, iso_col = _pallas(x, dims, iso, host["act"], ~hit, b3["meta"],
-                                K, 101, 0, prog_svc=host["prog_svc"])
+    want, iv, iso_col = _pallas(x, dims, iso, host["act"], ~hit & valid,
+                                b3["meta"], K, 101, 0,
+                                prog_svc=host["prog_svc"])
     _assert_b3(top.onepass(x, tabs, 101, 0, st), want, iv, iso_col,
                "edge cases")
+    main, aux = want[0], want[3]
+    # valid = 0: neither hit nor miss, the plain ALLOW image, nothing
+    # inserted; no_commit = 1: classified, not committed; fb_force = 1: a
+    # fallback lane.
+    assert (main[~valid][:, [0, 11, 14]] == 0).all()
+    assert (main[[7, 236, 237, 238], 14] == 0).all()
+    assert (main[[236, 237, 238], 8] == 0).all()
+    assert (aux[[236, 240, 241, 242], 1] == 1).all()
     x_hot = top.OnepassInputs(*(t[:128] for t in x))
     _assert_b3(top.onepass(x_hot, tabs, 101, 0, st), [w[:128] for w in want],
                iv[:128], iso_col[:128], "all-hit batch")
     # The searches reached both ends of the tables, and the toServices
     # rows inserted above.
-    miss = ~hit
+    miss = ~hit & valid
     ends = [(iv[miss, i] == 0).any() and (iv[miss, i] == len(d.bounds)).any()
             for i, d in enumerate(dims)]
     assert sum(ends) >= 2, ends

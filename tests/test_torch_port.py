@@ -16,8 +16,10 @@ import jax.numpy as jnp
 
 from antrea_tpu.models import pipeline as jpl
 from antrea_tpu.ops import match as jm
+from antrea_tpu_torch.compiler import topology as ttopo
 from antrea_tpu_torch.compiler.compile import compile_policy_set
 from antrea_tpu_torch.compiler.services import compile_services
+from antrea_tpu_torch.models import forwarding as tfw
 from antrea_tpu_torch.models import pipeline as tpl
 from antrea_tpu_torch.ops import match as tm
 from antrea_tpu_torch.simulator import gen_cluster, gen_services
@@ -52,13 +54,39 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert "antrea_tpu_torch.models.profile" in res["modules"]
     for mod in ("consumer", "pruned_consumer", "onepass", "consumer2"):
         assert f"antrea_tpu_torch.ops.{mod}" in res["modules"]
+    for mod in _SLICE_MODULES:
+        assert mod in res["modules"]
     assert res["bad"] == []
+
+
+_SLICE_MODULES = ("antrea_tpu_torch.parallel", "antrea_tpu_torch.parallel.mesh",
+                  "antrea_tpu_torch.models.forwarding",
+                  "antrea_tpu_torch.compiler.topology")
+
+_IMPORT_ONE = """
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(n for n in sys.modules
+                        if n == "jax" or n.startswith("jax.")
+                        or n == "antrea_tpu" or n.startswith("antrea_tpu."))))
+"""
+
+
+@pytest.mark.parametrize("module", _SLICE_MODULES)
+def test_module_alone_loads_neither_jax_nor_the_jax_package(module):
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "antrea_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
-              ROOT / "chip_b3_variants.py", ROOT / "bench_cold_study_torch.py"]
+              ROOT / "chip_b3_variants.py", ROOT / "bench_cold_study_torch.py",
+              ROOT / "tests" / "torch_mesh_ranks.py"]
+    assert {"mesh.py", "forwarding.py", "topology.py"} <= {f.name
+                                                          for f in files}
     seen = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -89,6 +117,8 @@ def test_entry_points_default_to_the_card(tiny, monkeypatch):
         tm.make_classifier(cps)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.init_state(16, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfw.fwd_to_device(ttopo.compile_topology(ttopo.Topology()))
     step, state, (drs, _) = tpl.make_pipeline(cps, svc, flow_slots=16,
                                               aff_slots=16, device="cpu")
     assert state.flow.keys.device.type == "cpu"
@@ -109,15 +139,25 @@ def test_unported_pipeline_knobs_raise(tiny, knob):
         tpl.make_pipeline(cps, svc, device="cpu", **knob)
 
 
-@pytest.mark.parametrize("knob", ["hit_combine", "valid", "no_commit", "v6"])
-def test_unported_step_arguments_raise(tiny, knob):
+@pytest.mark.parametrize("fn,knob", [
+    ("pipeline_step", "v6"), ("pipeline_step_full", "v6"),
+    ("pipeline_step_full", "lens"), ("pipeline_step_full", "prune_exclude")])
+def test_unported_step_arguments_raise(tiny, fn, knob):
+    """v6 lanes, the flow counters' lengths and the mesh engine's spill
+    mask are not ported (hit_combine, valid and no_commit are)."""
     cps, svc = tiny
     step, state, (drs, dsvc) = tpl.make_pipeline(
         cps, svc, flow_slots=16, aff_slots=16, device="cpu")
     lanes = [torch.zeros(4, dtype=torch.int32)] * 5
     with pytest.raises(NotImplementedError, match=knob):
-        tpl.pipeline_step(state, drs, dsvc, *lanes, 1, 0, meta=step.meta,
-                          **{knob: object()})
+        if fn == "pipeline_step":
+            tpl.pipeline_step(state, drs, dsvc, *lanes, 1, 0, meta=step.meta,
+                              **{knob: object()})
+        else:
+            dft = tfw.fwd_to_device(ttopo.compile_topology(ttopo.Topology()),
+                                    "cpu")
+            tfw.pipeline_step_full(state, drs, dsvc, dft, *lanes, lanes[0],
+                                   1, 0, meta=step.meta, **{knob: object()})
 
 
 @pytest.mark.parametrize("knob", [{"delta_slots": 8},
