@@ -48,11 +48,12 @@ import torch
 from ..apis.controlplane import PROTO_TCP
 from ..compiler.compile import ACT_ALLOW, ACT_REJECT, CompiledPolicySet
 from ..compiler.services import ServiceTables
-from ..ops import consumer, hashing, onepass
+from ..ops import hashing, onepass
 from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
-                         _refuse, _resolve, classify_batch, from_numpy,
-                         resolve_device, ruleset_from_numpy, shard_offsets,
-                         to_host)
+                         _delta_matches, _patch_iso, _refuse, _resolve,
+                         classify_batch, delta_overlay, from_numpy,
+                         resolve_device, rewalk_hits, ruleset_from_numpy,
+                         shard_offsets, to_host)
 
 MISS = -1
 # Generation tag reserved for conntrack-committed (ALLOW) entries; rule
@@ -224,6 +225,9 @@ class PipelineMeta(NamedTuple):
     # The one-pass slow path (kernel B3 over the whole batch) instead of
     # the miss rounds; needs the aggregate layer (match.prune_budget > 0).
     onepass: bool = False
+    # Active slots of drs.ip_delta (the engine's pending membership deltas,
+    # a host int: the step never reads the count back from the device).
+    delta_n: int = 0
 
     @property
     def timeouts(self) -> tuple[int, int, int, int]:
@@ -528,15 +532,17 @@ def _svc_ref_of(svc_idx, dsvc):
                        MISS)
 
 
-def entry_timeout(conf, proto, timeouts):
-    """Per-entry idle timeout from the CONFIRMED bit + protocol."""
+def entry_timeout(conf, proto, timeouts, xp=torch):
+    """Per-entry idle timeout from the CONFIRMED bit + protocol (xp=np on
+    host arrays: the engine's dump and audit decode)."""
     t_syn, t_est, t_onew, t_oest = timeouts
     is_tcp = proto == PROTO_TCP
-    return torch.where(
+    out = xp.where(
         is_tcp,
-        torch.where(conf != 0, t_est, t_syn),
-        torch.where(conf != 0, t_oest, t_onew),
-    ).to(_I32)
+        xp.where(conf != 0, t_est, t_syn),
+        xp.where(conf != 0, t_oest, t_onew),
+    )
+    return out.astype(np.int32) if xp is np else out.to(_I32)
 
 
 def _cache_lookup(flow, slot, addr, pp, pg_cur, pg_est, now, proto, meta):
@@ -771,7 +777,8 @@ def pipeline_step(
                     drs, s_f, dnat_ip, p_m, dnat_port, meta=meta.match,
                     hit_combine=hit_combine, fused=meta.fused,
                     svc_ref=_svc_ref_of(svc_idx, dsvc),
-                    summary_only=not meta.phases & PH_CLS)
+                    summary_only=not meta.phases & PH_CLS,
+                    delta_n=meta.delta_n)
                 # SvcReject happens before the policy tables: no
                 # attribution.
                 code = torch.where(no_ep, ACT_REJECT, cls["code"]).to(_I32)
@@ -909,12 +916,13 @@ def _onepass_probes(drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port,
 
 def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
                     kr0, mr, ts0, now, meta, lb=None, valid=None,
-                    no_commit=None):
+                    no_commit=None, fb_force=None):
     """ServiceLB over the whole batch (under PH_LB) and B3's lane inputs,
     tables and shape constants: the lane columns, the cache rows gathered
-    at batch start (kr0/mr/ts0), the lane masks (valid / no_commit bool,
-    None for all valid / none) and the rule tables; B3 runs the probes
-    itself.  lb is _lb_phase's result when the caller has it.
+    at batch start (kr0/mr/ts0), the lane masks (valid / no_commit /
+    fb_force bool, None for all valid / none / none) and the rule tables;
+    B3 runs the probes itself.  lb is _lb_phase's result when the caller
+    has it.
     -> (onepass.OnepassInputs, onepass.OnepassTables,
     onepass.OnepassStatic, the affinity learn dict)."""
     if lb is None:
@@ -927,7 +935,8 @@ def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
         kr=kr0, ts=ts0, mrow=mr,
         msk=torch.stack([
             torch.ones_like(z) if valid is None else valid.to(_I32),
-            z if no_commit is None else no_commit.to(_I32), z, z], dim=1),
+            z if no_commit is None else no_commit.to(_I32),
+            z if fb_force is None else fb_force.to(_I32), z], dim=1),
         lb=torch.stack([svc_idx, no_ep.to(_I32), dnat_ip, dnat_port, snat_m,
                         dsr_m, z, z], dim=1))
     tabs = onepass.tables_of(drs, dsvc.prog_svc if mm.svcref else None)
@@ -973,25 +982,39 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     pv = torch.ones_like(miss) if valid is None else valid  # counted lanes
     zero = torch.zeros((), dtype=_I32, device=src_f.device)
     rows = None
+    # Pending membership deltas (pipeline.py:1701-1728): every lane a slot
+    # covers on src_f or dnat_ip takes the exact full-width fallback (B3's
+    # fb_force); B3 reads unpatched tables, so those lanes' isolation bits
+    # and prune observables are patched here and their re-walk reads a
+    # DeltaOverlay.
+    dn = meta.delta_n if meta.phases & (PH_CLS | PH_CLS_SUM) else 0
+    delta_fb = None
+    if dn > 0:
+        d = drs.ip_delta
+        delta_fb = (_delta_matches(src_f, d, dn)
+                    | _delta_matches(dnat_ip, d, dn)).any(dim=1)
     if meta.phases & PH_CLS and hit_combine is None:
         # B3 runs the probes (interval rows, isolation bits, aggregate
         # rows) of its miss lanes itself and returns their interval rows.
         x, tabs, st, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f,
                                          proto, sport, dport, pp, h, kr0, mr,
                                          ts0, now, meta, lb=lb, valid=valid,
-                                         no_commit=no_commit)
+                                         no_commit=no_commit,
+                                         fb_force=delta_fb)
         main, keys8, meta8, aux, iv = onepass.onepass(x, tabs, now, gen_w,
                                                       st)
+        ov = _delta_fixup(drs, tabs, iv, aux, delta_fb, miss, src_f,
+                          dnat_ip, dn, mm.svcref)
 
         fb = torch.nonzero(aux[:, 1]).flatten()
         if fb.numel():
-            # Lanes with more than K candidate superblocks: the exact
-            # full-width walk (the function B1 computes, so through B1's
-            # wrapper) at B3's interval rows, resolved with its isolation
-            # bits (iv column 7), packed again, written back lane for lane.
+            # Lanes with more than K candidate superblocks (and lanes a
+            # delta covers): the exact full-width walk (the function B1
+            # computes, so through B1's wrapper) at B3's interval rows,
+            # resolved with its isolation bits (iv column 7), packed again,
+            # written back lane for lane.
             iv_f = iv[fb]
-            hits = consumer.fused_hits(tabs.inc, iv_f, mm.svcref,
-                                       mm.in_phases, mm.out_phases)
+            hits = rewalk_hits(tabs.inc, iv, fb, ov, mm)
             lb_f, pkt = x.lb[fb], x.pkt[fb]
             no_ep_f = lb_f[:, 1] != 0
             f_code, f_ri, f_ro = _fresh_code(drs, hits[:, :6].unbind(1),
@@ -1021,14 +1044,16 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
         x, tabs, st, _ = _onepass_inputs(state.aff, drs, dsvc, src_f, dst_f,
                                          proto, sport, dport, pp, h, kr0, mr,
                                          ts0, now, meta, lb=lb, valid=valid,
-                                         no_commit=no_commit)
+                                         no_commit=no_commit,
+                                         fb_force=delta_fb)
         w0 = shard_offsets(hit_combine)
         hits8, aux, iv = onepass.onepass(x, tabs, now, gen_w, st, *w0,
                                          resolve=False)
+        ov = _delta_fixup(drs, tabs, iv, aux, delta_fb, miss, src_f,
+                          dnat_ip, dn, mm.svcref)
         fb = torch.nonzero(aux[:, 1]).flatten()
         if fb.numel():
-            hits8[fb] = consumer.fused_hits(tabs.inc, iv[fb], mm.svcref,
-                                            mm.in_phases, mm.out_phases, *w0)
+            hits8[fb, :6] = rewalk_hits(tabs.inc, iv, fb, ov, mm, *w0)
         comb = hit_combine(torch.cat(
             [hits8[:, :6], aux[:, :1], 1 - aux[:, 1:2], -aux[:, 2:3]], dim=1))
         skip, fbv, cand = comb[:, 6], 1 - comb[:, 7], -comb[:, 8]
@@ -1037,6 +1062,11 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     elif meta.phases & PH_CLS_SUM:
         # The aggregate AND and short circuit only, over the miss lanes:
         # live lanes take the default-verdict image.
+        if dn > 0:
+            # A profiling chain only; the engine's profile() is item 4.
+            raise NotImplementedError(
+                "the one-pass PH_CLS_SUM chain with pending deltas is not "
+                "ported yet (ROADMAP.md queue A item 4)")
         _, _, aggs, iso_in, iso_out = _onepass_probes(
             drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, miss, meta)
         ncs = [torch.where(miss, ((a & p & s) != 0).sum(dim=1, dtype=_I32), 0)
@@ -1074,6 +1104,36 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
         n_evict, n_reclaim = _commit(state, slot, rows, learn,
                                      learn["mask"] & miss, now, gen_w, meta)
     return fresh, n_evict, n_reclaim, prune
+
+
+def _delta_fixup(drs, tabs, iv, aux, delta_fb, miss, src_f, dnat_ip, n: int,
+                 svcref: bool):
+    """In place, after B3: for the miss lanes a delta covers (forced to the
+    fallback), the isolation bits of iv column 7 patched, and the skip and
+    candidate counts of aux recomputed from the patched aggregate rows, as
+    the JAX kernel computed them.  -> their DeltaOverlay, or None."""
+    if delta_fb is None:
+        return None
+    lanes = torch.nonzero(delta_fb & miss).flatten()
+    ov = delta_overlay(drs, iv, src_f, dnat_ip, n, lanes=lanes,
+                       with_agg=True)
+    if ov is None:
+        return None
+    d = drs.ip_delta
+    iso = iv[lanes, 7]
+    iso_in = _patch_iso(iso & 1, dnat_ip[lanes], d, 0, n)
+    iso_out = _patch_iso(iso >> 1, src_f[lanes], d, 1, n)
+    iv[lanes, 7] = iso_in | (iso_out << 1)
+    ivl = iv[lanes].long()
+    s_out = tabs.agg[5][ivl[:, 5]]
+    if svcref:
+        s_out = s_out | tabs.agg[5][ivl[:, 6]]
+    ncs = [((a & p & s) != 0).sum(dim=1, dtype=_I32) for a, p, s in (
+        (ov.aggs[0], ov.aggs[1], tabs.agg[2][ivl[:, 2]]),
+        (ov.aggs[2], ov.aggs[3], s_out))]
+    aux[lanes, 0] = ((ncs[0] == 0) & (ncs[1] == 0)).to(_I32)
+    aux[lanes, 2] = torch.maximum(ncs[0], ncs[1])
+    return ov
 
 
 # ---- off-step maintenance scans (the async engine's epoch plane) ----------
@@ -1142,3 +1202,149 @@ def copy_state_(dst: PipelineState, src: PipelineState) -> PipelineState:
     for d, s in zip((*dst.flow, *dst.aff), (*src.flow, *src.aff)):
         d.copy_(s)
     return dst
+
+
+# ---- the engine's off-step device hooks (pipeline.py:2189-2494) -----------
+
+
+def cache_stats(state: PipelineState) -> dict:
+    """Flow-cache census (full scan, not for the per-step path): occupied,
+    committed (ETERNAL generation, reply legs included) and denial entries,
+    and the slot count; int32 scalars."""
+    kpg = state.flow.keys[:-1, -1]
+    valid = kpg != 0
+    est = valid & (((kpg >> 9) & GEN_ETERNAL) == GEN_ETERNAL)
+    return {
+        "occupied": valid.sum(dtype=_I32),
+        "committed": est.sum(dtype=_I32),
+        "denials": (valid & ~est).sum(dtype=_I32),
+        "slots": torch.tensor(kpg.shape[0], dtype=_I32),
+    }
+
+
+def audit_gather(state: PipelineState, cursor: int, *, window: int):
+    """Rows [cursor, cursor + window) of the flow cache, mod the slot count
+    (the dump row excluded) -> (keys, meta, ts): the device side of one
+    audit step."""
+    n = state.flow.keys.shape[0] - 1
+    idx = (torch.arange(window, device=state.flow.keys.device)
+           + int(cursor)) % n
+    return state.flow.keys[idx], state.flow.meta[idx], state.flow.ts[idx]
+
+
+def audit_evict(state: PipelineState, slots: torch.Tensor):
+    """In place: clear the key rows of `slots` ((K,) int32, -1 padding
+    ignored), so those flows reclassify on their next packet.
+    -> (state, n int32)."""
+    n = state.flow.keys.shape[0] - 1
+    live = (slots >= 0) & (slots < n)
+    state.flow.keys[torch.where(live, slots, n).long()] = 0
+    return state, live.sum(dtype=_I32)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a NamedTuple tree in field order, None skipped
+    (jax.tree_util.tree_leaves' order on the JAX package's twins)."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def _digest_words_of(t: torch.Tensor) -> torch.Tensor:
+    """A tensor -> a flat int32 view (32-bit dtypes reinterpreted, others
+    value-cast), as pipeline.py:2359 does."""
+    t = t.reshape(-1)
+    if t.dtype == _I32:
+        return t
+    if t.element_size() == 4:
+        return t.view(_I32)
+    return t.to(_I32)
+
+
+def _xor_fold(words: torch.Tensor) -> torch.Tensor:
+    """(N,) int32, N >= 1 -> () int32 XOR of all words, by halving."""
+    while words.shape[0] > 1:
+        if words.shape[0] % 2:
+            words = torch.cat([words, words.new_zeros(1)])
+        pair = words.view(-1, 2)
+        words = pair[:, 0] ^ pair[:, 1]
+    return words[0]
+
+
+def tensor_digest(leaves) -> int:
+    """Checksum-scrub digest of tensor leaves (pipeline.py:2370): per leaf
+    the XOR fold and the wrapping sum of its int32 words, folded into one
+    host int the same way, so a table's digest equals the JAX package's.
+    One read-back for all leaves."""
+    pairs = []
+    for leaf in leaves:
+        words = _digest_words_of(leaf)
+        if words.shape[0] == 0:
+            pairs.append(None)
+            continue
+        pairs.append(torch.stack([_xor_fold(words).to(torch.int64),
+                                  words.sum(dtype=torch.int64)]).cpu())
+    h = 0
+    for pr in pairs:
+        xor, s = (0, 0) if pr is None else (int(pr[0]) & 0xFFFFFFFF,
+                                            int(pr[1]) & 0xFFFFFFFF)
+        h = (h * 1000003 + xor) & 0xFFFFFFFFFFFFFFFF
+        h = (h * 1000003 + s) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def pipeline_trace(state: PipelineState, drs: DeviceRuleSet,
+                   dsvc: DeviceServiceTables, src_f, dst_f, proto, sport,
+                   dport, now: int, gen: int, *, meta: PipelineMeta,
+                   hit_combine=None, v6=None) -> dict:
+    """Read-only per-packet stage trace (pipeline.py:2388): every packet
+    walks ServiceLB and the full classifier (the instance's fused and
+    pruned meta, its pending deltas) whatever its cache state, and the
+    cache lookup is reported beside it.  No state is written."""
+    _refuse(v6=v6 is not None)
+    flow, aff = state.flow, state.aff
+    N = meta.flow_slots
+    now = int(now)
+    gen_w = int(gen) % GEN_ETERNAL
+    pp = _pair16(sport, dport)
+    addr = torch.stack([src_f, dst_f], dim=1)
+    h = hashing.flow_hash(_raw_bits(src_f), _raw_bits(dst_f), proto, sport,
+                          dport)
+    slot = h & (N - 1)
+    pg_cur = proto | 0x100 | (gen_w << 9)
+    pg_est = proto | 0x100 | (GEN_ETERNAL << 9)
+    hit, est, rpl, mr, _kr, _ts = _cache_lookup(
+        flow, slot, addr, pp, pg_cur, pg_est, now, proto, meta)
+    DC, M1C, _RC, _ZC = _meta_cols(2)
+    c_code, _c_svc, c_dport = _unpack_meta1(mr[:, M1C])
+    svc_idx, no_ep, dnat_ip, dnat_port, snat, dsr, _learn = _service_lb(
+        aff, dsvc, h, src_f, dst_f, proto, dport, now, meta.aff_slots)
+    cls = classify_batch(drs, src_f, dnat_ip, proto, dnat_port,
+                         meta=meta.match, hit_combine=hit_combine,
+                         fused=meta.fused, svc_ref=_svc_ref_of(svc_idx, dsvc),
+                         delta_n=meta.delta_n)
+    fresh_code = torch.where(no_ep, ACT_REJECT, cls["code"]).to(_I32)
+    code = torch.where(hit, c_code, fresh_code)
+    return {
+        "cache_hit": hit.to(_I32),
+        "est": est.to(_I32),
+        "reply": rpl.to(_I32),
+        "cached_code": torch.where(hit, c_code, -1),
+        "cached_dnat_ip_f": mr[:, DC],
+        "cached_dnat_port": c_dport,
+        "svc_idx": svc_idx,
+        "no_ep": no_ep.to(_I32),
+        "dnat_ip_f": dnat_ip,
+        "dnat_port": dnat_port,
+        "snat": snat,
+        "dsr": dsr,
+        "egress_code": cls["egress_code"],
+        "egress_rule": cls["egress_rule"],
+        "ingress_code": cls["ingress_code"],
+        "ingress_rule": cls["ingress_rule"],
+        "fresh_code": fresh_code,
+        "code": code,
+        "reject_kind": reject_kind_of(code, proto),
+    }

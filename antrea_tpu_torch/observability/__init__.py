@@ -1,0 +1,17 @@
+"""Observability plane of the PyTorch port: the metrics surface, the
+flight-recorder event journal, realization tracing and the telemetry
+accumulator (copies of the JAX package's modules)."""
+
+from .flightrec import EVENT_KINDS, FlightRecorder
+from .metrics import METRICS, Histogram, render_metrics
+from .tracing import REALIZATION_STAGES, RealizationTracer
+
+__all__ = [
+    "EVENT_KINDS",
+    "FlightRecorder",
+    "Histogram",
+    "METRICS",
+    "REALIZATION_STAGES",
+    "RealizationTracer",
+    "render_metrics",
+]

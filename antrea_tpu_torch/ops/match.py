@@ -1,6 +1,6 @@
 """Batched conjunctive-match classification: the PyTorch port of
-antrea_tpu/ops/match.py (v4, no delta patching), on one card or on one rule
-shard of a mesh (parallel/mesh.py).
+antrea_tpu/ops/match.py (v4 lanes), on one card or on one rule shard of a
+mesh (parallel/mesh.py).
 
 Per packet and direction: an interval lookup per dimension (appliedTo, peer,
 service) over that dimension's own boundaries, one incidence-row gather per
@@ -17,7 +17,15 @@ lanes no-match, the B2 consumer (ops/pruned_consumer.py) selects and scans
 the K lowest candidate superblocks, and lanes with more than K candidates
 fall back to the full-width walk through B1, so verdicts stay exact.
 
-The host-side table builders (to_host and helpers) are the JAX package's
+Pending membership deltas (DeltaTable, the engine's apply_group_delta)
+patch the incidence rows of the lanes whose addresses a delta slot covers.
+The kernels never see a gathered row, so those lanes go through an overlay
+(_delta_overlay): their at/peer rows are gathered, patched slot after slot,
+deduplicated and written into small per-dimension tables, and B1 (or B2) is
+launched a second time on them with the overlay tables in place of the four
+address tables.  Untouched lanes keep their path and launches.
+
+The host-side table constructors (to_host and helpers) are the JAX package's
 numpy code, copied.  Every u32 table becomes an int32 tensor with the same
 bits (torch's CPU uint32 has no shifts or compares).  IPs are sign-flipped
 so signed compares give unsigned order (see compiler/compile.py).
@@ -50,8 +58,13 @@ BIG = consumer.BIG
 # granularity of the candidate gather.  Aggregate bits are conservative: a
 # zero aggregate AND proves no match; a set bit may still find none.
 AGG_BLOCK = pruned_consumer.AGG_BLOCK
-# The prune budget's rung ladder (the JAX package's autotuner moves on it).
+# The prune budget's rung ladder (PruneAutotuner moves on it) and its
+# hysteresis: one rung per move, after PRUNE_STICKY same-direction signals
+# of a fallback rate above PRUNE_FB_HIGH (up) or below PRUNE_FB_LOW (down).
 PRUNE_LADDER = (1, 2, 4, 8, 16)
+PRUNE_STICKY = 2
+PRUNE_FB_HIGH = 0.05
+PRUNE_FB_LOW = 0.005
 # Candidate-superblock histogram bucket bounds (per-lane max over the two
 # directions), shared with models/pipeline._prune_bucket_counts.
 PRUNE_HIST_BOUNDS = (0, 1, 2, 4, 8, 16, 32)
@@ -92,22 +105,29 @@ class IsoTable(NamedTuple):
 
 
 class DeltaTable(NamedTuple):
-    """Incremental membership-delta table, kept for layout parity with the
-    JAX package.  Delta patching is not ported: its one slot is always
-    empty (to_host refuses delta_slots > 0)."""
+    """Fixed-capacity incremental membership-delta table (the JAX package's
+    layout): a pod joining or leaving a group appends one slot carrying the
+    affected address range and the pre-resolved rule masks of the
+    dimensions whose gid is the patched group; classify patches the rows of
+    the lanes the range covers before the AND.  Slots apply in append
+    order, so a later clear undoes an earlier set on the same lane and bit.
+    The number of active slots is a host int the caller passes (the
+    engine's count; PipelineMeta.delta_n), so no step reads `n` back from
+    the device.  Empty slots: sign == 0.  v6 slots (fam) are kept for
+    layout parity; this port patches v4 lanes."""
 
-    lo_f: torch.Tensor
-    hi_f: torch.Tensor
-    sign: torch.Tensor
-    iso: torch.Tensor
-    at_in: torch.Tensor
-    peer_in: torch.Tensor
-    at_out: torch.Tensor
-    peer_out: torch.Tensor
-    n: torch.Tensor
-    fam: torch.Tensor
-    lo6_w: torch.Tensor
-    hi6_w: torch.Tensor
+    lo_f: torch.Tensor  # (D,) sign-flipped int32, inclusive
+    hi_f: torch.Tensor  # (D,) sign-flipped int32, inclusive
+    sign: torch.Tensor  # (D,) +1 set, -1 clear, 0 empty
+    iso: torch.Tensor  # (D,) bit 0 patches iso_in, bit 1 iso_out
+    at_in: torch.Tensor  # (D, W_in) rule mask of the ingress appliedTo dim
+    peer_in: torch.Tensor  # (D, W_in)
+    at_out: torch.Tensor  # (D, W_out)
+    peer_out: torch.Tensor  # (D, W_out)
+    n: torch.Tensor  # () active slots
+    fam: torch.Tensor  # (D,) 0 v4 slot, 1 v6 slot
+    lo6_w: torch.Tensor  # (D, 4)
+    hi6_w: torch.Tensor  # (D, 4)
 
 
 class DeviceRuleSet(NamedTuple):
@@ -131,6 +151,8 @@ class StaticMeta(NamedTuple):
     # K candidate superblocks per lane and direction of the pruned walk;
     # 0 = no aggregate level (the tables carry agg=None).
     prune_budget: int = 0
+    # Delta-table capacity (DeltaTable slots); 0 = no incremental deltas.
+    delta_slots: int = 0
 
 
 def empty_delta(slots: int, w_in: int, w_out: int, xp=np) -> DeltaTable:
@@ -350,15 +372,12 @@ def to_host(
     prune_budget: int = 0,
 ) -> tuple[DeviceRuleSet, StaticMeta]:
     """Compiled policy set -> (numpy DeviceRuleSet, StaticMeta), array for
-    array the JAX package's to_host at delta_slots=0.
+    array the JAX package's to_host.
 
     word_multiple pads each direction's rule-word count to a multiple.
+    delta_slots reserves the DeltaTable's capacity (one empty slot at 0).
     prune_budget > 0 builds the aggregate tables (DimTable.agg) and sets the
-    pruned classify's K.  Delta patching is not ported: delta_slots > 0
-    raises NotImplementedError."""
-    if delta_slots > 0:
-        raise NotImplementedError("delta patching (delta_slots > 0) is not "
-                                  "ported yet")
+    pruned classify's K."""
     agg = prune_budget > 0
     w_in = _width(cps.ingress.n_rules, word_multiple, agg=agg)
     w_out = _width(cps.egress.n_rules, word_multiple, agg=agg)
@@ -367,17 +386,194 @@ def to_host(
         egress=_direction_host(cps.egress, cps, w_out, agg=agg),
         iso_in=_iso_host(cps.iso_in_gid, cps.ip_groups),
         iso_out=_iso_host(cps.iso_out_gid, cps.ip_groups),
-        ip_delta=empty_delta(1, w_in, w_out, xp=np),
+        ip_delta=empty_delta(max(delta_slots, 1), w_in, w_out, xp=np),
     )
     meta = StaticMeta(
         in_phases=(cps.ingress.n_phase0, cps.ingress.n_k8s, cps.ingress.n_baseline),
         out_phases=(cps.egress.n_phase0, cps.egress.n_k8s, cps.egress.n_baseline),
         w_in=w_in,
         w_out=w_out,
+        delta_slots=delta_slots,
         svcref=cps.has_svcref,
         prune_budget=prune_budget,
     )
     return drs, meta
+
+
+# ---------------------------------------------------------------------------
+# Entry-axis rung padding (round 9, the multi-tenant packing layer)
+# ---------------------------------------------------------------------------
+
+# Smallest entry-axis rung a padded table lands on: interval-boundary
+# counts below this all share one shape, so small tenants collapse onto
+# one compiled program instead of one per distinct group structure.
+ENTRY_RUNG_FLOOR = 16
+
+# Padding boundary values: the MAXIMUM of each key space.  searchsorted
+# side='right' counts bounds <= x, so every x below the maximum resolves
+# to its original interval row unchanged; x == maximum lands past the
+# pad block, which is why the padder REPLICATES the top row's incidence
+# across the whole pad region (any bisect variant then reads the same
+# row content).  For IP dims the flipped-space max is the flip of
+# 255.255.255.255 == int32 max; svc keys live below 2^24, so int32 max
+# is unreachable there outright.
+_PAD_BOUND = 2**31 - 1
+
+
+def _entry_cap(n: int, floor: int = ENTRY_RUNG_FLOOR) -> int:
+    """Natural entry count -> its pow2 rung (0 stays 0: an empty v6
+    sub-table is a SHAPE, shared by every all-v4 world on the rung)."""
+    if n <= 0:
+        return 0
+    return max(floor, 1 << (n - 1).bit_length())
+
+
+def _pad_rows(rows: np.ndarray, at: int, count: int) -> np.ndarray:
+    """Insert `count` replicas of row `at` directly after it."""
+    if count <= 0:
+        return rows
+    return np.concatenate(
+        [rows[: at + 1], np.repeat(rows[at : at + 1], count, axis=0),
+         rows[at + 1 :]], axis=0)
+
+
+def _pad_dim_table(tab: DimTable, cap4: int, cap6: int) -> DimTable:
+    bounds = np.asarray(tab.bounds)
+    bounds6 = np.asarray(tab.bounds6)
+    inc = np.asarray(tab.inc)
+    nb4, nb6 = bounds.shape[0], bounds6.shape[0]
+    ip_dim = inc.shape[0] == nb4 + 1 + nb6 + 1  # svc dims have no v6 rows
+    p4 = max(0, cap4 - nb4)
+    p6 = max(0, cap6 - nb6) if ip_dim else 0
+    if p4 == 0 and p6 == 0:
+        return tab
+    if p4:
+        bounds = np.concatenate(
+            [bounds, np.full(p4, _PAD_BOUND, bounds.dtype)])
+        inc = _pad_rows(inc, nb4, p4)  # replicate the v4 top row
+    if p6:
+        bounds6 = np.concatenate(
+            [bounds6, np.full((p6, 4), _PAD_BOUND, bounds6.dtype)], axis=0)
+        inc = _pad_rows(inc, inc.shape[0] - 1, p6)  # replicate the v6 top row
+    return DimTable(
+        bounds=bounds, bounds6=bounds6, inc=inc,
+        agg=build_agg(inc) if tab.agg is not None else None)
+
+
+def _pad_iso_table(tab: IsoTable, cap4: int, cap6: int) -> IsoTable:
+    bounds = np.asarray(tab.bounds)
+    bounds6 = np.asarray(tab.bounds6)
+    val = np.asarray(tab.val)
+    nb4, nb6 = bounds.shape[0], bounds6.shape[0]
+    p4 = max(0, cap4 - nb4)
+    p6 = max(0, cap6 - nb6)
+    if p4 == 0 and p6 == 0:
+        return tab
+    if p4:
+        bounds = np.concatenate(
+            [bounds, np.full(p4, _PAD_BOUND, bounds.dtype)])
+        val = _pad_rows(val, nb4, p4)
+    if p6:
+        bounds6 = np.concatenate(
+            [bounds6, np.full((p6, 4), _PAD_BOUND, bounds6.dtype)], axis=0)
+        val = _pad_rows(val, val.shape[0] - 1, p6)
+    return IsoTable(bounds=bounds, bounds6=bounds6, val=val)
+
+
+def pad_ruleset_entries(
+    drs: DeviceRuleSet, cap4: Optional[int] = None,
+    cap6: Optional[int] = None,
+) -> tuple[DeviceRuleSet, tuple[int, int]]:
+    """Pad every dimension's ENTRY axes (interval boundaries + incidence
+    rows) of a HOST ruleset to pow2 rungs -> (padded drs, (cap4, cap6)).
+
+    The word axis is already rung-shaped by the caller (padded rule
+    counts through `_width`); this pads the other jit-signature axes —
+    per-dim boundary counts, which otherwise vary with each tenant's
+    group structure — so two rule worlds on the same rung produce
+    IDENTICAL tensor shapes and share one compiled program (the
+    multi-tenant shared-compile contract, datapath/tenancy.py).  Padding
+    is semantically invisible: pad boundaries sit at the key-space
+    maximum and every pad row replicates its neighbor's incidence, so no
+    probe can resolve to different rule bits (regression-pinned by the
+    tenancy parity suite).  Aggregate tables are rebuilt from the padded
+    incidence (build_agg is the one constructor, so the scrub/property tests
+    keep their consistency contract)."""
+    dims = [drs.ingress.at, drs.ingress.peer, drs.ingress.svc,
+            drs.egress.at, drs.egress.peer, drs.egress.svc]
+    isos = [drs.iso_in, drs.iso_out]
+    if cap4 is None:
+        cap4 = _entry_cap(max(
+            [np.asarray(t.bounds).shape[0] for t in dims + isos]))
+    if cap6 is None:
+        cap6 = _entry_cap(max(
+            [np.asarray(t.bounds6).shape[0] for t in dims + isos]))
+
+    def pad_dir(d: DeviceDirection) -> DeviceDirection:
+        return d._replace(
+            at=_pad_dim_table(d.at, cap4, cap6),
+            peer=_pad_dim_table(d.peer, cap4, cap6),
+            svc=_pad_dim_table(d.svc, cap4, cap6),
+        )
+
+    return drs._replace(
+        ingress=pad_dir(drs.ingress),
+        egress=pad_dir(drs.egress),
+        iso_in=_pad_iso_table(drs.iso_in, cap4, cap6),
+        iso_out=_pad_iso_table(drs.iso_out, cap4, cap6),
+    ), (int(cap4), int(cap6))
+
+
+class PruneAutotuner:
+    """Bounded hysteresis controller for the prune K budget (the
+    DrainAutotuner pattern, fed by the measured fallback rate instead of
+    queue depth).  Pure decision logic: observe(classified, fallbacks)
+    -> the budget for subsequent classifies.  One rung per move, only
+    after `sticky` consecutive same-direction pressure signals; empty
+    windows hold."""
+
+    def __init__(self, initial: int, sticky: int = PRUNE_STICKY,
+                 fb_high: float = PRUNE_FB_HIGH, fb_low: float = PRUNE_FB_LOW):
+        self.rungs = list(PRUNE_LADDER)
+        self.idx = min(
+            range(len(self.rungs)),
+            key=lambda i: (abs(self.rungs[i] - int(initial)), self.rungs[i]),
+        )
+        self.sticky = int(sticky)
+        self.fb_high = float(fb_high)
+        self.fb_low = float(fb_low)
+        self._streak = 0
+        self.decisions_up = 0
+        self.decisions_down = 0
+
+    @property
+    def budget(self) -> int:
+        return self.rungs[self.idx]
+
+    def observe(self, classified: int, fallbacks: int) -> int:
+        if classified <= 0:
+            return self.budget  # empty window: no signal, streak kept
+        rate = fallbacks / classified
+        if rate > self.fb_high:
+            signal = 1
+        elif rate < self.fb_low:
+            signal = -1
+        else:
+            signal = 0
+        if signal == 0 or (self._streak and (signal > 0) != (self._streak > 0)):
+            self._streak = signal
+            return self.budget
+        self._streak += signal
+        if self._streak >= self.sticky and self.idx < len(self.rungs) - 1:
+            self.idx += 1
+            self.decisions_up += 1
+            self._streak = 0
+        elif self._streak <= -self.sticky and self.idx > 0:
+            self.idx -= 1
+            self.decisions_down += 1
+            self._streak = 0
+        return self.budget
+
 
 
 # ---------------------------------------------------------------------------
@@ -454,8 +650,10 @@ def to_device(
     device=None,
     word_multiple: int = 1,
     prune_budget: int = 0,
+    delta_slots: int = 0,
 ) -> tuple[DeviceRuleSet, StaticMeta]:
-    host, meta = to_host(cps, word_multiple, prune_budget=prune_budget)
+    host, meta = to_host(cps, word_multiple, delta_slots=delta_slots,
+                         prune_budget=prune_budget)
     return ruleset_from_numpy(host, device), meta
 
 
@@ -552,6 +750,236 @@ def _refuse(**knobs) -> None:
             raise NotImplementedError(f"{name} is not ported yet")
 
 
+# ---------------------------------------------------------------------------
+# Incremental membership deltas (match.py:620-723)
+# ---------------------------------------------------------------------------
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 keeping the low 32 bits (u32 words as int32 bits)."""
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def _delta_lane_match(ip_f: torch.Tensor, dt: DeltaTable,
+                      i: int) -> torch.Tensor:
+    """Lanes slot i's (v4) range covers.  lo_f and hi_f are sign-flipped,
+    so the compares are int32 ones."""
+    return (ip_f >= dt.lo_f[i]) & (ip_f <= dt.hi_f[i])
+
+
+def _delta_matches(ip_f: torch.Tensor, dt: DeltaTable,
+                   n: int) -> torch.Tensor:
+    """(B,) lanes x the first n slots -> (B, n) bool, _delta_lane_match of
+    every slot at once."""
+    return ((ip_f[:, None] >= dt.lo_f[None, :n])
+            & (ip_f[:, None] <= dt.hi_f[None, :n]))
+
+
+def _patch_rows_m(rows: torch.Tensor, m: torch.Tensor, dt: DeltaTable,
+                  masks: torch.Tensor) -> torch.Tensor:
+    """Apply slots 0..n-1 in order to rows (B, W) int32, m (B, n) saying
+    which slots cover each lane: a set slot ORs its mask in, a clear slot
+    clears it, so a later slot wins on the bits both touch."""
+    n = m.shape[1]
+    sign = dt.sign[:n]
+    sets = m & (sign > 0)[None, :]
+    clears = m & (sign < 0)[None, :]
+    for i in range(n):
+        mask = masks[i][None, :]
+        rows = torch.where(sets[:, i, None], rows | mask, rows)
+        rows = torch.where(clears[:, i, None], rows & ~mask, rows)
+    return rows
+
+
+def _patch_rows(rows: torch.Tensor, ip_f: torch.Tensor, dt: DeltaTable,
+                masks: torch.Tensor, n: int) -> torch.Tensor:
+    """The n active delta slots applied to gathered incidence rows (B, W)
+    of lanes probed with ip_f (match.py:_patch_rows)."""
+    if n <= 0:
+        return rows
+    return _patch_rows_m(rows, _delta_matches(ip_f, dt, n), dt, masks)
+
+
+def _patch_iso(bit: torch.Tensor, ip_f: torch.Tensor, dt: DeltaTable,
+               which: int, n: int) -> torch.Tensor:
+    """Isolation bits (B,) patched by the n active slots whose iso bit
+    `which` is set (0: iso_in, 1: iso_out): of the slots covering a lane,
+    the last one with a sign decides, as the in-order loop of
+    match.py:_patch_iso does."""
+    if n <= 0:
+        return bit
+    m = (_delta_matches(ip_f, dt, n)
+         & (((dt.iso[:n] >> which) & 1) == 1)[None, :]
+         & (dt.sign[:n] != 0)[None, :])
+    order = torch.arange(n, device=bit.device)
+    last = torch.where(m, order, -1).max(dim=1).values
+    val = (dt.sign[:n][last.clamp(min=0)] > 0).to(bit.dtype)
+    return torch.where(last >= 0, val, bit)
+
+
+def _agg_mask(mask_w: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 delta rule masks -> (..., W / AGG_BLOCK) int32
+    aggregate masks: build_agg of each row."""
+    s = mask_w.shape[-1] // AGG_BLOCK
+    nz = (mask_w.reshape(*mask_w.shape[:-1], s, AGG_BLOCK) != 0).to(
+        torch.int64)
+    j = torch.arange(AGG_BLOCK, device=mask_w.device, dtype=torch.int64)
+    return _to_i32((nz << j).sum(dim=-1))  # disjoint bits: sum == OR
+
+
+def _patch_agg_m(rows: torch.Tensor, m: torch.Tensor, dt: DeltaTable,
+                 masks: torch.Tensor) -> torch.Tensor:
+    """Aggregate rows (B, S) patched by the set slots m marks: their
+    aggregate masks ORed in.  Clear slots leave the aggregate as it is (a
+    stale set bit only costs a candidate the full-width words disprove)."""
+    n = m.shape[1]
+    sets = m & (dt.sign[:n] > 0)[None, :]
+    am = _agg_mask(masks[:n])
+    for i in range(n):
+        rows = torch.where(sets[:, i, None], rows | am[i][None, :], rows)
+    return rows
+
+
+def _patch_agg(rows: torch.Tensor, ip_f: torch.Tensor, dt: DeltaTable,
+               masks: torch.Tensor, n: int) -> torch.Tensor:
+    """match.py:_patch_agg over the n active slots."""
+    if n <= 0:
+        return rows
+    return _patch_agg_m(rows, _delta_matches(ip_f, dt, n), dt, masks)
+
+
+# The four address dimensions a delta patches: (interval-row column of iv,
+# direction, dimension, probed with dst (1) or src (0), DeltaTable mask).
+_DELTA_DIMS = ((0, "ingress", "at", 1, "at_in"),
+               (1, "ingress", "peer", 0, "peer_in"),
+               (3, "egress", "at", 0, "at_out"),
+               (4, "egress", "peer", 1, "peer_out"))
+_SIG_BITS = 62
+
+
+def _sig_words(m: torch.Tensor) -> torch.Tensor:
+    """(T, n) bool -> (T, ceil(n / 62)) int64, the slot set packed."""
+    t, n = m.shape
+    nw = -(-n // _SIG_BITS)
+    if nw * _SIG_BITS > n:
+        m = torch.cat([m, m.new_zeros(t, nw * _SIG_BITS - n)], dim=1)
+    j = torch.arange(_SIG_BITS, device=m.device, dtype=torch.int64)
+    return (m.view(t, nw, _SIG_BITS).to(torch.int64) << j).sum(dim=2)
+
+
+def _sig_bits(sig: torch.Tensor, n: int) -> torch.Tensor:
+    """_sig_words' inverse -> (U, n) bool."""
+    j = torch.arange(_SIG_BITS, device=sig.device, dtype=torch.int64)
+    return (((sig[:, :, None] >> j) & 1) != 0).reshape(sig.shape[0],
+                                                        -1)[:, :n]
+
+
+class DeltaOverlay(NamedTuple):
+    """The lanes a pending delta slot covers, and what their second walk
+    reads: the six incidence tables with the four address dimensions
+    replaced by overlay tables of patched rows, and the lanes' interval
+    rows pointing into them."""
+
+    lanes: torch.Tensor  # (T,) int64 lane indices
+    tabs: tuple  # six (rows, w) int32 tables in the kernels' order
+    iv: torch.Tensor  # (T, 8) int32 interval rows into tabs
+    # (in_at, in_peer, out_at, out_peer) patched aggregate rows (T, S), or
+    # None when not asked for.
+    aggs: Optional[tuple] = None
+
+
+def delta_overlay(drs: DeviceRuleSet, iv: torch.Tensor, src_ip_f, dst_ip_f,
+                  n: int, lanes: Optional[torch.Tensor] = None,
+                  with_agg: bool = False) -> Optional[DeltaOverlay]:
+    """The overlay of the lanes that one of the n active delta slots covers
+    (ingress probes appliedTo with dst and peer with src, egress the
+    reverse, so a lane is touched when a slot covers its src or its dst);
+    `lanes` restricts it to a given set.  Each dimension's overlay holds one
+    patched row per distinct (interval row, set of covering slots), so its
+    size follows the distinct addresses, not the lanes.  None when no lane
+    is touched.  iv (B, 8) are the lanes' interval rows (interval_rows, or
+    B3's); its svc columns are kept."""
+    d = drs.ip_delta
+    m_src = _delta_matches(src_ip_f if lanes is None else src_ip_f[lanes],
+                           d, n)
+    m_dst = _delta_matches(dst_ip_f if lanes is None else dst_ip_f[lanes],
+                           d, n)
+    if lanes is None:
+        lanes = torch.nonzero((m_src | m_dst).any(dim=1)).flatten()
+        m_src, m_dst = m_src[lanes], m_dst[lanes]
+    if lanes.numel() == 0:
+        return None
+    iv_t = iv[lanes].clone()
+    tabs = list(tables(drs))
+    aggs = []
+    for col, dname, dim, on_dst, mname in _DELTA_DIMS:
+        tab = getattr(getattr(drs, dname), dim)
+        masks = getattr(d, mname)
+        key = torch.cat([iv_t[:, col:col + 1].to(torch.int64),
+                         _sig_words(m_dst if on_dst else m_src)], dim=1)
+        uk, inv = torch.unique(key, dim=0, return_inverse=True)
+        m_u = _sig_bits(uk[:, 1:], n)
+        rows = uk[:, 0]
+        tabs[col] = _patch_rows_m(tab.inc[rows], m_u, d, masks).contiguous()
+        iv_t[:, col] = inv.to(torch.int32)
+        if with_agg:
+            aggs.append(_patch_agg_m(tab.agg[rows], m_u, d, masks)[inv])
+    return DeltaOverlay(lanes=lanes, tabs=tuple(tabs), iv=iv_t.contiguous(),
+                        aggs=tuple(aggs) if with_agg else None)
+
+
+def _patch_isos(drs: DeviceRuleSet, iso_in, iso_out, src_ip_f, dst_ip_f,
+                lanes, n: int):
+    """In place: the isolation bits of `lanes` patched, iso_in on dst and
+    iso_out on src (match.py:1277-1278)."""
+    d = drs.ip_delta
+    iso_in[lanes] = _patch_iso(iso_in[lanes], dst_ip_f[lanes], d, 0, n)
+    iso_out[lanes] = _patch_iso(iso_out[lanes], src_ip_f[lanes], d, 1, n)
+
+
+def rewalk_hits(tabs, iv: torch.Tensor, fb: torch.Tensor,
+                ov: Optional[DeltaOverlay], meta: StaticMeta, w0_in: int = 0,
+                w0_out: int = 0) -> torch.Tensor:
+    """Full-width first matches of the fallback lanes fb (compacted lane
+    indices) through B1's wrapper -> (F, 6) int32: once on the tables for
+    the lanes no delta covers, and once on the overlay for those of ov."""
+    def b1(t, rows):
+        return consumer.fused_hits(t, rows, meta.svcref, meta.in_phases,
+                                   meta.out_phases, w0_in, w0_out)[:, :6]
+
+    if ov is None:
+        return b1(tabs, iv[fb])
+    in_fb = torch.zeros(iv.shape[0], dtype=torch.bool, device=iv.device)
+    in_fb[fb] = True
+    plain = in_fb.clone()
+    plain[ov.lanes] = False
+    full = torch.zeros((iv.shape[0], 6), dtype=torch.int32, device=iv.device)
+    idx = torch.nonzero(plain).flatten()
+    if idx.numel():
+        full[idx] = b1(tabs, iv[idx])
+    sel = torch.nonzero(in_fb[ov.lanes]).flatten()
+    if sel.numel():
+        full[ov.lanes[sel]] = b1(ov.tabs, ov.iv[sel])
+    return full[fb]
+
+
+def walk_hits(tabs, iv: torch.Tensor, meta: StaticMeta, fused: bool,
+              w0_in: int = 0, w0_out: int = 0) -> torch.Tensor:
+    """Full-width first matches of the lanes' rows -> (B, 6) int32: B1's
+    wrapper when fused (the kernel on the card), else the torch gathers
+    and scan."""
+    if fused:
+        return consumer.fused_hits(tabs, iv, meta.svcref, meta.in_phases,
+                                   meta.out_phases, w0_in, w0_out)[:, :6]
+    (in_at, in_peer, in_svc), (out_at, out_peer, out_svc) = (
+        consumer.gather_rows(tabs, iv, meta.svcref))
+    return torch.stack(
+        consumer.phase_hits(in_at & in_peer & in_svc, w0_in, meta.in_phases)
+        + consumer.phase_hits(out_at & out_peer & out_svc, w0_out,
+                              meta.out_phases), dim=1)
+
+
+
 def classify_batch(
     drs: DeviceRuleSet,
     src_ip_f: torch.Tensor,  # (B,) int32 sign-flipped
@@ -565,6 +993,7 @@ def classify_batch(
     v6=None,
     svc_ref=None,
     summary_only: bool = False,
+    delta_n: int = 0,
 ):
     """-> dict with final/egress/ingress codes and deciding rule indices
     (codes: 0 allow, 1 drop, 2 reject).
@@ -584,13 +1013,19 @@ def classify_batch(
     index of this shard's first word per direction (host ints).  The
     tables are then this shard's word slice, and the per-phase first
     matches are combined between the scan and the resolution.  v6 lanes
-    are not ported."""
+    are not ported.
+
+    delta_n > 0 applies the first delta_n slots of drs.ip_delta (the
+    engine's pending membership deltas; a host int, so nothing is read
+    back to find them): the lanes a slot covers are walked a second time
+    on a DeltaOverlay (B1 again when fused) and written back, and their
+    isolation bits patched."""
     _refuse(v6=v6 is not None)
     if meta.prune_budget > 0 and drs.ingress.at.agg is not None:
         return _classify_pruned(drs, src_ip_f, dst_ip_f, proto, dst_port,
                                 meta=meta, fused=fused, svc_ref=svc_ref,
                                 summary_only=summary_only,
-                                hit_combine=hit_combine)
+                                hit_combine=hit_combine, delta_n=delta_n)
     ing, eg = drs.ingress, drs.egress
     svc_key = (proto << 16) | dst_port
     ref_key = _svcref_key(svc_key, svc_ref) if meta.svcref else None
@@ -599,18 +1034,14 @@ def classify_batch(
     iv = interval_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key)
     w0_in, w0_out = shard_offsets(hit_combine)
 
-    if fused:
-        hits = consumer.fused_hits(tables(drs), iv, meta.svcref,
-                                   meta.in_phases, meta.out_phases, w0_in,
-                                   w0_out)[:, :6]
-    else:
-        (in_at, in_peer, in_svc), (out_at, out_peer, out_svc) = (
-            consumer.gather_rows(tables(drs), iv, meta.svcref))
-        hits = torch.stack(
-            consumer.phase_hits(in_at & in_peer & in_svc, w0_in,
-                                meta.in_phases)
-            + consumer.phase_hits(out_at & out_peer & out_svc, w0_out,
-                                  meta.out_phases), dim=1)
+    hits = walk_hits(tables(drs), iv, meta, fused, w0_in, w0_out)
+    ov = (delta_overlay(drs, iv, src_ip_f, dst_ip_f, delta_n)
+          if delta_n > 0 else None)
+    if ov is not None:
+        hits[ov.lanes] = walk_hits(ov.tabs, ov.iv, meta, fused, w0_in,
+                                   w0_out)
+        _patch_isos(drs, iso_in, iso_out, src_ip_f, dst_ip_f, ov.lanes,
+                    delta_n)
     if hit_combine is not None:
         hits = hit_combine(hits.contiguous())
     in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
@@ -631,7 +1062,8 @@ def classify_batch(
 
 def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
                      dst_port, *, meta: StaticMeta, fused: bool, svc_ref,
-                     summary_only: bool = False, hit_combine=None):
+                     summary_only: bool = False, hit_combine=None,
+                     delta_n: int = 0):
     """The two-level pruned classify (match.py:_classify_pruned), v4, on
     one card or one rule shard.  An aggregate bit is set iff its incidence word is nonzero, so a
     zero aggregate AND proves no match and the candidate superblocks cover
@@ -652,7 +1084,13 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
     shard's own; the hits and the three observables are then combined in
     one call (match.py:1800-1815): skip as the minimum (no shard had a
     candidate), fb as one minus the minimum of 1 - fb (any shard fell
-    back), cand as minus the minimum of -cand (the most on any shard)."""
+    back), cand as minus the minimum of -cand (the most on any shard).
+
+    With delta_n > 0 the lanes a delta slot covers take the patched
+    aggregate rows (set slots ORed in) into their AND, and their candidate
+    scan (B2) and full-width fallback (B1) run a second time on their
+    DeltaOverlay, whose rows are patched at full width (_patch_cand's
+    effect); the others keep their launches."""
     ing, eg = drs.ingress, drs.egress
     B = src_ip_f.shape[0]
     K = meta.prune_budget
@@ -663,6 +1101,11 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
     iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
     w0_in, w0_out = shard_offsets(hit_combine)
 
+    ov = (delta_overlay(drs, iv, src_ip_f, dst_ip_f, delta_n, with_agg=True)
+          if delta_n > 0 else None)
+    if ov is not None:
+        _patch_isos(drs, iso_in, iso_out, src_ip_f, dst_ip_f, ov.lanes,
+                    delta_n)
     g, nc, ke = [], [], []
     for d, dd in enumerate((ing, eg)):
         # The aggregate AND of the direction's three dimension rows (the
@@ -672,6 +1115,10 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
         if d and meta.svcref:
             rows[2] = rows[2] | dd.svc.agg[iv[:, 6].long()]
         g.append(rows[0] & rows[1] & rows[2])
+        if ov is not None:
+            # Touched lanes AND their patched at/peer aggregate rows.
+            g[-1][ov.lanes] = (ov.aggs[2 * d] & ov.aggs[2 * d + 1]
+                               & rows[2][ov.lanes])
         nc.append((g[-1] != 0).sum(dim=1, dtype=torch.int32))
         ke.append(min(K, dd.at.agg.shape[1]))
     live = (nc[0] > 0) | (nc[1] > 0)
@@ -691,14 +1138,19 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
                 else pruned_consumer.pruned_hits_plain)
         hits = scan(g[0], g[1], iv, tables(drs), ke[0], ke[1], meta.svcref,
                     meta.in_phases, meta.out_phases, w0_in, w0_out)[:, :6]
+        if ov is not None:
+            # The touched lanes' candidates, read from their patched rows.
+            hits[ov.lanes] = scan(
+                g[0][ov.lanes].contiguous(), g[1][ov.lanes].contiguous(),
+                ov.iv, ov.tabs, ke[0], ke[1], meta.svcref, meta.in_phases,
+                meta.out_phases, w0_in, w0_out)[:, :6]
         if n_fb:
             # Full-width walk of the compacted fallback lanes: the function
             # B1 computes, so it goes through B1's wrapper (the kernel on
             # the card), written back lane for lane.
             idx = torch.nonzero(fb).flatten()
-            hits[idx] = consumer.fused_hits(
-                tables(drs), iv[idx], meta.svcref, meta.in_phases,
-                meta.out_phases, w0_in, w0_out)[:, :6]
+            hits[idx] = rewalk_hits(tables(drs), iv, idx, ov, meta, w0_in,
+                                    w0_out)
     else:
         hits = torch.full((B, 6), BIG, dtype=torch.int32,
                           device=src_ip_f.device)

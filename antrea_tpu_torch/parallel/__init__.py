@@ -12,3 +12,12 @@ from .mesh import (  # noqa: F401
     shard_state,
     spawn,
 )
+
+
+class MeshDatapath:
+    """The mesh engine (the JAX package's parallel/meshpath.MeshDatapath)
+    is not ported yet: constructing it raises NotImplementedError."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("MeshDatapath is not ported yet "
+                                  "(ROADMAP.md queue A item 7)")

@@ -89,7 +89,7 @@ def main() -> int:
     smoke.log(f"card: {smoke.card_line()}")
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_all(Path(tmp))
-        cps, svc, tr, _ = smoke.build_world()
+        cps, svc, tr = smoke.build_world()[:3]
         step, state, (drs, dsvc) = pl.make_pipeline(
             cps, svc, flow_slots=smoke.FLOW_SLOTS,
             miss_chunk=smoke.MISS_CHUNK, fused=True,

@@ -142,7 +142,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = smoke.card_line()
     print(f"card: {card}", flush=True)
-    cps, svc, tr, pool_tr = smoke.build_world()
+    cps, svc, tr, pool_tr = smoke.build_world()[:4]
     step, state, (drs, dsvc) = pl.make_pipeline(
         cps, svc, flow_slots=smoke.FLOW_SLOTS, miss_chunk=smoke.MISS_CHUNK,
         fused=True, device=dev)

@@ -72,6 +72,19 @@ package is missing, or when any phase fails.  Phases, in order:
      and both ranks' final state bitwise equal (sha256) to phase 10's; each
      shard's incidence and aggregate bytes on the card.
 
+ 13. the engine (datapath/tpuflow.TpuflowDatapath), built from the
+     headline PolicySet with node-0's topology (flow_slots=2**22,
+     miss_chunk=256, canary_probes=8, delta_slots=128), one-pass
+     (fused=True, prune_budget=4) and then staged (fused=True), one engine
+     at a time: cold, warm and 8 steady steps of the headline traffic
+     through step(), pod churn on 4 address groups (a fresh pod in, a
+     member out, each canary-certified and kept in the delta slots), and a
+     step of 2**17 fresh flows each with a churned address on one side;
+     its verdicts and rule ids bitwise equal to an engine built from the
+     post-delta PolicySet (the full recompile), 4096 more such flows
+     bitwise equal to the port's engine on the CPU, and B1, B3 and
+     (through the pruned canary) B2 launched in the phase.
+
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
 of a 2-way word split (shard 1 at w0 = W / 2); in phase 5 on the warm
@@ -126,7 +139,8 @@ def card_line() -> str:
 
 def build_world():
     """-> (compiled policy set, service tables, the 2**17-lane batch, a
-    POOL-lane pool of fresh flows, one lane per flow, the pod IPs)."""
+    POOL-lane pool of fresh flows, one lane per flow, the pod IPs, the
+    PolicySet and the service list)."""
     from antrea_tpu_torch.compiler.compile import compile_policy_set
     from antrea_tpu_torch.compiler.services import compile_services
     from antrea_tpu_torch.simulator import (gen_cluster, gen_services,
@@ -141,7 +155,7 @@ def build_world():
     pool = gen_traffic(cluster.pod_ips, POOL, n_flows=POOL, seed=7,
                        services=services, svc_fraction=0.3,
                        one_per_flow=True)
-    return cps, svc, tr, pool, cluster.pod_ips
+    return cps, svc, tr, pool, cluster.pod_ips, cluster.ps, services
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -913,21 +927,42 @@ def cross_check_async(step, drs, dsvc, tr, pool, dev, what):
     torch.cuda.empty_cache()
 
 
-def node0_topology(pod_ips):
+def node0_spec(pod_ips):
     """Node-0's forwarding world in the headline cluster (pods at
     10.0.<node>.x, 32 a node): its 32 pods at ofports from 3, the other 63
-    nodes remote at their pod CIDRs.  -> compiled ForwardingTables."""
-    from antrea_tpu_torch.compiler.topology import (NodeRoute, Topology,
-                                                    compile_topology)
+    nodes remote at their pod CIDRs.  -> Topology."""
+    from antrea_tpu_torch.compiler.topology import NodeRoute, Topology
     from antrea_tpu_torch.utils import ip as iputil
 
-    return compile_topology(Topology(
+    return Topology(
         node_name="node-0", gateway_ip="10.0.0.1", pod_cidr="10.0.0.0/24",
         local_pods=[(iputil.u32_to_ip(int(u)), 3 + i)
                     for i, u in enumerate(pod_ips[:N_LOCAL])],
         remote_nodes=[NodeRoute(name=f"node-{k}", node_ip=f"192.168.0.{k}",
                                 pod_cidr=f"10.0.{k}.0/24")
-                      for k in range(1, 64)]))
+                      for k in range(1, 64)])
+
+
+def node0_topology(pod_ips):
+    """node0_spec compiled -> ForwardingTables."""
+    from antrea_tpu_torch.compiler.topology import compile_topology
+
+    return compile_topology(node0_spec(pod_ips))
+
+
+def honest_ports(src_ip, pod_ips):
+    """Each source's ingress port as node-0 sees it: a node-0 pod's own
+    ofport, every other source (another node's pod) the tunnel."""
+    import numpy as np
+
+    from antrea_tpu_torch.compiler.topology import OFPORT_TUNNEL
+
+    port_of = np.zeros(1 << 16, np.int32)  # by the low 16 address bits
+    local = np.asarray(pod_ips[:N_LOCAL], np.uint32)
+    port_of[local & 0xFFFF] = 3 + np.arange(N_LOCAL)
+    src = np.asarray(src_ip, np.uint32)
+    return np.where(np.isin(src, local), port_of[src & 0xFFFF],
+                    OFPORT_TUNNEL).astype(np.int32)
 
 
 def full_lanes(tr, pod_ips, dev):
@@ -945,16 +980,9 @@ def full_lanes(tr, pod_ips, dev):
     import numpy as np
     import torch
 
-    from antrea_tpu_torch.compiler.topology import OFPORT_TUNNEL
-
     rng = np.random.default_rng(21)
     b = tr.src_ip.shape[0]
-    port_of = np.zeros(1 << 16, np.int32)  # by the low 16 address bits
-    local = np.asarray(pod_ips[:N_LOCAL], np.uint32)
-    port_of[local & 0xFFFF] = 3 + np.arange(N_LOCAL)
-    src = tr.src_ip.astype(np.uint32)
-    in_port = np.where(np.isin(src, local), port_of[src & 0xFFFF],
-                       OFPORT_TUNNEL)
+    in_port = honest_ports(tr.src_ip, pod_ips)
     spoof = rng.random(b) < 1 / 16
     cover_port = np.where(spoof, 3 + (in_port + 1) % N_LOCAL, in_port)
     flags = np.where(rng.random(b) < 1 / 128,
@@ -1304,6 +1332,257 @@ def drive_study():
     return n, sec
 
 
+# ---- phase 13: the engine (datapath/tpuflow.TpuflowDatapath) --------------
+# Address groups churned (a fresh pod in, a member out, each), the canary's
+# probes per commit (the scalar Oracle walks each probe at 100k rules), and
+# the delta step's extra cross-check lanes.
+CHURN_GROUPS = 4
+ENGINE_PROBES = 8
+
+
+def world_copy(ps):
+    """A PolicySet an engine may own: a delta rewrites the member lists of
+    the groups it touches, so each engine gets its own group objects (the
+    policies are shared; nothing writes them)."""
+    import copy
+    import dataclasses
+
+    return dataclasses.replace(
+        ps, address_groups={k: copy.copy(g)
+                            for k, g in ps.address_groups.items()},
+        applied_to_groups={k: copy.copy(g)
+                           for k, g in ps.applied_to_groups.items()})
+
+
+def engine_batch(src, dst, proto, sport, dport, pod_ips):
+    from antrea_tpu_torch.packet import PacketBatch
+
+    return PacketBatch(src_ip=src, dst_ip=dst, proto=proto, src_port=sport,
+                       dst_port=dport, in_port=honest_ports(src, pod_ips))
+
+
+def churn_plan(eng, ps):
+    """Pod churn for CHURN_GROUPS address groups: per group a fresh pod IP
+    inside node k's pod CIDR (10.0.k.200 + k) joins and one member leaves,
+    a member whose address no other group of the same rule dimensions
+    overlaps (so each delta takes slots instead of folding into a
+    recompile).  -> [(group, added, removed)]."""
+    from antrea_tpu_torch.datapath.tpuflow import _overlaps
+    from antrea_tpu_torch.utils import ip as iputil
+
+    plan = []
+    for name in sorted(ps.address_groups):
+        g = ps.address_groups[name]
+        gids = eng._name_gids.get(name)
+        if not g.members or g.ip_blocks or not gids:
+            continue
+        ips = [m.ip for m in g.members]
+        for ip in ips:
+            r = iputil.cidr_to_range(ip)
+            others = [iputil.merge_ranges(list(eng._gid_ident[gid][2]))
+                      for gid in gids]
+            others += [eng._ranges_of(n) for gid in gids
+                       for n in eng._gid_ident[gid][1] if n != name]
+            if ips.count(ip) == 1 and not any(_overlaps(o, r)
+                                              for o in others):
+                k = len(plan) + 1
+                plan.append((name, [f"10.0.{k}.{200 + k}"], [ip]))
+                break
+        if len(plan) == CHURN_GROUPS:
+            return plan
+    raise SystemExit(f"engine: found {len(plan)} churnable groups, not "
+                     f"{CHURN_GROUPS}")
+
+
+def delta_batch(plan, pod_ips, n, seed):
+    """n fresh flows, each with one of the churned addresses on one side
+    (source and destination in turn) and a seeded pod on the other; TCP
+    with source ports below 1024, which the headline traffic never uses,
+    so no lane is in the cache."""
+    import numpy as np
+
+    from antrea_tpu_torch.utils import ip as iputil
+
+    addrs = np.array([iputil.ip_to_u32(ip) for _, a, r in plan
+                      for ip in a + r], np.uint32)
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)
+    a = addrs[i % len(addrs)]
+    other = np.asarray(pod_ips, np.uint32)[rng.integers(0, len(pod_ips), n)]
+    swap = (i // len(addrs)) % 2 == 1
+    src, dst = np.where(swap, other, a), np.where(swap, a, other)
+    return (src, dst, np.full(n, 6, np.int32),
+            (1 + i % 1023).astype(np.int32),
+            rng.choice(np.array([80, 443, 5432, 8080], np.int32), n))
+
+
+RESULT_FIELDS = ("code", "est", "reply", "reject_kind", "snat", "dsr",
+                 "svc_idx", "dnat_ip", "dnat_port", "committed", "spoofed",
+                 "fwd_kind", "out_port", "peer_ip", "tc_act", "tc_port")
+
+
+def same_result(a, b, what, fields=RESULT_FIELDS):
+    import numpy as np
+
+    for f in fields:
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise SystemExit(f"engine {what}: {f} differs")
+    if a.ingress_rule != b.ingress_rule or a.egress_rule != b.egress_rule:
+        raise SystemExit(f"engine {what}: rule attribution differs")
+
+
+def overlay_rows(eng, src, dst):
+    """The DeltaOverlay of lanes (src, dst) under eng's pending deltas (the
+    delta lanes need no DNAT) -> (lanes, rows per address dimension,
+    bytes)."""
+    import torch
+
+    from antrea_tpu_torch.ops import match as tm
+
+    drs = eng._drs
+    s = eng._flipped(src)
+    d = eng._flipped(dst)
+    iv = tm.interval_rows(drs, s, d, torch.zeros_like(s))
+    ov = tm.delta_overlay(drs, iv, s, d, eng._n_deltas)
+    rows = [ov.tabs[c].shape[0] for c in (0, 1, 3, 4)]
+    nbytes = sum(ov.tabs[c].numel() * 4 for c in (0, 1, 3, 4))
+    return ov.lanes.numel(), rows, nbytes
+
+
+def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, **knobs):
+    """Phase 13 for one mode: the port's TpuflowDatapath on the card over
+    the headline world with node-0's topology (built from the PolicySet:
+    compile, tables, the commit plane), stepped on the headline traffic
+    (cold, warm, STEADY_STEPS steady), then CHURN_GROUPS canary-certified
+    group deltas that stay in the slots, then one step of B fresh flows
+    each touching a churned address, with every launch count set to 0 just
+    before the first step and read just after the delta step.  Checks: the
+    delta step's verdicts and rule ids bitwise equal to a second engine
+    built from the post-delta PolicySet (`ref`, built here when None), and
+    CROSS_LANES more such flows bitwise equal to the port's engine on the
+    CPU after the same deltas.  -> (record, launches, ref)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+
+    kw = dict(flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK,
+              canary_probes=ENGINE_PROBES, topology=node0_spec(pod_ips),
+              **knobs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = TpuflowDatapath(world_copy(ps), services, device=dev, **kw)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    hb = engine_batch(tr.src_ip, tr.dst_ip, tr.proto, tr.src_port,
+                      tr.dst_port, pod_ips)
+    reset_counts()
+    times, misses = [], []
+    for now in NOWS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = eng.step(hb, now)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        misses.append(r.n_miss)
+        if r.code.shape != (B,) or not np.isin(r.code, (0, 1, 2)).all():
+            raise SystemExit(f"engine {what}: bad verdict column")
+    rec = step_stats(times)
+    plan = churn_plan(eng, ps)
+    inc0 = eng._drs.ingress.at.inc
+    lat = []
+    for name, added, removed in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.apply_group_delta(name, added, removed)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    n_deltas = eng._n_deltas
+    if n_deltas < 1 or eng._drs.ingress.at.inc is not inc0:
+        raise SystemExit(f"engine {what}: the deltas folded into a "
+                         f"recompile ({n_deltas} slots)")
+    st = eng.commit_stats()
+    if st["canary_probes_total"] < len(plan) or st["degraded"]:
+        raise SystemExit(f"engine {what}: canary did not certify: {st}")
+    cols = delta_batch(plan, pod_ips, B + CROSS_LANES, 31)
+    main = engine_batch(*(c[:B] for c in cols), pod_ips)
+    cross = engine_batch(*(c[B:] for c in cols), pod_ips)
+    fb0 = (eng.prune_stats() or {}).get("fallbacks_total", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = eng.step(main, NOWS[-1] + 1)
+    torch.cuda.synchronize()
+    delta_s = time.perf_counter() - t0
+    launches = counts()
+    if r.n_miss != B:
+        raise SystemExit(f"engine {what}: delta step missed {r.n_miss} of "
+                         f"{B} fresh lanes")
+    if knobs.get("prune_budget"):
+        fb = eng.prune_stats()["fallbacks_total"] - fb0
+        if fb != B:
+            raise SystemExit(f"engine {what}: {fb} of {B} delta lanes took "
+                             f"the forced fallback")
+    ov_lanes, ov_rows, ov_bytes = overlay_rows(eng, main.src_ip,
+                                               main.dst_ip)
+    rec.update(compile_s=compile_s, delta_ms=[x * 1e3 for x in lat],
+               delta_step_ms=delta_s * 1e3, n_deltas=n_deltas,
+               overlay_lanes=ov_lanes, overlay_rows=ov_rows,
+               overlay_bytes=ov_bytes, launches=list(launches),
+               canary_probes=st["canary_probes_total"])
+    log(f"engine {what}: built from the PolicySet in {compile_s:.1f} s; "
+        f"headline traffic: cold {rec['cold_ms']:.1f} ms, warm "
+        f"{rec['warm_ms']:.2f} ms, steady median {rec['steady_ms']:.3f} "
+        f"ms/step (min {rec['steady_min_ms']:.3f}, max "
+        f"{rec['steady_max_ms']:.3f}), {rec['steady_pps'] / 1e6:.2f} M "
+        f"packets/s; n_miss per step {misses}")
+    log(f"engine {what}: {len(plan)} group deltas in {n_deltas} slots, "
+        f"apply_group_delta {', '.join(f'{x * 1e3:.1f}' for x in lat)} ms "
+        f"(canary of {ENGINE_PROBES} probes each, {st['canary_probes_total']}"
+        f" probes); delta step of {B} fresh lanes {delta_s * 1e3:.1f} ms "
+        f"({B / delta_s / 1e6:.2f} M packets/s), overlay {ov_lanes} lanes, "
+        f"{ov_rows} rows per address dimension, {ov_bytes / 1e6:.2f} MB; "
+        f"(B1, B2, B3) launches over the phase {launches}")
+    rc_card = eng.step(cross, NOWS[-1] + 2)
+    post_ps = world_copy(eng._ps)
+    outs = r
+    del eng, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The port's engine on the CPU after the same deltas, on the
+    # CROSS_LANES more fresh flows (cold there, uncached on the card).
+    ec = TpuflowDatapath(world_copy(ps), services, device="cpu",
+                         **{**kw, "flow_slots": CROSS_SLOTS,
+                            "canary_probes": 0})
+    for name, added, removed in plan:
+        ec.apply_group_delta(name, added, removed)
+    if ec._n_deltas != n_deltas:
+        raise SystemExit(f"engine {what}: CPU twin took {ec._n_deltas} "
+                         f"slots, the card {n_deltas}")
+    same_result(rc_card, ec.step(cross, NOWS[-1] + 2),
+                f"{what} card vs CPU")
+    del ec
+    gc.collect()
+    log(f"engine {what}: {CROSS_LANES} fresh delta lanes bitwise equal "
+        f"(card vs CPU engine)")
+
+    # The full recompile: an engine built from the post-delta PolicySet.
+    if ref is None:
+        eref = TpuflowDatapath(post_ps, services, device=dev,
+                               **{**kw, "canary_probes": 0})
+        ref = eref.step(main, NOWS[-1] + 1)
+        del eref
+        gc.collect()
+        torch.cuda.empty_cache()
+    same_result(outs, ref, f"{what} deltas vs full recompile",
+                fields=("code",))
+    log(f"engine {what}: delta step verdicts and rule ids bitwise equal to "
+        f"the engine built from the post-delta PolicySet")
+    return rec, launches, ref
+
+
 def main() -> int:
     import torch
 
@@ -1334,7 +1613,7 @@ def main() -> int:
 
     # 2. World and the two pipelines.
     t0 = time.perf_counter()
-    cps, svc, tr, pool_tr, pod_ips = build_world()
+    cps, svc, tr, pool_tr, pod_ips, ps, services = build_world()
     log(f"world built on the host in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     step, state, (drs, dsvc) = pl.make_pipeline(
@@ -1499,6 +1778,20 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
         f" GiB")
 
+    # 13. The engine, one-pass then staged, one at a time.
+    eng_one, eng_op_launches, ref = drive_engine(
+        ps, services, pod_ips, tr, dev, "one-pass", fused=True,
+        prune_budget=PRUNE_K)
+    eng_st, eng_st_launches, _ = drive_engine(
+        ps, services, pod_ips, tr, dev, "staged fused", ref=ref, fused=True)
+    del ref
+    if not (eng_op_launches[0] and eng_op_launches[1] and eng_op_launches[2]
+            and eng_st_launches[0]):
+        raise SystemExit(f"engine: (B1, B2, B3) launches one-pass "
+                         f"{eng_op_launches}, staged {eng_st_launches}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB")
+
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
         return {"name": name, "route": "cuda", "source": src,
@@ -1526,17 +1819,21 @@ def main() -> int:
                               "lanes": b1["fallback"]["lanes"]},
             launches_onepass_path=op_launches[0],
             launches_async_staged_path=a_st_launches[0],
-            launches_async_onepass_path=a_op_launches[0]),
+            launches_async_onepass_path=a_op_launches[0],
+            launches_engine_onepass=eng_op_launches[0],
+            launches_engine_staged=eng_st_launches[0]),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
-            **rows_bounds(b2[256]), at_B32768=at(b2[32768])),
+            **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
+            launches_engine_onepass=eng_op_launches[1]),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, **{k: v for k, v in at(b3["cold"]).items()
                         if k not in ("ms", "call_ms", "plain_ms",
                                      "bound_ms")},
             warm_cache=at(b3["warm"]),
-            launches_async_onepass_path=a_op_launches[2]),
+            launches_async_onepass_path=a_op_launches[2],
+            launches_engine_onepass=eng_op_launches[2]),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -1554,7 +1851,8 @@ def main() -> int:
                     "async_staged": a_staged, "async_onepass": a_one,
                     "full_walk": {k: v[0] for k, v in full.items()},
                     "mesh_1x1": {k: v[0] for k, v in mesh11.items()},
-                    "mesh_1x2": mesh12}))
+                    "mesh_1x2": mesh12,
+                    "engine": {"onepass": eng_one, "staged": eng_st}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

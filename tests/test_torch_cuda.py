@@ -641,3 +641,118 @@ def test_async_cadence_card_equals_cpu(cuda, pruned_world, onepass):
             assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), (part, f)
     assert int(c[2]["n_reclaim"]) > 0
     assert (c[1]["code"][c[1]["miss"] != 0] == ACT_DROP).all()
+
+
+def _engine_world():
+    from antrea_tpu_torch.simulator import gen_cluster, gen_services
+
+    cluster = gen_cluster(2500, n_nodes=8, pods_per_node=8, seed=12)
+    return cluster, gen_services(40, cluster.pod_ips, seed=4)
+
+
+def _engine_batch(cluster, services, seed, n=300):
+    from antrea_tpu_torch.packet import PacketBatch
+    from antrea_tpu_torch.simulator import gen_traffic
+
+    tr = gen_traffic(cluster.pod_ips, n, n_flows=n // 2, seed=seed,
+                     services=services, svc_fraction=0.3)
+    return PacketBatch(src_ip=tr.src_ip, dst_ip=tr.dst_ip, proto=tr.proto,
+                       src_port=tr.src_port, dst_port=tr.dst_port)
+
+
+@pytest.mark.parametrize("knobs", [dict(fused=True),
+                                   dict(fused=True, prune_budget=2)],
+                         ids=["staged", "onepass"])
+def test_engine_on_the_card_equals_cpu_with_deltas(cuda, knobs):
+    """The port's engine on the card against the same engine on the CPU
+    through steps, canary-certified group deltas and a step whose lanes the
+    pending deltas cover: B1's overlay launch (staged), B3 with fb_force
+    lanes and B1 on their overlay (one-pass)."""
+    import copy
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.ops import onepass as op
+    from antrea_tpu_torch.utils import ip as iputil
+
+    cluster, services = _engine_world()
+    kw = dict(flow_slots=1 << 12, aff_slots=1 << 8, miss_chunk=64,
+              canary_probes=8, **knobs)
+    eg = TpuflowDatapath(copy.deepcopy(cluster.ps), services, device=cuda,
+                         **kw)
+    ec = TpuflowDatapath(copy.deepcopy(cluster.ps), services, device="cpu",
+                         **kw)
+
+    def both(b, now, what):
+        rg, rc = eg.step(b, now), ec.step(b, now)
+        for f in ("code", "est", "svc_idx", "dnat_ip", "dnat_port",
+                  "committed", "fwd_kind", "out_port"):
+            np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f),
+                                          err_msg=f"{what}: {f}")
+        assert rg.ingress_rule == rc.ingress_rule, what
+        assert rg.egress_rule == rc.egress_rule, what
+        for part in ("flow", "aff"):
+            for tg, tcpu in zip(getattr(eg._state, part),
+                                getattr(ec._state, part)):
+                assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), (what, part)
+
+    for i in range(2):
+        both(_engine_batch(cluster, services, 3 + i), 100 + i, f"step {i}")
+    ag = sorted(cluster.ps.address_groups)[0]
+    victim = cluster.ps.address_groups[ag].members[0].ip
+    for dp in (eg, ec):
+        dp.apply_group_delta(ag, ["10.9.9.9"], [victim])
+        dp.apply_group_delta(ag, ["10.9.9.10"], [])
+    assert eg._n_deltas == ec._n_deltas >= 2
+    assert eg.commit_stats()["canary_probes_total"] > 0
+    b = _engine_batch(cluster, services, 9)
+    b.src_ip[:100] = iputil.ip_to_u32("10.9.9.9")
+    b.dst_ip[100:200] = iputil.ip_to_u32(victim)
+    k0 = (consumer.launches, op.launches)
+    both(b, 110, "delta step")
+    k1 = (consumer.launches, op.launches)
+    if knobs.get("prune_budget"):
+        assert k1[1] == k0[1] + 1 and k1[0] > k0[0]
+        for k in ("skips_total", "fallbacks_total", "classified_total"):
+            assert eg.prune_stats()[k] == ec.prune_stats()[k], k
+    else:
+        assert k1[0] >= k0[0] + 2  # a round's B1 and its overlay launch
+    assert eg.dump_flows(111) == ec.dump_flows(111)
+    assert eg.trace(b, 111) == ec.trace(b, 111)
+    assert eg._audit_rule_digests() == ec._audit_rule_digests()
+
+
+def test_pruned_classify_with_deltas_card_equals_cpu(cuda, pruned_world):
+    """classify_batch pruned with delta slots pending, on the card (B2 and
+    its overlay launch, B1 for the fallback) against the CPU."""
+    from antrea_tpu_torch.ops import match as tm
+    from antrea_tpu_torch.ops import pruned_consumer
+
+    cps, _svc, tr = pruned_world
+    drs_np, meta = tm.to_host(cps, delta_slots=8, prune_budget=1)
+    src, dst, proto, _sport, dport = _lanes(tr, "cpu")
+    dl = drs_np.ip_delta
+    rng = np.random.default_rng(5)
+    n = 6
+    lanes = rng.choice(src.shape[0], n, replace=False)
+    dl = dl._replace(n=np.int32(n))
+    for i, lane in enumerate(lanes):
+        ip = int((src if i % 2 else dst)[lane])
+        dl.lo_f[i] = dl.hi_f[i] = ip
+        dl.sign[i] = -1 if i % 3 == 1 else 1
+        dl.iso[i] = i % 4
+        for k in ("at_in", "peer_in", "at_out", "peer_out"):
+            m = getattr(dl, k)
+            m[i] = (rng.random(m.shape[1]) < 0.05) * np.uint32(0x80000001)
+    drs_np = drs_np._replace(ip_delta=dl)
+    drs_g = tm.ruleset_from_numpy(drs_np, cuda)
+    drs_c = tm.ruleset_from_numpy(drs_np, "cpu")
+    before = pruned_consumer.launches
+    got = tm.classify_batch(drs_g, src.to(cuda), dst.to(cuda),
+                            proto.to(cuda), dport.to(cuda), meta=meta,
+                            fused=True, delta_n=n)
+    torch.cuda.synchronize()
+    assert pruned_consumer.launches == before + 2
+    want = tm.classify_batch(drs_c, src, dst, proto, dport, meta=meta,
+                             fused=True, delta_n=n)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k

@@ -54,14 +54,34 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert "antrea_tpu_torch.models.profile" in res["modules"]
     for mod in ("consumer", "pruned_consumer", "onepass", "consumer2"):
         assert f"antrea_tpu_torch.ops.{mod}" in res["modules"]
-    for mod in _SLICE_MODULES:
+    for mod in _SLICE_MODULES + _ENGINE_MODULES:
         assert mod in res["modules"]
     assert res["bad"] == []
 
 
 _SLICE_MODULES = ("antrea_tpu_torch.parallel", "antrea_tpu_torch.parallel.mesh",
                   "antrea_tpu_torch.models.forwarding",
-                  "antrea_tpu_torch.compiler.topology")
+                  "antrea_tpu_torch.compiler.topology",
+                  # The engine's package imports every plane it mixes in
+                  # (interface, commit, audit, maintenance, persist,
+                  # tenancy, slowpath) and what they pull in.
+                  "antrea_tpu_torch.datapath",
+                  "antrea_tpu_torch.observability",
+                  "antrea_tpu_torch.oracle",
+                  "antrea_tpu_torch.controller",
+                  "antrea_tpu_torch.dissemination.faults")
+
+# The engine slice's modules, each loaded by the whole-package import.
+_ENGINE_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
+    "datapath.tpuflow", "datapath.interface", "datapath.commit",
+    "datapath.audit", "datapath.maintenance", "datapath.persist",
+    "datapath.tenancy", "datapath.slowpath", "datapath.slowpath.engine",
+    "datapath.slowpath.queue", "observability.metrics",
+    "observability.flightrec", "observability.telemetry",
+    "observability.tracing", "oracle.interpreter",
+    "controller.networkpolicy", "controller.admission",
+    "controller.grouping", "dissemination", "dissemination.serde",
+    "apis.crd", "config", "features"))
 
 _IMPORT_ONE = """
 import importlib, json, sys
@@ -87,6 +107,10 @@ def test_no_source_imports_jax_or_the_jax_package():
               ROOT / "tests" / "torch_mesh_ranks.py"]
     assert {"mesh.py", "forwarding.py", "topology.py"} <= {f.name
                                                           for f in files}
+    rel = {str(f.relative_to(ROOT)) for f in files}
+    for sub in ("datapath", "observability", "oracle", "controller",
+                "dissemination"):
+        assert any(r.startswith(f"antrea_tpu_torch/{sub}/") for r in rel), sub
     seen = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -164,8 +188,34 @@ def test_unported_step_arguments_raise(tiny, fn, knob):
                                   # Delta patching under pruning.
                                   {"delta_slots": 1, "prune_budget": 2}])
 def test_unported_table_knobs_raise(tiny, knob):
-    with pytest.raises(NotImplementedError):
-        tm.to_host(tiny[0], **knob)
+    """The delta table is ported: to_host builds the JAX package's
+    DeltaTable of delta_slots empty slots (its patching is held to the
+    reference in tests/test_torch_delta.py), and the match meta carries
+    the capacity."""
+    cluster = gen_cluster(40, n_nodes=2, pods_per_node=4, seed=1)
+    from antrea_tpu.compiler.compile import compile_policy_set as jcompile
+
+    jdrs, jmeta = jm.to_host(jcompile(cluster.ps), **knob)
+    drs, meta = tm.to_host(tiny[0], **knob)
+    assert meta.delta_slots == jmeta.delta_slots == knob["delta_slots"]
+    for f in tm.DeltaTable._fields:
+        a, b = getattr(drs.ip_delta, f), getattr(jdrs.ip_delta, f)
+        assert np.asarray(a).dtype == np.asarray(b).dtype, f
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=f)
+    assert drs.ip_delta.sign.shape == (knob["delta_slots"],)
+
+
+def test_make_datapath_builds_the_ports_engine_on_the_cpu():
+    from antrea_tpu_torch import datapath as td
+
+    dp = td.make_datapath("tpuflow", device="cpu", flow_slots=16,
+                          aff_slots=16)
+    assert type(dp) is td.TpuflowDatapath
+    assert type(dp).__module__ == "antrea_tpu_torch.datapath.tpuflow"
+    assert dp._drs.ingress.at.inc.device.type == "cpu"
+    assert dp._meta.match.delta_slots == 128  # the engine's default
+    with pytest.raises(NotImplementedError, match="queue A item 9"):
+        td.make_datapath(td.DatapathType.ORACLE)
 
 
 def test_onepass_needs_the_aggregate_layer(tiny):
@@ -258,3 +308,35 @@ def test_winner_mask_equals_reference():
     got = tpl._winner_mask(64, torch.from_numpy(slots.astype(np.int64)),
                            torch.from_numpy(mask), 64)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_chip_scripts_unpack_the_smoke_world(monkeypatch):
+    """chip_profile.py and chip_b3_variants.py take the leading fields of
+    chip_smoke.build_world()'s tuple: each call site slices it to as many
+    fields as it assigns, no more than the world has (a tiny world here)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    for name, val in (("N_RULES", 60), ("N_SERVICES", 4), ("B", 32),
+                      ("N_FLOWS", 8), ("POOL", 16)):
+        monkeypatch.setattr(chip_smoke, name, val)
+    n_fields = len(chip_smoke.build_world())
+    sites = 0
+    for script in ("chip_profile.py", "chip_b3_variants.py"):
+        tree = ast.parse((ROOT / script).read_text())
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Assign)
+                    and isinstance(node.value, ast.Subscript)):
+                continue
+            call = node.value.value
+            if not (isinstance(call, ast.Call)
+                    and getattr(call.func, "attr", "") == "build_world"):
+                continue
+            sl = node.value.slice
+            assert isinstance(sl, ast.Slice) and sl.lower is None, script
+            k = sl.upper.value
+            assert len(node.targets[0].elts) == k <= n_fields, script
+            sites += 1
+    assert sites == 2
