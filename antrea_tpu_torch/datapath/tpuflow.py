@@ -21,6 +21,13 @@ fused=True and prune_budget > 0).  The step updates the state tensors in
 place; a bundle's attribution remap writes a new flow-meta tensor, so the
 commit plane's retained snapshot keeps the pre-remap rows.
 
+Under async_slowpath the step runs the fast path alone (phases=0) and
+admits its misses to the slow-path engine's queue (datapath/slowpath);
+drain_slowpath classifies them in coalesced batches through the bare
+pipeline step.  With overlap_commits a drain's outputs are read back by a
+deferred finalizer: the drain's state writes are in stream order before the
+next step's reads, which is the lost-update guard.
+
 Cached rule attribution follows rule IDENTITY across bundles
 (_remap_cached_attribution), as in the JAX engine.
 
@@ -41,7 +48,7 @@ import torch
 from ..apis.controlplane import GroupMember
 from ..apis.service import ServiceEntry
 from ..compiler import topology
-from ..compiler.compile import compile_policy_set
+from ..compiler.compile import ACT_ALLOW, ACT_DROP, compile_policy_set
 from ..compiler.ir import PolicySet
 from ..compiler.services import compile_services
 from ..compiler.topology import FWD_TUNNEL, Topology, compile_topology
@@ -50,6 +57,7 @@ from ..models import forwarding as fwd
 from ..models import pipeline as pl
 from ..observability.flightrec import emit_into
 from ..observability.metrics import Histogram
+from ..observability.telemetry import TelemetryPlane
 from ..ops import match
 from ..ops.match import (PRUNE_HIST_BOUNDS, DeltaTable, PruneAutotuner,
                          resolve_device, ruleset_from_numpy, to_host)
@@ -60,11 +68,10 @@ from .audit import AuditableDatapath
 from .commit import TransactionalDatapath
 from .interface import Datapath, DatapathStats, DatapathType, StepResult
 from .maintenance import MaintainableDatapath
+from .slowpath import ADMIT_HOLD
 from .tenancy import TenantedDatapath, TenantSpec
 
 # ROADMAP.md queue A items that take the knobs this slice refuses.
-ITEM_ASYNC = 3
-ITEM_KNOBS = 4
 ITEM_DUAL_STACK = 5
 ITEM_TENANCY = 6
 ITEM_PERSIST = 8
@@ -165,15 +172,6 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._device = resolve_device(device)
         gates = feature_gates or DEFAULT_GATES
         for what, on, item in (
-                ("async_slowpath", async_slowpath, ITEM_ASYNC),
-                ("autotune_drain", autotune_drain, ITEM_ASYNC),
-                ("overlap_commits", overlap_commits, ITEM_ASYNC),
-                ("miss_source_rate/_burst", miss_source_rate is not None
-                 or miss_source_burst is not None, ITEM_ASYNC),
-                ("second_chance", second_chance, ITEM_KNOBS),
-                ("telemetry", telemetry, ITEM_KNOBS),
-                ("the FlowExporter gate (per-flow counters)",
-                 gates.enabled("FlowExporter"), ITEM_KNOBS),
                 ("dual_stack", dual_stack, ITEM_DUAL_STACK),
                 ("serving_batcher", serving_batcher, ITEM_TENANCY),
                 ("persist_dir", persist_dir is not None, ITEM_PERSIST)):
@@ -210,10 +208,13 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._prune_retunes = 0
         self._prune_hist = Histogram(bounds=PRUNE_HIST_BOUNDS)
         self._gates = gates
-        self._flow_stats = False
+        # Per-entry traffic counters ride the FlowExporter gate.
+        self._flow_stats = gates.enabled("FlowExporter")
         self._dual_stack = False
-        self._init_slowpath(False, False, miss_queue_slots, admission,
-                            drain_batch)
+        self._init_slowpath(async_slowpath, dual_stack, miss_queue_slots,
+                            admission, drain_batch, autotune_drain,
+                            autotune_bounds, overlap_commits,
+                            miss_source_rate, miss_source_burst)
         self._node_ips = list(node_ips or [])
         self._node_name = node_name
         self._delta_slots = delta_slots
@@ -228,6 +229,8 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             # prune_budget > 0); off, the classify runs in plain torch on
             # the engine's device.
             fused=fused,
+            second_chance=second_chance,
+            telemetry=telemetry,
         )
         self._ps = ps if ps is not None else PolicySet()
         self._services = list(services or [])
@@ -252,6 +255,10 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._compile_services()
         self._compile_topology()
         self._init_observability(flightrec_slots, realization_slots)
+        # Before the maintenance scheduler, which registers the telemetry
+        # sentinel against it.
+        if telemetry:
+            self._telemetry = TelemetryPlane()
         self._init_commit_plane(canary_probes=canary_probes)
         self._init_audit_plane(audit_window=audit_window,
                                audit_divergence_trip=audit_divergence_trip)
@@ -321,6 +328,10 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             self._services = staged
             self._dsvc = staged_dsvc
         self._gen += 1
+        if self._slowpath is not None:
+            # The swap marks the cache epoch stale: the next drain's fused
+            # maintenance reclaims the stale denials' slots.
+            self._slowpath.mark_stale(self._gen)
         return self._gen
 
     def _remap_cached_attribution(self, old_in: list, old_out: list) -> None:
@@ -406,6 +417,8 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         elif rows:
             self._append_deltas(rows)
         self._gen += 1
+        if self._slowpath is not None:
+            self._slowpath.mark_stale(self._gen)
         return self._gen
 
     def install_topology(self, topo: Topology) -> None:
@@ -464,10 +477,18 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         try:
             return self._step(batch, now, valid=valid)
         finally:
-            self.step_hist.observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.step_hist.observe(dt)
+            if self._telemetry is not None:
+                # The same wall seconds into every (scope, regime) the
+                # batch classified under (_telemetry_account queued them).
+                self._telemetry.observe_step(dt)
 
     def _step(self, batch: PacketBatch, now: int, valid=None) -> StepResult:
         self._v4_only(batch)
+        # Byte lengths clamped once: a negative length never decrements a
+        # counter.
+        lens = np.maximum(batch.lens(), 0)
         state, out = fwd.pipeline_step_full(
             self._state,
             self._drs,
@@ -483,6 +504,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             int(self._gen),
             self._lane(batch.flags()),
             self._lane(batch.arp_ops()) if batch.arp_op is not None else None,
+            self._lane(lens) if self._flow_stats else None,
             meta=self._meta_step,
             valid=(None if valid is None
                    else torch.from_numpy(np.asarray(valid, bool)).to(
@@ -493,15 +515,31 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         o = self._to_host(out)
         self._evictions += int(o["n_evict"])
         self._prune_account(o)
-        lens = np.maximum(batch.lens(), 0)
+        pending = None
+        if self._async:
+            # The fast step's miss lanes into the bounded queue; their
+            # outputs carry the admission policy's provisional verdict
+            # until a drain classifies the flow (tenant worlds clamp the
+            # mask to the tenant's quota; no-ops on the default world).
+            pending = o["miss"]
+            admitted, dropped = self._slowpath.admit(
+                self._queue_cols(batch, batch.flags(), lens,
+                                 tenant=self._tenant_id()),
+                self._tenant_admit_mask(pending != 0), now)
+            self._tenant_note_admitted(admitted, dropped)
+        # After admission: sheds this batch caused classify it as
+        # attack-shed.
+        self._telemetry_account(o, batch.size)
         in_ids = self._cps.ingress.rule_ids
         out_ids = self._cps.egress.rule_ids
-        self._count_metrics(o, in_ids, out_ids, lens)
+        self._count_metrics(o, in_ids, out_ids, lens, pending=pending)
+        if self._deny is not None:
+            self._deny_verdicts(batch, o["code"], pending, now)
         unflip = iputil.unflip_u32_array
         return StepResult(
             code=o["code"],
             est=o["est"],
-            pending=None,
+            pending=pending,
             reply=o["reply"],
             reject_kind=o["reject_kind"],
             snat=o["snat"],
@@ -648,26 +686,177 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                    fallbacks_total=int(self._prune_fallbacks),
                    classified_total=int(self._prune_classified))
 
-    # -- refused planes --------------------------------------------------------
+    # -- async slow path (datapath/slowpath engine callbacks) ----------------
+    # drain_slowpath, dump_miss_queue and slowpath_stats live on the Datapath
+    # base; the classify and scan callbacks are the engine's.
+
+    def _drain_meta(self, chunk: int) -> pl.PipelineMeta:
+        """The drain step's meta for one coalesced chunk: one slow-path
+        round (miss_chunk == chunk) with the fused eviction and aging
+        commit pass (drain_reclaim).  A meta only: nothing compiles per
+        chunk."""
+        return self._meta._replace(miss_chunk=int(chunk), drain_reclaim=True)
 
     def _drain_classify(self, block: dict, now: int):
-        raise refuse("the async slow path's drain", ITEM_ASYNC)
+        """Classify and commit one popped queue block through the bare
+        pipeline step (one round at the engine's current chunk, padding
+        lanes masked out by `valid`) and publish the new cache state.
 
-    def _epoch_maintain(self, now: int):
-        raise refuse("the async slow path's epoch maintenance", ITEM_ASYNC)
+        With overlap_commits the read-back of the outputs (metrics, the
+        eviction counters) is returned as a deferred finalizer for the
+        engine's two-slot ring: the state was updated in place, in stream
+        order before whatever the next step enqueues, and nothing here
+        waits for the device.  The rule ids are captured at dispatch, so a
+        bundle that lands while the commit is staged does not remap what
+        this drain classified."""
+        split = self._tenant_drain_split(block)
+        if split is not None:
+            return self._tenant_drain_dispatch(split, now)
+        t0 = time.perf_counter()
+        # The scope of a deferred finalize is the world that classified it.
+        tel_tid = self._tenant_id() if self._telemetry is not None else 0
+        k = len(block["src_ip"])
+        D = self._slowpath.drain_batch
+        if k > D:
+            # An explicit begin_drain(n > drain_batch) popped a wider
+            # block: pad to the next power of two so every popped row
+            # classifies.
+            D = 1 << (k - 1).bit_length()
 
-    def _epoch_revalidate(self):
-        raise refuse("the async slow path's epoch revalidation", ITEM_ASYNC)
+        def pad(col, dtype=np.int32):
+            out = np.zeros(D, dtype)
+            out[:k] = np.asarray(col)[:k].astype(dtype)
+            return out
 
-    def _epoch_age_scan(self, now: int):
-        raise refuse("the async slow path's aging scan", ITEM_ASYNC)
+        src = pad(block["src_ip"], np.uint32)
+        dst = pad(block["dst_ip"], np.uint32)
+        proto = pad(block["proto"])
+        flags = pad(block["flags"])
+        lens = np.maximum(pad(block["lens"]), 0)
+        valid = np.arange(D) < k
+        # The full walk's commit gating: multicast misses classify but never
+        # cache, a FIN/RST TCP miss never establishes.
+        no_commit = pl.no_commit_mask(dst, proto, flags)
+        state, out = pl.pipeline_step(
+            self._state, self._drs, self._dsvc, self._flipped(src),
+            self._flipped(dst), self._lane(proto),
+            self._lane(pad(block["src_port"])),
+            self._lane(pad(block["dst_port"])), int(now), int(self._gen),
+            meta=self._drain_meta(D), valid=self._lane(valid, bool),
+            no_commit=self._lane(no_commit, bool), flags=self._lane(flags),
+            lens=self._lane(lens) if self._flow_stats else None)
+        self._state = state
+        self._state_mutations += 1
+        in_ids = self._cps.ingress.rule_ids
+        out_ids = self._cps.egress.rule_ids
+
+        def finalize():
+            o = self._to_host(out)
+            self._evictions += int(o["n_evict"])
+            self._reclaims += int(o["n_reclaim"])
+            self._prune_account(o)
+            # A queued packet's attribution counts once, here (its fast
+            # step's image was provisional and uncounted).
+            self._count_metrics(
+                {key: o[key][valid]
+                 for key in ("code", "ingress_rule", "egress_rule")},
+                in_ids, out_ids, lens[valid])
+            if self._telemetry is not None:
+                # A drain is its own dispatch: its counters and its
+                # dispatch-to-read-back seconds go to the "drain" regime.
+                self._telemetry.account(o)
+                dt = time.perf_counter() - t0
+                self._telemetry.observe_scoped("engine", "drain", dt)
+                if tel_tid:
+                    self._telemetry.observe_scoped(
+                        f"tenant:{tel_tid}", "drain", dt)
+
+        if self._overlap:
+            return finalize
+        finalize()
+        return None
+
+    def _epoch_maintain(self, now: int) -> tuple[int, int]:
+        """Aging and stale-generation revalidation in one pass."""
+        state, n_aged, n_stale = pl._maintain_scan(
+            self._state, int(now), int(self._gen),
+            timeouts=self._meta.timeouts)
+        self._state = state
+        self._state_mutations += 1
+        return int(n_aged), int(n_stale)
+
+    def _epoch_revalidate(self) -> int:
+        state, n = pl._revalidate_scan(self._state, int(self._gen))
+        self._state = state
+        self._state_mutations += 1
+        return int(n)
+
+    def _epoch_age_scan(self, now: int) -> int:
+        state, n = pl._age_scan(self._state, int(now),
+                                timeouts=self._meta.timeouts)
+        self._state = state
+        self._state_mutations += 1
+        return int(n)
+
+    # -- the phase profiler ----------------------------------------------------
 
     def profile(self, batch: PacketBatch, fresh: Optional[PacketBatch] = None,
-                **kw) -> dict:
-        raise refuse("Datapath.profile()", ITEM_KNOBS)
+                *, n_new: Optional[int] = None, now: int = 1000,
+                k_small: int = 2, k_big: int = 8, repeats: int = 2,
+                mode: str = "sync") -> dict:
+        """The churn loop's phase breakdown (models/profile.py): `batch` is
+        the warmed hot set, and each timed step replaces its last n_new
+        lanes with the next window of fresh flows from `fresh` (None: the
+        never-miss regime).  Every mode works on a copy of the state, so
+        the engine's observable state is unchanged.
 
-    def enable_deny_export(self, capacity: int = 4096):
-        raise refuse("the FlowExporter deny export", ITEM_KNOBS)
+        Modes: "sync" (PHASE_CHAIN), "async" (the fast step and the
+        coalesced drain, ASYNC_PHASE_CHAIN), "overlap" (the drain of window
+        i-1 beside the fast step of window i), "maintenance" (the async
+        cadence with the fused maintenance scan riding every step),
+        "prune" (a staged pruned instance, the classify split at the
+        aggregate gather), "fused" (a one-pass instance) and "telemetry"
+        (one instrumented step of the bare pipeline: its tel_* counters
+        by name)."""
+        from ..models import profile as prof
+
+        self._v4_only(batch)
+        if fresh is not None:
+            self._v4_only(fresh)
+
+        def cols(b):
+            return (self._flipped(b.src_ip), self._flipped(b.dst_ip),
+                    self._lane(b.proto), self._lane(b.src_port),
+                    self._lane(b.dst_port))
+
+        hot = cols(batch)
+        if mode == "telemetry":
+            _, out = pl.pipeline_step(
+                pl.clone_state(self._state), self._drs, self._dsvc, *hot,
+                int(now), int(self._gen),
+                meta=self._meta._replace(telemetry=True))
+            return {"mode": "telemetry", "batch": batch.size,
+                    "counters": {k[4:]: int(v) for k, v in out.items()
+                                 if k.startswith("tel_")}}
+        if mode == "prune" and self._meta.onepass:
+            raise ValueError(
+                "profile(mode='prune') attributes the staged pruned walk, "
+                "but this instance serves the one-pass step: use "
+                "mode='fused' (or construct with fused=False)")
+        fns = {"sync": prof.profile_churn,
+               "async": prof.profile_churn_async,
+               "overlap": prof.profile_churn_overlap,
+               "maintenance": prof.profile_churn_maintenance,
+               "prune": prof.profile_churn_prune,
+               "fused": prof.profile_churn_fused}
+        if mode not in fns:
+            raise ValueError(f"unknown profile mode {mode!r}")
+        pool = cols(fresh) if fresh is not None else None
+        return fns[mode](self._meta, self._state, self._drs, self._dsvc, hot,
+                         pool, n_new=n_new, now0=now, gen=self._gen,
+                         k_small=k_small, k_big=k_big, repeats=repeats)
+
+    # -- refused planes --------------------------------------------------------
 
     def tenant_create(self, name: str, ps: Optional[PolicySet] = None, **kw):
         raise refuse("tenant worlds (tenant_create)", ITEM_TENANCY)
@@ -981,8 +1170,13 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                 eff_dst = dnat_u
             spoofed = oracle_spoof(self._rt, p.src_ip, int(in_ports[i]))
             f = oracle_forward(self._rt, eff_dst, int(in_ports[i]))
+            # Is this 5-tuple in the miss queue, awaiting a drain?
+            queued = (self._slowpath is not None
+                      and self._slowpath.queue.contains(
+                          int(p.src_ip), int(p.dst_ip), int(batch.proto[i]),
+                          int(batch.src_port[i]), int(batch.dst_port[i])))
             out.append({
-                "queued": False,
+                "queued": queued,
                 "cache_hit": bool(o["cache_hit"][i]),
                 "est": bool(o["est"][i]),
                 "reply": bool(o["reply"][i]),
@@ -1073,8 +1267,21 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             # layer are both on.
             onepass=bool(self._pipe_kw["fused"]
                          and match_meta.prune_budget > 0),
+            count_flow_stats=self._flow_stats,
+            second_chance=bool(self._pipe_kw["second_chance"]),
+            telemetry=bool(self._pipe_kw["telemetry"]),
         )
-        self._meta_step = self._meta
+        # The async fast step masks the slow path out: misses keep the
+        # admission policy's provisional verdict (DROP under hold) and are
+        # classified by a drain (_drain_meta).
+        if self._async:
+            self._meta_step = self._meta._replace(
+                phases=0,
+                miss_code=(ACT_DROP
+                           if self._slowpath.admission == ADMIT_HOLD
+                           else ACT_ALLOW))
+        else:
+            self._meta_step = self._meta
         # The compile folded every prior delta.
         D = self._delta_slots
         self._n_deltas = 0

@@ -216,11 +216,10 @@ def pipeline_step_full(
     FIN/RST TCP lanes commit nothing).  hit_combine is the rule-axis seam
     (parallel/mesh.py).  arp_op lanes (0 = not ARP) touch no conntrack or
     policy state: answered requests for addresses this node owns reply out
-    the ingress port, every other ARP lane floods.  v6, lens (the flow
-    counters' lengths) and prune_exclude (the mesh engine's spill) are not
-    ported."""
-    _refuse(v6=v6 is not None, lens=lens is not None,
-            prune_exclude=prune_exclude is not None)
+    the ingress port, every other ARP lane floods.  lens are the lanes'
+    byte lengths for the flow counters (meta.count_flow_stats).  v6 and
+    prune_exclude (the mesh engine's spill) are not ported."""
+    _refuse(v6=v6 is not None, prune_exclude=prune_exclude is not None)
     spoof = spoof_lookup(dft, src_f, in_port)
     # IGMP membership traffic is punted to the controller, never forwarded:
     # kept out of the policy pipeline like spoofed lanes.
@@ -246,7 +245,7 @@ def pipeline_step_full(
     state, out = pl.pipeline_step(
         state, drs, dsvc, src_f, dst_f, proto, sport, dport, now, gen,
         meta=meta, flags=flags, hit_combine=hit_combine, valid=valid_l,
-        no_commit=no_commit_l)
+        no_commit=no_commit_l, lens=lens)
     code = torch.where(spoof, ACT_DROP, out["code"]).to(_I32)
     # Forward toward the DNAT-resolved endpoint, except reply-direction
     # hits (their dnat fields carry the source un-rewrite): a reply

@@ -50,8 +50,8 @@ from ..compiler.compile import ACT_ALLOW, ACT_REJECT, CompiledPolicySet
 from ..compiler.services import ServiceTables
 from ..ops import hashing, onepass
 from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
-                         _delta_matches, _patch_iso, _refuse, _resolve,
-                         classify_batch, delta_overlay, from_numpy,
+                         _delta_matches, _patch_agg, _patch_iso, _refuse,
+                         _resolve, classify_batch, delta_overlay, from_numpy,
                          resolve_device, rewalk_hits, ruleset_from_numpy,
                          shard_offsets, to_host)
 
@@ -70,6 +70,17 @@ PREF_MASK = (1 << 29) - 1
 CONF_BIT = 1 << 29
 DSR_BIT = 1 << 30
 
+# Second chance (PipelineMeta.second_chance): a 2-bit saturating collision
+# counter in meta3 bits 27-28.  A live, CONFIRMED established entry
+# survives a colliding insert while its counter is below CHANCE_MAX (the
+# challenger stays uncached), the counter bumps once per commit pass and
+# the entry's own next hit resets it.  With the knob on the partner-refresh
+# stamp narrows to bits 0-26.
+CHANCE_SHIFT = 27
+CHANCE_MAX = 3
+CHANCE_MASK = CHANCE_MAX << CHANCE_SHIFT
+PREF_MASK_CHANCE = (1 << CHANCE_SHIFT) - 1
+
 # REJECT synthesis kinds: TCP gets an RST, everything else an ICMP
 # port-unreachable.
 REJECT_NONE = 0
@@ -80,6 +91,25 @@ REJECT_ICMP_UNREACH = 2
 TCP_FIN = 0x01
 TCP_RST = 0x04
 _TEARDOWN_FLAGS = TCP_FIN | TCP_RST
+
+# tel_dma_hb counts the half-blocks the JAX package's one-pass kernel walks
+# for a batch (ops/match.py _FUSE_TB, _OP_HB there): its TPU schedule's DMA
+# granules, a constant of the batch shape, kept so that the counter equals
+# the JAX engine's.  It is not work done by B3's CUDA kernel.
+TEL_TILE = 128
+TEL_HALF_BLOCK = 64
+
+INT32_MIN = -(2**31)
+
+
+def no_commit_mask(dst, proto, flags, xp=np):
+    """Never-cacheable lanes of a v4 miss batch (host columns): multicast
+    destinations and FIN/RST-flagged TCP misses.  The drain's commit
+    gating, the host twin of the full walk's own."""
+    return ((xp.asarray(dst) >> 28) == 0xE) | (
+        (xp.asarray(proto) == PROTO_TCP)
+        & ((xp.asarray(flags) & _TEARDOWN_FLAGS) != 0)
+    )
 
 # Slow-path phase bits (PipelineMeta.phases).  Masking a phase substitutes
 # cheap defaults, so the profiler can attribute the step phase by phase, and
@@ -146,8 +176,9 @@ class FlowCache(NamedTuple):
         meta1 = code(2) | (svc_idx+1)(14) | dnat_port(16)
         rules = (rule_in+1)(16) | (rule_out+1)(16)
       ts (N+1,) int32: last-seen seconds
-      pkts/octets/pkts_hi/octets_hi (N+1,) int32: traffic counters, kept for
-        layout parity; this port does not count (count_flow_stats).
+      pkts/octets/pkts_hi/octets_hi (N+1,) int32: per-direction packet and
+        byte counters under PipelineMeta.count_flow_stats, each a 64-bit
+        count in two limbs (the low limb's u32 bits, then the carry).
     Row N is a write dump for masked scatters."""
 
     keys: torch.Tensor
@@ -228,6 +259,18 @@ class PipelineMeta(NamedTuple):
     # Active slots of drs.ip_delta (the engine's pending membership deltas,
     # a host int: the step never reads the count back from the device).
     delta_n: int = 0
+    # Per-entry packet and byte counters (FlowCache.pkts/octets, two int32
+    # limbs each): the engine's FlowExporter gate.
+    count_flow_stats: bool = False
+    # Thrash-resistant replacement (CHANCE_SHIFT above).
+    second_chance: bool = False
+    # Hot-path telemetry: the tel_* counter outputs.
+    telemetry: bool = False
+
+    @property
+    def pref_mask(self) -> int:
+        """The partner-refresh stamp's mask: second chance narrows it."""
+        return PREF_MASK_CHANCE if self.second_chance else PREF_MASK
 
     @property
     def timeouts(self) -> tuple[int, int, int, int]:
@@ -314,6 +357,66 @@ def _scatter_last(arr, slots, vals, mask, dump):
     dump row."""
     win = _winner_mask(arr.shape[0] - 1, slots, mask, dump)
     arr[torch.where(win, slots, dump)] = vals
+
+
+def _below_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b on the u32 reinterpretation of int32 words (torch's CPU uint32
+    has no <): flipping the sign bit maps u32 order onto int32 order."""
+    return (a ^ INT32_MIN) < (b ^ INT32_MIN)
+
+
+def _count_hits(flow: FlowCache, slot, hit, lens, dump):
+    """In place, under meta.count_flow_stats: every hit adds one packet and
+    its length (lens, (B,) or None for 0; negative lengths count 0) to its
+    entry's counters (pipeline.py:1033-1058).  The low limb adds with a
+    wrapping index_add_ (duplicate slots sum); a low limb whose u32 value
+    shrank wrapped exactly once, and one lane per slot carries it into the
+    high limb: exact while one entry takes < 2**32 bytes in one batch."""
+    ctgt = torch.where(hit, slot, dump)
+    cwin = _winner_mask(dump, slot, hit, dump)
+    ones = torch.ones_like(slot, dtype=_I32)
+    lv = torch.zeros_like(ones) if lens is None else lens.clamp_min(0)
+    for lo, hi, add in ((flow.pkts, flow.pkts_hi, ones),
+                        (flow.octets, flow.octets_hi, lv)):
+        old = lo[ctgt]
+        lo.index_add_(0, ctgt, add)
+        carried = _below_u32(lo[ctgt], old)
+        hi.index_add_(0, torch.where(cwin & carried, ctgt, dump), ones)
+
+
+def _second_chance_guard(flow: FlowCache, slot2, keys2, ins2, now: int,
+                         meta, dump):
+    """In place, under meta.second_chance (pipeline.py:499-553): inserts
+    whose target is a live, CONFIRMED, ETERNAL entry of another tuple with
+    its collision counter below CHANCE_MAX are suppressed (the challenger
+    stays uncached), and that entry's counter bumps once per commit pass.
+    As in the JAX package, the staged rounds run one pass per round.
+    -> (ins2 without the suppressed inserts, their count (int32) under
+    meta.telemetry, else None)."""
+    A = 2
+    ZC = _meta_cols(A)[3]
+    tgt2 = torch.where(ins2, slot2, dump)
+    okr = flow.keys[tgt2]
+    om3 = flow.meta[tgt2, ZC]
+    id3 = 0xFF | REPLY_BIT
+    tuple_differs = (
+        (okr[:, :A + 1] != keys2[:, :A + 1]).any(dim=1)
+        | ((okr[:, A + 1] & id3) != (keys2[:, A + 1] & id3)))
+    ogen = (okr[:, A + 1] >> 9) & GEN_ETERNAL
+    otmo = entry_timeout((om3 >> 29) & 1, okr[:, A + 1] & 0xFF,
+                         meta.timeouts)
+    protected = (
+        ins2 & (okr[:, A + 1] != 0) & tuple_differs
+        & (ogen == GEN_ETERNAL) & (((om3 >> 29) & 1) != 0)
+        & ((now - flow.ts[tgt2]) <= otmo)
+        & (((om3 >> CHANCE_SHIFT) & CHANCE_MAX) < CHANCE_MAX))
+    n_protected = (protected.sum(dtype=_I32) if meta.telemetry else None)
+    win = _winner_mask(dump, slot2, protected, dump)
+    bt = torch.where(win, slot2, dump)
+    cur = flow.meta[bt, ZC]
+    newc = (((cur >> CHANCE_SHIFT) & CHANCE_MAX) + 1).clamp_max(CHANCE_MAX)
+    flow.meta[bt, ZC] = (cur & ~CHANCE_MASK) | (newc << CHANCE_SHIFT)
+    return ins2 & ~protected, n_protected
 
 
 def _pack_meta1(code, svc_idx, dnat_port):
@@ -418,13 +521,13 @@ def make_pipeline(
     kernel's plain version.  prune_budget > 0 builds the aggregate tables:
     misses then classify through the pruned walk, and fused=True upgrades
     the slow path to the one-pass kernel unless onepass=False pins the
-    staged rounds (onepass=True demands it).  dual_stack, count_flow_stats,
-    second_chance and telemetry are not ported: they raise
-    NotImplementedError.
+    staged rounds (onepass=True demands it).  count_flow_stats,
+    second_chance and telemetry set the PipelineMeta knobs of the same
+    names (step then takes lens, the lanes' byte lengths, for the
+    counters).  dual_stack is not ported: it raises NotImplementedError.
     """
     dev = resolve_device(device)
-    _refuse(dual_stack=dual_stack, count_flow_stats=count_flow_stats,
-            second_chance=second_chance, telemetry=telemetry)
+    _refuse(dual_stack=dual_stack)
     check_rule_capacity(cps)
     drs_np, match_meta = to_host(cps, prune_budget=prune_budget)
     drs = ruleset_from_numpy(drs_np, dev)
@@ -441,13 +544,17 @@ def make_pipeline(
         fused=fused,
         onepass=(bool(fused and prune_budget > 0) if onepass is None
                  else bool(onepass)),
+        count_flow_stats=count_flow_stats,
+        second_chance=second_chance,
+        telemetry=telemetry,
     )
     state = init_state(flow_slots, aff_slots, device=dev)
 
     def step(state, drs, dsvc, src_f, dst_f, proto, sport, dport, now, gen,
-             flags=None):
+             flags=None, lens=None):
         return pipeline_step(state, drs, dsvc, src_f, dst_f, proto, sport,
-                             dport, now, gen, meta=meta, flags=flags)
+                             dport, now, gen, meta=meta, flags=flags,
+                             lens=lens)
 
     step.meta = meta
     return step, state, (drs, dsvc)
@@ -590,6 +697,7 @@ def pipeline_step(
     valid=None,
     no_commit=None,
     v6=None,
+    lens=None,
 ):
     """One step, synchronous at meta.phases == PH_ALL; see the module
     docstring and PH_*.
@@ -600,7 +708,12 @@ def pipeline_step(
     classify but write no cache entry and report committed 0.  hit_combine
     is the rule-axis seam (ops/match.classify_batch; parallel/mesh.py): the
     tables are then one rule shard's, the one-pass slow path runs B3's
-    hits-only variant and resolves after the combine.  v6 is not ported."""
+    hits-only variant and resolves after the combine.  lens ((B,) byte
+    lengths, None for 0) feeds the counters of meta.count_flow_stats.
+    meta.telemetry adds the tel_* outputs: the probe split of the valid
+    lanes (hit, stale: the key matched but the entry aged out, miss), the
+    one-pass dispatch's TEL_HALF_BLOCK count, and the inserts second chance
+    suppressed.  v6 is not ported."""
     _refuse(v6=v6 is not None)
     if meta.onepass and meta.match.prune_budget <= 0:
         raise ValueError(
@@ -636,19 +749,38 @@ def pipeline_step(
         hit, est, rpl = hit & valid, est & valid, rpl & valid
     if no_commit is not None:
         no_commit = no_commit != 0
+    tel = None
+    if meta.telemetry:
+        # The probe split, from the key rows the probe gathered: stale is
+        # a key match whose entry aged out; generation-stale denials count
+        # as misses.  Valid lanes only.
+        tv = torch.ones_like(hit) if valid is None else valid
+        kpg0 = kr0[:, A + 1]
+        key_hit0 = ((kr0[:, :A] == addr).all(dim=1) & (kr0[:, A] == pp)
+                    & ((kpg0 == pg_cur) | (kpg0 == pg_est)
+                       | (kpg0 == (pg_est | REPLY_BIT))))
+        tel = {"tel_probe_hit": (hit & tv).sum(dtype=_I32),
+               "tel_probe_stale": (key_hit0 & ~hit & tv).sum(dtype=_I32),
+               "tel_probe_miss": (~key_hit0 & tv).sum(dtype=_I32)}
     c_code, c_svc, c_dport = _unpack_meta1(mr[:, M1C])
     c_dnat_ip = mr[:, DC]
     c_rule_in, c_rule_out = _unpack_rules(mr[:, RC])
 
     # Idle-timeout refresh for hits (every duplicate writes the same value).
     flow.ts[torch.where(hit, slot, dump)] = now
+    if meta.second_chance:
+        # A hit is the entry's reference: its collision counter resets.
+        tgt_h = torch.where(hit, slot, dump)
+        flow.meta[tgt_h, ZC] = flow.meta[tgt_h, ZC] & ~CHANCE_MASK
+    if meta.count_flow_stats:
+        _count_hits(flow, slot, hit, lens, dump)
 
     # Deferred partner refresh: conntrack refreshes both directions, so an
     # established hit whose partner stamp is older than ct_timeout/2 walks
     # to its partner entry (recomputed from the cached DNAT meta and
     # key-verified) and refreshes it.
     p_half = max(1, meta.ct_timeout_s // 2)
-    pmask = PREF_MASK
+    pmask = meta.pref_mask
     c_pref = mr[:, ZC] & pmask
     p_need = est & (((now - c_pref) & pmask) >= p_half)
     # SYN_SENT -> ESTABLISHED on the first reply-direction hit.
@@ -688,9 +820,12 @@ def pipeline_step(
         p_slot, p_live = partner_probe(flow.keys, p_need)
         flow.ts[torch.where(p_live, p_slot, dump)] = now
         # Attempt-time stamp even when the partner is gone; the cached
-        # snat/dsr/conf bits are preserved.
-        flow.meta[torch.where(p_need, slot, dump), ZC] = (
-            (now & pmask) | (mr[:, ZC] & ~pmask))
+        # snat/dsr/conf bits are preserved.  Under second chance they are
+        # read from the current meta: the hit's reset above cleared the
+        # counter, which the start-of-batch row still holds.
+        tgt_p = torch.where(p_need, slot, dump)
+        keep = flow.meta[tgt_p, ZC] if meta.second_chance else mr[:, ZC]
+        flow.meta[tgt_p, ZC] = (now & pmask) | (keep & ~pmask)
 
     if any_c:
         # OR into the CURRENT meta (the refresh above may have stamped it).
@@ -729,17 +864,21 @@ def pipeline_step(
     # candidate-superblock histogram (_prune_bucket_counts layout).
     prune = (zero[0], zero[0],
              torch.zeros(len(PRUNE_HIST_BOUNDS) + 2, dtype=_I32, device=dev))
+    # Second chance's suppressed inserts (meta.telemetry).
+    n_chance = zero[0]
 
     # ---- slow path: ServiceLB + classify + commit, misses only ----
     # With PH_SLOW masked (the async fast step) misses keep the fast-path
     # image and nothing commits.
     slow = n_miss > 0 and bool(meta.phases & PH_SLOW)
     if slow and meta.onepass:
-        fresh, n_evict, n_reclaim, prune = _slow_onepass(
+        fresh, n_evict, n_reclaim, prune, sc = _slow_onepass(
             state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h, slot,
             miss, mr, kr0, ts0, now, gen_w, meta, valid, no_commit,
-            hit_combine)
+            hit_combine, lens)
         img[:B] = torch.where(miss[:, None], fresh, img[:B])
+        if sc is not None:
+            n_chance = n_chance + sc
     elif slow:
         rounds = -(-n_miss // M)
         # Affinity lookups see the start-of-batch table in every round;
@@ -807,9 +946,14 @@ def pipeline_step(
                 [code, rule_in, rule_out, svc_idx, dnat_ip, dnat_port,
                  snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
             if meta.phases & PH_COMMIT:
-                ev, rc = _commit(state, slot[safe], rows, learn,
-                                 learn["mask"] & valid_m, now, gen_w, meta)
+                lv = (lens[safe] if meta.count_flow_stats
+                      and lens is not None else None)
+                ev, rc, sc = _commit(state, slot[safe], rows, learn,
+                                     learn["mask"] & valid_m, now, gen_w,
+                                     meta, lv)
                 n_evict, n_reclaim = n_evict + ev, n_reclaim + rc
+                if sc is not None:
+                    n_chance = n_chance + sc
 
     cols = img[:B].t().contiguous()
     out = {
@@ -839,20 +983,33 @@ def pipeline_step(
     if prune_on:
         # Keys exist iff prune_budget > 0, as in the JAX step.
         out["n_prune_skips"], out["n_prune_fb"], out["prune_cand_hist"] = prune
+    if tel is not None:
+        # Keys exist iff meta.telemetry.  The one-pass dispatch counts the
+        # JAX kernel's half-blocks of the padded batch (TEL_TILE).
+        hb = ((B + (-B) % TEL_TILE) // TEL_HALF_BLOCK
+              if slow and meta.onepass and meta.phases & PH_CLS else 0)
+        out.update(tel, tel_dma_hb=torch.tensor(hb, dtype=_I32, device=dev),
+                   tel_chance_bumps=n_chance)
     return state, out
 
 
-def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta):
+def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
+            lv=None):
     """In place: commit a set of lanes' forward and reply rows
     (_fused_pack_rows output) interleaved per lane [fwd_i, rev_i], so
     last-writer-wins resolves collisions in per-lane insert order, and
-    their affinity learns.  Under PH_EVICT the eviction census (an insert
-    over a live entry whose tuple differs; a same-tuple rewrite is an
-    update) reads each target's key row, and under meta.drain_reclaim also
-    its CONFIRMED bit and ts, before the scatters.  An overwritten row that
-    is already dead to lookups (idle past its per-state timeout, or a
-    denial of another generation) counts as a reclaim, not an eviction.
-    -> (evictions, reclaims), int32 scalars."""
+    their affinity learns.  Under meta.second_chance the guard first drops
+    the inserts that would evict a protected entry.  Under PH_EVICT the
+    eviction census (an insert over a live entry whose tuple differs; a
+    same-tuple rewrite is an update) reads each target's key row, and under
+    meta.drain_reclaim also its CONFIRMED bit and ts, before the scatters.
+    An overwritten row that is already dead to lookups (idle past its
+    per-state timeout, or a denial of another generation) counts as a
+    reclaim, not an eviction.  Under meta.count_flow_stats a forward entry
+    starts at one packet of its lane's length (lv, None for 0), a reply
+    entry at zero, and both high limbs at zero.
+    -> (evictions, reclaims, the guard's suppressed inserts or None),
+    int32 scalars."""
     flow, aff = state.flow, state.aff
     dump = meta.flow_slots
     A = 2
@@ -862,6 +1019,10 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta):
     keys2 = rows["keys8"].reshape(2 * m, 4)
     meta2 = rows["meta8"].reshape(2 * m, 4)
     ins2 = torch.stack([rows["ins"], rows["rev_ins"]], dim=1).reshape(2 * m)
+    n_chance = None
+    if meta.second_chance:
+        ins2, n_chance = _second_chance_guard(flow, slot2, keys2, ins2, now,
+                                              meta, dump)
 
     n_evict = n_reclaim = torch.zeros((), dtype=_I32, device=slot.device)
     if meta.phases & PH_EVICT:
@@ -883,6 +1044,15 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta):
             overwrote = overwrote & ~dead
         n_evict = overwrote.sum(dtype=_I32)
 
+    if meta.count_flow_stats:
+        z = torch.zeros(m, dtype=_I32, device=slot.device)
+        lv = z if lv is None else lv.clamp_min(0)
+        win = _winner_mask(dump, slot2, ins2, dump)
+        tgt = torch.where(win, slot2, dump)
+        flow.pkts[tgt] = torch.stack([torch.ones_like(z), z], 1).reshape(-1)
+        flow.octets[tgt] = torch.stack([lv, z], 1).reshape(-1)
+        flow.pkts_hi[tgt] = 0
+        flow.octets_hi[tgt] = 0
     _scatter_last(flow.keys, slot2, keys2, ins2, dump)
     _scatter_last(flow.meta, slot2, meta2, ins2, dump)
     _scatter_last(flow.ts, slot2, torch.full((2 * m,), now, dtype=_I32,
@@ -895,7 +1065,7 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta):
     _scatter_last(aff.ts, learn["aslot"],
                   torch.full((m,), now, dtype=_I32, device=slot.device),
                   learn_mask, adump)
-    return n_evict, n_reclaim
+    return n_evict, n_reclaim, n_chance
 
 
 def _onepass_probes(drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port,
@@ -943,7 +1113,7 @@ def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     st = onepass.OnepassStatic(
         k=mm.prune_budget, in_phases=mm.in_phases, out_phases=mm.out_phases,
         svcref=mm.svcref, timeouts=meta.timeouts, n_slots=meta.flow_slots,
-        pref_mask=PREF_MASK)
+        pref_mask=meta.pref_mask)
     return x, tabs, st, learn
 
 
@@ -960,7 +1130,7 @@ def _fresh_code(drs, hits6, iso_in, iso_out, no_ep):
 
 def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
                   slot, miss, mr, kr0, ts0, now, gen_w, meta, valid=None,
-                  no_commit=None, hit_combine=None):
+                  no_commit=None, hit_combine=None, lens=None):
     """The one-pass slow path (pipeline.py:1638-2071).  Under PH_CLS: B3
     over the whole batch, the full-width re-walk of its fallback lanes
     (through B1) and the prune counters.  On one card B3 runs its resolve
@@ -973,7 +1143,8 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     neither bit every lane default-allows.  Then, under PH_COMMIT, one
     interleaved commit of every lane's rows.
     -> (the miss lanes' images (B, 9), evictions, reclaims, (skips,
-    fallbacks, candidate histogram))."""
+    fallbacks, candidate histogram), second chance's suppressed inserts or
+    None)."""
     mm = meta.match
     N = meta.flow_slots
     lb = _lb_phase(meta, state.aff, dsvc, h, src_f, dst_f, proto, dport, now)
@@ -1023,7 +1194,7 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
             fix = _fused_pack_rows(
                 *pkt[:, :6].unbind(1), f_code, lb_f[:, 0], lb_f[:, 2],
                 lb_f[:, 3], lb_f[:, 4], lb_f[:, 5], f_ri, f_ro, miss[fb],
-                nc[fb], now, gen_w, N, PREF_MASK)
+                nc[fb], now, gen_w, N, meta.pref_mask)
             main[fb, 0] = f_code
             main[fb, 1] = f_ri
             main[fb, 2] = f_ro
@@ -1062,13 +1233,19 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     elif meta.phases & PH_CLS_SUM:
         # The aggregate AND and short circuit only, over the miss lanes:
         # live lanes take the default-verdict image.
-        if dn > 0:
-            # A profiling chain only; the engine's profile() is item 4.
-            raise NotImplementedError(
-                "the one-pass PH_CLS_SUM chain with pending deltas is not "
-                "ported yet (ROADMAP.md queue A item 4)")
         _, _, aggs, iso_in, iso_out = _onepass_probes(
             drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port, miss, meta)
+        if dn > 0:
+            # Pending deltas patch the isolation bits and the aggregate
+            # rows (pipeline.py:1700-1711).
+            d = drs.ip_delta
+            iso_in = _patch_iso(iso_in, dnat_ip, d, 0, dn)
+            iso_out = _patch_iso(iso_out, src_f, d, 1, dn)
+            aggs = list(aggs)
+            for i, key, masks in ((0, dnat_ip, d.at_in), (1, src_f, d.peer_in),
+                                  (3, src_f, d.at_out),
+                                  (4, dnat_ip, d.peer_out)):
+                aggs[i] = _patch_agg(aggs[i], key, d, masks, dn)
         ncs = [torch.where(miss, ((a & p & s) != 0).sum(dim=1, dtype=_I32), 0)
                for a, p, s in (aggs[:3], aggs[3:])]
         cand = torch.maximum(ncs[0], ncs[1])
@@ -1088,7 +1265,7 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
         rows = _fused_pack_rows(
             src_f, dst_f, proto, sport, dport, pp, f_code, svc_idx, dnat_ip,
             dnat_port, snat_m, dsr_m, f_ri, f_ro, miss, nc, now, gen_w, N,
-            PREF_MASK)
+            meta.pref_mask)
         fresh = torch.stack([f_code, f_ri, f_ro, svc_idx, dnat_ip, dnat_port,
                              snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
     if meta.phases & (PH_CLS | PH_CLS_SUM):
@@ -1100,10 +1277,12 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
                                          dtype=_I32, device=zero.device))
 
     n_evict = n_reclaim = zero
+    sc = None
     if meta.phases & PH_COMMIT:
-        n_evict, n_reclaim = _commit(state, slot, rows, learn,
-                                     learn["mask"] & miss, now, gen_w, meta)
-    return fresh, n_evict, n_reclaim, prune
+        n_evict, n_reclaim, sc = _commit(
+            state, slot, rows, learn, learn["mask"] & miss, now, gen_w, meta,
+            lens if meta.count_flow_stats else None)
+    return fresh, n_evict, n_reclaim, prune, sc
 
 
 def _delta_fixup(drs, tabs, iv, aux, delta_fb, miss, src_f, dnat_ip, n: int,

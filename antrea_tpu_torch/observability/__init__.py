@@ -1,6 +1,6 @@
 """Observability plane of the PyTorch port: the metrics surface, the
-flight-recorder event journal, realization tracing and the telemetry
-accumulator (copies of the JAX package's modules)."""
+flight-recorder event journal, realization tracing, the telemetry
+accumulator and flow export (copies of the JAX package's modules)."""
 
 from .flightrec import EVENT_KINDS, FlightRecorder
 from .metrics import METRICS, Histogram, render_metrics

@@ -84,6 +84,39 @@ package is missing, or when any phase fails.  Phases, in order:
      post-delta PolicySet (the full recompile), 4096 more such flows
      bitwise equal to the port's engine on the CPU, and B1, B3 and
      (through the pruned canary) B2 launched in the phase.
+ 14. the async engine and the step knobs, one engine at a time:
+     (a) bench.py's attack-floor engine (bench.py:1236-1246: flow_slots
+     2**18, async, admission="drop", miss_source_rate=4.0 and burst 16,
+     second_chance, canary_probes=8), one-pass and then staged (fused):
+     4 rounds of a 4096-lane SYN flood (gen_syn_flood over 256 pod
+     targets), each a step and a drain_slowpath, the last also a
+     maintenance tick, bitwise equal to the same engine on the CPU
+     (results, the tick, drains, the queue and admission counters, the
+     tables); then 1 warm and 3 timed rounds of 2**17 lanes, each a step,
+     a tick and a drain (bench.py runs 2 and 64: cut for time, a tick
+     costing seconds), packets/s, ms per step, tick and drain, and
+     slowpath_stats(); B1 (staged) or B3 (one-pass) launches in the
+     drains, nothing in the fast steps.  The tick has no drain task, so
+     bench.py's cadence never drains; each round adds the drain an agent
+     runs beside its ticks.  (b) the churn cadence through the engine
+     (admission="forward", drain_batch=2**14, the headline traffic with
+     its last B/8 lanes fresh each round), 8 rounds each of
+     overlap_commits off, on, and autotune_drain (one-pass; staged: the
+     overlapped variant alone, cut for time): ms per fast step, drain and
+     round; then the last round's lanes re-stepped: every settled lane at
+     the same endpoint has the verdict and rule ids of a synchronous
+     engine stepped on the same batches.
+     (c) a one-pass engine with telemetry, the FlowExporter gate and
+     second chance, 4096 fresh flows (lengths near 2**31) cold, warm,
+     warm and past the idle timeout, on the card and on the CPU: every
+     result, telemetry counter and table (counters included) bitwise
+     equal, and the forward entries' packets and bytes those stepped.
+     (d) B3 at second chance's stamp mask against its plain version on
+     the headline batch, all-miss and warm, beside phase 3 and 5's
+     times; then the one-pass steady step at 2**22 slots with each knob
+     on against all off.  (e) profile() in sync and async mode on (c)'s
+     engine: the chain's phases, summing to the total, cache_stats()
+     unchanged.
 
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
@@ -1583,6 +1616,468 @@ def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, **knobs):
     return rec, launches, ref
 
 
+# ---- phase 14: the async engine and the step knobs --------------------------
+# bench.py's attack-floor engine (bench.py:1236-1246), built fused; its flood
+# over FLOOD_TARGETS pod targets, warmed FLOOD_WARM rounds and timed
+# FLOOD_ROUNDS (bench.py runs 2 and 64: cut for the script's time, each
+# round's tick costing seconds); the flood's CROSS_LANES-lane rounds held
+# against the CPU engine; the churn cadence's drain batch and rounds; a
+# time past every idle timeout; and the stamp second chance narrows, past
+# 2**27 so that the narrowed stamp differs.
+FLOOD_KW = dict(flow_slots=1 << 18, aff_slots=1 << 8, async_slowpath=True,
+                miss_queue_slots=1 << 14, drain_batch=256, admission="drop",
+                miss_source_rate=4.0, miss_source_burst=16,
+                second_chance=True, canary_probes=8, flightrec_slots=256,
+                realization_slots=0)
+FLOOD_TARGETS = 256
+FLOOD_WARM = 1
+FLOOD_ROUNDS = 3
+FLOOD_CROSS_ROUNDS = 4
+CHURN_DRAIN = 1 << 14
+CHURN_ROUNDS = 8
+# The churn variants of each mode (the staged walk runs the overlapped one
+# alone: the variants' host logic is the mode's, and each costs an engine
+# build of 5-8 s).
+CHURN_VARIANTS = {"one-pass": ("overlap off", "overlap on", "autotune"),
+                  "staged fused": ("overlap on",)}
+IDLE_NOW = 102 + 3600 + 1
+CHANCE_NOW = (1 << 28) + 100
+MODES14 = (("one-pass", dict(fused=True, prune_budget=PRUNE_K)),
+           ("staged fused", dict(fused=True)))
+FLOOD_FIELDS = ("code", "est", "pending", "reject_kind", "svc_idx",
+                "dnat_ip", "dnat_port", "committed", "fwd_kind", "out_port")
+
+
+def same_engines(a, b, what):
+    """Engine a (the card) against engine b (the CPU): slowpath_stats(),
+    cache_stats(), the rule counters, telemetry_stats()' counters and the
+    flow-cache and affinity tables (the dump row excluded), bitwise."""
+    import torch
+
+    sa, sb = a.slowpath_stats(), b.slowpath_stats()
+    if sa is not None:
+        ha, hb = sa.pop("drain_hist"), sb.pop("drain_hist")
+        if sa != sb or ha._counts != hb._counts:
+            raise SystemExit(f"{what}: slowpath_stats differ: {sa} / {sb}")
+    for name in ("cache_stats", "stats"):
+        if getattr(a, name)() != getattr(b, name)():
+            raise SystemExit(f"{what}: {name}() differs")
+    ta, tb = a.telemetry_stats(), b.telemetry_stats()
+    if (ta is None) != (tb is None) or (
+            ta is not None and ta["counters"] != tb["counters"]):
+        raise SystemExit(f"{what}: telemetry counters differ")
+    for part in ("flow", "aff"):
+        for f, x, y in zip(getattr(a._state, part)._fields,
+                           getattr(a._state, part), getattr(b._state, part)):
+            if not torch.equal(x[:-1].cpu(), y[:-1]):
+                raise SystemExit(f"{what}: {part}.{f} differs")
+
+
+def timed(fn):
+    """fn() between two synchronizes -> (its result, seconds, the (B1, B2,
+    B3) launches it made)."""
+    import torch
+
+    c0 = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return r, s, tuple(x - y for x, y in zip(counts(), c0))
+
+
+def flood_round(eng, targets, n, seq, now, tick=True):
+    """The attack-floor cadence, one round: the fast step over n SYN-flood
+    lanes, a maintenance tick (unless not `tick`), and one drain_slowpath
+    (the tick has no drain task: maintenance.py registers the cache scan,
+    not a drain, so bench.py's cadence never drains; an agent drains beside
+    its ticks).  -> (step result, tick, drain stats, seconds and launches
+    of each)."""
+    from antrea_tpu_torch.simulator.traffic import gen_syn_flood
+
+    b = gen_syn_flood(targets, n, start_seq=seq, seed=5)
+    r, s0, l0 = timed(lambda: eng.step(b, now))
+    tick, s1, l1 = timed(lambda: eng.maintenance_tick(now=now) if tick
+                         else None)
+    drain, s2, l2 = timed(lambda: eng.drain_slowpath(now))
+    return r, tick, drain, (s0, s1, s2), (l0, l1, l2)
+
+
+def drive_flood(ps, services, pod_ips, dev, what, knobs):
+    """Phase 14a for one mode: bench.py's attack-floor engine, first
+    FLOOD_CROSS_ROUNDS rounds of CROSS_LANES flood lanes beside the same
+    engine on the CPU (every result and drain, the last round's tick, then
+    every counter and the tables, bitwise), then FLOOD_WARM + FLOOD_ROUNDS
+    rounds of B lanes, timed, with the launch counts set to 0 just before
+    the B-lane rounds and read just after.  -> record."""
+    import gc
+
+    import torch
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+
+    kw = dict(FLOOD_KW, **knobs)
+    t0 = time.perf_counter()
+    eng = TpuflowDatapath(world_copy(ps), services, device=dev, **kw)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = TpuflowDatapath(world_copy(ps), services, device="cpu", **kw)
+    cpu_build_s = time.perf_counter() - t0
+    targets = list(pod_ips[:FLOOD_TARGETS])
+    seq, now = 0, 100
+    for r in range(FLOOD_CROSS_ROUNDS):
+        # The last round's tick alone: a tick costs seconds (the canary).
+        tick = r == FLOOD_CROSS_ROUNDS - 1
+        a = flood_round(eng, targets, CROSS_LANES, seq, now, tick)
+        c = flood_round(cpu, targets, CROSS_LANES, seq, now, tick)
+        same_result(a[0], c[0], f"flood {what} round {r}", FLOOD_FIELDS)
+        if (tick and a[1]["ran"] != c[1]["ran"]) or a[2] != c[2]:
+            raise SystemExit(f"flood {what} round {r}: tick or drain "
+                             f"differs: {a[1:3]} / {c[1:3]}")
+        seq, now = seq + CROSS_LANES, now + 1
+    same_engines(eng, cpu, f"flood {what}, {CROSS_LANES} lanes")
+    st0 = eng.slowpath_stats()
+    log(f"flood {what}: {FLOOD_CROSS_ROUNDS} rounds of {CROSS_LANES} lanes "
+        f"bitwise equal to the CPU engine (built in {cpu_build_s:.1f} s; "
+        f"results, the tick, drains, queue and admission counters, the "
+        f"{kw['flow_slots']}-slot tables): "
+        f"admitted {st0['admitted_total']}, source-limited "
+        f"{st0['source_limited_total']}, drained {st0['drained_total']}")
+    del cpu
+    gc.collect()
+    reset_counts()
+    secs, parts = [], []
+    for r in range(FLOOD_WARM + FLOOD_ROUNDS):
+        res, _, _, s, lc = flood_round(eng, targets, B, seq, now)
+        if res.n_miss != B or int(res.pending.sum()) != B:
+            raise SystemExit(f"flood {what}: {res.n_miss} misses, "
+                             f"{int(res.pending.sum())} pending of {B}")
+        if r >= FLOOD_WARM:
+            secs.append(s)
+        parts.append(lc)
+        seq, now = seq + B, now + 1
+    launches = counts()
+    fast = tuple(sum(p[0][k] for p in parts) for k in range(3))
+    tick = tuple(sum(p[1][k] for p in parts) for k in range(3))
+    drain = tuple(sum(p[2][k] for p in parts) for k in range(3))
+    onepass = bool(knobs.get("prune_budget"))
+    if fast != (0, 0, 0) or drain[2 if onepass else 0] == 0 or (
+            onepass and drain[1]) or (not onepass and drain[1:] != (0, 0)):
+        raise SystemExit(f"flood {what}: (B1, B2, B3) launches in the fast "
+                         f"steps {fast}, ticks {tick}, drains {drain}")
+    st = eng.slowpath_stats()
+    total = sum(sum(s) for s in secs)
+
+    def med(k):
+        return sorted(s[k] for s in secs)[len(secs) // 2] * 1e3
+
+    rec = dict(build_s=build_s, pps=FLOOD_ROUNDS * B / total,
+               pps_step_tick=FLOOD_ROUNDS * B / sum(s[0] + s[1]
+                                                     for s in secs),
+               step_ms=med(0), tick_ms=med(1), drain_ms=med(2),
+               launches=list(launches), launches_fast=list(fast),
+               launches_tick=list(tick), launches_drain=list(drain),
+               **{k: st[k] for k in ("admitted_total", "early_drops_total",
+                                     "source_limited_total",
+                                     "overflows_total", "drained_total",
+                                     "depth")})
+    log(f"flood {what}: engine built in {build_s:.1f} s; "
+        f"{FLOOD_ROUNDS} rounds of {B} SYN-flood lanes after {FLOOD_WARM} "
+        f"warm: {rec['pps'] / 1e6:.3f} M packets/s over step + tick + "
+        f"drain ({rec['pps_step_tick'] / 1e6:.3f} M over step + tick, "
+        f"bench.py's cadence); median ms: fast step {rec['step_ms']:.2f}, "
+        f"tick {rec['tick_ms']:.2f}, drain {rec['drain_ms']:.2f}; "
+        f"slowpath_stats: admitted {st['admitted_total']}, early drops "
+        f"{st['early_drops_total']}, source-limited "
+        f"{st['source_limited_total']}, overflows {st['overflows_total']}, "
+        f"drained {st['drained_total']}, depth {st['depth']}; (B1, B2, B3) "
+        f"launches: fast steps {fast}, ticks {tick}, drains {drain}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def churn_batch(tr, pool_tr, pod_ips, r):
+    """The headline traffic with its last B/8 lanes replaced by window r of
+    the fresh-flow pool (phase 8's shape, as a PacketBatch)."""
+    import numpy as np
+
+    k = B - N_NEW
+    sl = slice(r * N_NEW, (r + 1) * N_NEW)
+    cols = [np.concatenate([getattr(tr, f)[:k], getattr(pool_tr, f)[sl]])
+            for f in ("src_ip", "dst_ip", "proto", "src_port", "dst_port")]
+    return engine_batch(*cols, pod_ips)
+
+
+def churn_reference(ps, services, pod_ips, tr, pool_tr, dev):
+    """Phase 14b's synchronous engine (one-pass; the staged walk's verdicts
+    are the same), stepped on the CHURN_ROUNDS churn batches, then on the
+    last one again -> that step's result."""
+    import gc
+
+    import torch
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+
+    sync = TpuflowDatapath(world_copy(ps), services, device=dev,
+                           **churn_kw(pod_ips, MODES14[0][1]))
+    for r in range(CHURN_ROUNDS):
+        sync.step(churn_batch(tr, pool_tr, pod_ips, r), 100 + r)
+    want = sync.step(churn_batch(tr, pool_tr, pod_ips, CHURN_ROUNDS - 1),
+                     100 + CHURN_ROUNDS)
+    del sync
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def churn_kw(pod_ips, knobs):
+    return dict(flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK, canary_probes=0,
+                topology=node0_spec(pod_ips), **knobs)
+
+
+def drive_churn(ps, services, pod_ips, tr, pool_tr, dev, what, knobs, want,
+                variants):
+    """Phase 14b for one mode: the churn cadence through the engine
+    (admission="forward", drain_batch=CHURN_DRAIN), for each of `variants`
+    (of overlap_commits off, on, and autotune_drain) CHURN_ROUNDS rounds of
+    a step and a drain_slowpath; then a re-step of the last round's lanes
+    against `want`, the synchronous engine's result on them: every lane
+    the async engine does not hold pending and that reached the same
+    endpoint has the synchronous verdict and rule ids.  (Session affinity
+    learns a client's endpoint from its first classified flow, and the
+    drains classify in queue order, not lane order, so an affinity
+    service's client may reach another endpoint.)  -> record."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+
+    last = churn_batch(tr, pool_tr, pod_ips, CHURN_ROUNDS - 1)
+    rec = {}
+    for name in variants:
+        extra = {"overlap off": {}, "overlap on": {"overlap_commits": True},
+                 "autotune": {"autotune_drain": True}}[name]
+        eng = TpuflowDatapath(world_copy(ps), services, device=dev,
+                              async_slowpath=True, admission="forward",
+                              drain_batch=CHURN_DRAIN,
+                              **churn_kw(pod_ips, knobs), **extra)
+        reset_counts()
+        steps, drains, rounds = [], [], []
+        for r in range(CHURN_ROUNDS):
+            b = churn_batch(tr, pool_tr, pod_ips, r)
+            t0 = time.perf_counter()
+            res, s0, l0 = timed(lambda: eng.step(b, 100 + r))
+            dr, s1, l1 = timed(lambda: eng.drain_slowpath(100 + r))
+            rounds.append(time.perf_counter() - t0)
+            steps.append(s0)
+            drains.append(s1)
+            if l0 != (0, 0, 0) or not dr["drained"]:
+                raise SystemExit(f"churn {what} {name} round {r}: fast "
+                                 f"step launches {l0}, drained {dr}")
+        eng.flush_slowpath()
+        launches = counts()
+        got = eng.step(last, 100 + CHURN_ROUNDS)
+        done = got.pending == 0
+        same_ep = (done & (got.dnat_ip == want.dnat_ip)
+                   & (got.dnat_port == want.dnat_port))
+        bad = [i for i in np.nonzero(same_ep)[0]
+               if got.code[i] != want.code[i]
+               or got.ingress_rule[i] != want.ingress_rule[i]
+               or got.egress_rule[i] != want.egress_rule[i]]
+        if bad or int(same_ep.sum()) < B * 9 // 10:
+            raise SystemExit(f"churn {what} {name}: did not converge to the "
+                             f"synchronous verdicts: {int(done.sum())} of "
+                             f"{B} lanes settled, {int(same_ep.sum())} at "
+                             f"the same endpoint, {len(bad)} differ")
+        st = eng.slowpath_stats()
+        med = [sorted(x)[len(x) // 2] * 1e3 for x in (steps, drains, rounds)]
+        rec[name] = dict(step_ms=med[0], drain_ms=med[1], round_ms=med[2],
+                         launches=list(launches),
+                         drained=st["drained_total"],
+                         drain_batch=st["drain_batch"],
+                         autotune_up=st["autotune_decisions_up"],
+                         autotune_down=st["autotune_decisions_down"],
+                         settled=int(done.sum()),
+                         other_endpoint=int((done & ~same_ep).sum()))
+        log(f"churn {what}, {name}: median ms: fast step {med[0]:.2f}, "
+            f"drain {med[1]:.2f}, round {med[2]:.2f}; drained "
+            f"{st['drained_total']} in {st['drains_total']} drains, chunk "
+            f"{st['drain_batch']} (autotune up {st['autotune_decisions_up']}"
+            f", down {st['autotune_decisions_down']}); (B1, B2, B3) "
+            f"launches {launches}; re-step: {int(done.sum())} of {B} lanes "
+            f"settled, {int(same_ep.sum())} at the synchronous engine's "
+            f"endpoint with its verdicts and rule ids, "
+            f"{int((done & ~same_ep).sum())} at another (affinity)")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def drive_knobs(ps, services, pod_ips, tr, pool_tr, dev):
+    """Phase 14c: a one-pass engine with telemetry, the FlowExporter gate
+    and second chance, on the card and on the CPU, stepped on CROSS_LANES
+    fresh flows (one lane each, lengths near 2**31) cold, warm, warm again
+    and past the idle timeout: results, tel_* counters, telemetry_stats()
+    and the tables with their counter columns bitwise equal; after the
+    third step every live forward entry of the batch holds its three
+    packets and their bytes (past 2**32).  Then 14e on the card engine:
+    profile() in sync and async mode, the phases the chain's and summing
+    to the total, cache_stats() unchanged.  -> (record, the card engine's
+    profiles)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.features import FeatureGates
+    from antrea_tpu_torch.models import profile as prof
+    from antrea_tpu_torch.utils import ip as iputil
+
+    kw = dict(flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK, canary_probes=0,
+              topology=node0_spec(pod_ips), fused=True, prune_budget=PRUNE_K,
+              telemetry=True, second_chance=True,
+              feature_gates=FeatureGates({"FlowExporter": True}))
+    eng = TpuflowDatapath(world_copy(ps), services, device=dev, **kw)
+    cpu = TpuflowDatapath(world_copy(ps), services, device="cpu", **kw)
+    n = CROSS_LANES
+    b = engine_batch(pool_tr.src_ip[:n], pool_tr.dst_ip[:n],
+                     pool_tr.proto[:n], pool_tr.src_port[:n],
+                     pool_tr.dst_port[:n], pod_ips)
+    b.pkt_len = (2**31 - 1 - np.arange(n) % 97).astype(np.int32)
+    tel = []
+    for now in (100, 101, 102, IDLE_NOW):
+        r = eng.step(b, now)
+        same_result(r, cpu.step(b, now), f"knobs now={now}")
+        same_engines(eng, cpu, f"knobs now={now}")
+        tel.append(dict(eng.telemetry_stats()["counters"]))
+        if now == 102:
+            flows = {(f["src"], f["dst"], f["sport"], f["dport"]): f
+                     for f in eng.dump_flows(now) if not f["reply"]}
+            lanes = {(iputil.u32_to_ip(int(b.src_ip[i])),
+                      iputil.u32_to_ip(int(b.dst_ip[i])),
+                      int(b.src_port[i]), int(b.dst_port[i])): i
+                     for i in range(n)}
+            # Each live forward entry holds its packets at its lane's
+            # length (a slot collision can restart an entry), and most
+            # hold all three steps'.
+            live = [(f, lanes[k]) for k, f in flows.items() if k in lanes]
+            full = sum(f["packets"] == 3 for f, _ in live)
+            if full < n * 9 // 10 or any(
+                    not 1 <= f["packets"] <= 3
+                    or f["bytes"] != f["packets"] * int(b.pkt_len[i])
+                    for f, i in live):
+                raise SystemExit("knobs: the flow counters do not hold the "
+                                 "steps' packets and bytes")
+    if not (tel[0]["probe_hit"] == 0 and tel[0]["probe_miss"] > 0
+            and tel[0]["dma_hb"] > 0 and tel[1]["probe_hit"] > 0
+            and tel[-1]["probe_stale"] > tel[-2]["probe_stale"]):
+        raise SystemExit(f"knobs: telemetry counters {tel}")
+    del cpu
+    gc.collect()
+    log(f"knobs: one-pass engine with telemetry, the FlowExporter gate and "
+        f"second chance, {n} lanes cold, warm, warm, past the idle timeout: "
+        f"card bitwise equal to the CPU engine (results, telemetry, tables "
+        f"and counters); {full} of {len(live)} live forward entries hold 3 "
+        f"packets and their bytes (up to {3 * (2**31 - 1)}); telemetry "
+        f"{tel[-1]}")
+    hot = engine_batch(tr.src_ip, tr.dst_ip, tr.proto, tr.src_port,
+                       tr.dst_port, pod_ips)
+    fresh = engine_batch(pool_tr.src_ip, pool_tr.dst_ip, pool_tr.proto,
+                         pool_tr.src_port, pool_tr.dst_port, pod_ips)
+    profiles = {}
+    for mode, chain in (("sync", prof.PHASE_CHAIN),
+                        ("async", prof.ASYNC_PHASE_CHAIN)):
+        before = eng.cache_stats()
+        out, s, _ = timed(lambda: eng.profile(hot, fresh, mode=mode, now=200,
+                                              k_small=1, k_big=3, repeats=1))
+        total = sum(out["phases_s"].values())
+        if (list(out["phases_s"]) != [c[0] for c in chain]
+                or abs(total - out["total_s"]) > 1e-9 * out["total_s"]
+                or eng.cache_stats() != before):
+            raise SystemExit(f"profile {mode}: phases {out['phases_s']}, "
+                             f"total {out['total_s']}, cache "
+                             f"{eng.cache_stats()} / {before}")
+        profiles[mode] = dict(total_ms=out["total_s"] * 1e3, pps=out["pps"],
+                              run_s=s, phases_ms={
+                                  k: v * 1e3
+                                  for k, v in out["phases_s"].items()})
+        log(f"profile {mode} (one-pass engine, {B} lanes, "
+            f"{out['fresh_per_step']} fresh a step): total "
+            f"{out['total_s'] * 1e3:.2f} ms/step, phases (ms) "
+            + ", ".join(f"{k} {v * 1e3:.3f}"
+                        for k, v in out["phases_s"].items())
+            + f"; sums to the total, cache_stats unchanged; {s:.1f} s")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(live_forward_entries=len(live), full_entries=full,
+                telemetry=tel[-1]), profiles
+
+
+def drive_chance(cps, svc, tr, dev, b3_ref):
+    """Phase 14d: B3 at second chance's stamp mask against its plain
+    version on the headline batch, all-miss and warm, at CHANCE_NOW (past
+    2**27, so the narrowed stamp differs), beside the PREF_MASK records
+    (b3_ref); then the one-pass steady step with each knob on against all
+    off, on the same warm 2**22-slot state (the knobs' winner-mask passes
+    and counter scatters).  -> (records, knob step times)."""
+    import gc
+
+    import torch
+
+    from antrea_tpu_torch.models import pipeline as pl
+
+    step, state, (drs, dsvc) = pl.make_pipeline(
+        cps, svc, flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK, fused=True,
+        prune_budget=PRUNE_K, ct_timeout_s=3600, second_chance=True,
+        device=dev)
+    if step.meta.pref_mask != pl.PREF_MASK_CHANCE:
+        raise SystemExit("second_chance did not narrow the stamp mask")
+    lanes = to_lanes(tr, dev)
+    rec = {"cold": check_onepass(step, state, drs, dsvc, lanes, CHANCE_NOW,
+                                 "second-chance mask, empty cache")}
+    for now in (CHANCE_NOW, CHANCE_NOW + 1):
+        state, _ = step(state, drs, dsvc, *lanes, now, 0)
+    rec["warm"] = check_onepass(step, state, drs, dsvc, lanes,
+                                CHANCE_NOW + 2, "second-chance mask, warm")
+    for k in ("cold", "warm"):
+        log(f"B3 {k}: {rec[k]['ms'] * 1e3:.2f} us at PREF_MASK_CHANCE "
+            f"against {b3_ref[k]['ms'] * 1e3:.2f} us at PREF_MASK")
+    lens = torch.full((B,), 1500, dtype=torch.int32, device=dev)
+    base = step.meta._replace(second_chance=False)
+    metas = {"off": base, "second_chance": step.meta,
+             "count_flow_stats": base._replace(count_flow_stats=True),
+             "telemetry": base._replace(telemetry=True),
+             "all": step.meta._replace(count_flow_stats=True,
+                                       telemetry=True)}
+    times = {name: [] for name in metas}
+    now = CHANCE_NOW + 3
+    # The knobs in turns, a step each a round (the first round untimed), so
+    # that drift of the host's speed spreads over all of them.
+    for i in range(STEADY_STEPS + 1):
+        for name, meta in metas.items():
+            _, s, _ = timed(lambda: pl.pipeline_step(
+                state, drs, dsvc, *lanes, now, 0, meta=meta, lens=lens))
+            now += 1
+            if i:
+                times[name].append(s)
+    knob_ms = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+    log(f"one-pass steady step at {FLOW_SLOTS} slots, median ms of "
+        f"{STEADY_STEPS} with each knob (in turns): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in knob_ms.items()))
+    del state, drs, dsvc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, knob_ms
+
+
 def main() -> int:
     import torch
 
@@ -1792,6 +2287,22 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
         f" GiB")
 
+    # 14. The async engine (the flood and the churn cadence, one-pass then
+    # staged), the step knobs card against CPU, B3 at the second-chance
+    # mask and the knobs' step cost, profile().
+    t14 = time.perf_counter()
+    flood, churn = {}, {}
+    want = churn_reference(ps, services, pod_ips, tr, pool_tr, dev)
+    for what, knobs in MODES14:
+        flood[what] = drive_flood(ps, services, pod_ips, dev, what, knobs)
+        churn[what] = drive_churn(ps, services, pod_ips, tr, pool_tr, dev,
+                                  what, knobs, want, CHURN_VARIANTS[what])
+    del want
+    knobs14, profiles = drive_knobs(ps, services, pod_ips, tr, pool_tr, dev)
+    chance, knob_ms = drive_chance(cps, svc, tr, dev, b3)
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
         return {"name": name, "route": "cuda", "source": src,
@@ -1821,19 +2332,29 @@ def main() -> int:
             launches_async_staged_path=a_st_launches[0],
             launches_async_onepass_path=a_op_launches[0],
             launches_engine_onepass=eng_op_launches[0],
-            launches_engine_staged=eng_st_launches[0]),
+            launches_engine_staged=eng_st_launches[0],
+            launches_flood_staged=flood["staged fused"]["launches"][0],
+            launches_flood_onepass=flood["one-pass"]["launches"][0],
+            launches_churn_staged=churn["staged fused"]["overlap on"][
+                "launches"][0]),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
-            launches_engine_onepass=eng_op_launches[1]),
+            launches_engine_onepass=eng_op_launches[1],
+            launches_flood_onepass=flood["one-pass"]["launches"][1]),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, **{k: v for k, v in at(b3["cold"]).items()
                         if k not in ("ms", "call_ms", "plain_ms",
                                      "bound_ms")},
             warm_cache=at(b3["warm"]),
+            chance_mask={"all_miss": at(chance["cold"]),
+                         "warm": at(chance["warm"])},
             launches_async_onepass_path=a_op_launches[2],
-            launches_engine_onepass=eng_op_launches[2]),
+            launches_engine_onepass=eng_op_launches[2],
+            launches_flood_onepass=flood["one-pass"]["launches"][2],
+            launches_churn_onepass=churn["one-pass"]["overlap off"][
+                "launches"][2]),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -1852,7 +2373,9 @@ def main() -> int:
                     "full_walk": {k: v[0] for k, v in full.items()},
                     "mesh_1x1": {k: v[0] for k, v in mesh11.items()},
                     "mesh_1x2": mesh12,
-                    "engine": {"onepass": eng_one, "staged": eng_st}}))
+                    "engine": {"onepass": eng_one, "staged": eng_st},
+                    "flood": flood, "churn": churn, "knobs": knobs14,
+                    "profile": profiles, "knob_step_ms": knob_ms}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -494,6 +494,36 @@ def test_onepass_seeded_equals_plain(cuda, case, b, hit_share, ns, svcref,
         assert (iv[:, 6] > ns[5]).any()
 
 
+def test_onepass_at_the_second_chance_mask_equals_plain(cuda):
+    """B3 at second chance's stamp mask (PREF_MASK_CHANCE) against its plain
+    version: seeded lanes whose meta rows carry random collision-counter
+    bits, with now past 2**28 (ts shifted with it), so the narrowed stamp
+    differs from the full one."""
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops import onepass as op
+
+    g = torch.Generator().manual_seed(27)
+    x, tabs, now, gen_w = _seeded_b3(g, 300, (100, 50, 20, 70, 30, 10, 12, 9),
+                                     (5, 3), 0.4, 0.9, True, cuda)
+    now += 1 << 28
+    x = x._replace(ts=x.ts + (1 << 28))
+    st = op.OnepassStatic(k=2, in_phases=(1500, 2000, 1620),
+                          out_phases=(1000, 1000, 1072), svcref=True,
+                          timeouts=(3600,) * 4, n_slots=1 << 12,
+                          pref_mask=pl.PREF_MASK_CHANCE)
+    got = op.onepass(x, tabs, now, gen_w, st)
+    want = op.onepass_plain(x, tabs, now, gen_w, st)
+    for name, g_, w_ in zip(("main", "keys8", "meta8", "aux", "iv"), got,
+                            want):
+        np.testing.assert_array_equal(g_.cpu().numpy(), w_.cpu().numpy(),
+                                      err_msg=name)
+    ins = want[0][:, 14] != 0
+    assert ins.any()
+    stamps = want[2][ins][:, 7]
+    assert (stamps == now & pl.PREF_MASK_CHANCE).all()
+    assert (stamps != now & pl.PREF_MASK).all()
+
+
 @pytest.mark.parametrize("case,b,hit_share,w0,svcref", [
     ("ragged-1", 1, 0.0, (0, 0), False),
     ("ragged-37", 37, 0.4, (160, 96), True),
@@ -756,3 +786,60 @@ def test_pruned_classify_with_deltas_card_equals_cpu(cuda, pruned_world):
                              fused=True, delta_n=n)
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("knobs", [dict(fused=True, admission="hold"),
+                                   dict(fused=True, prune_budget=2,
+                                        admission="drop")],
+                         ids=["staged", "onepass"])
+def test_async_engine_with_knobs_on_the_card_equals_cpu(cuda, knobs):
+    """The async engine with second chance, telemetry, the FlowExporter
+    gate and deny export on the card against the same engine on the CPU:
+    hold (staged) or drop (one-pass) admission with source buckets and
+    overlapped commits, steps, drains and a maintenance tick; results, the
+    queue, telemetry, the deny records and the tables (their counters
+    included) equal, B1 or B3 launched in the drains and nothing in the
+    fast steps."""
+    import copy
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.features import FeatureGates
+    from antrea_tpu_torch.ops import onepass as op
+
+    cluster, services = _engine_world()
+    kw = dict(flow_slots=1 << 8, aff_slots=1 << 6, miss_chunk=64,
+              canary_probes=0, async_slowpath=True,
+              miss_queue_slots=256, drain_batch=64, overlap_commits=True,
+              miss_source_rate=4.0, miss_source_burst=16,
+              second_chance=True, telemetry=True,
+              feature_gates=FeatureGates({"FlowExporter": True}), **knobs)
+    eg = TpuflowDatapath(copy.deepcopy(cluster.ps), services, device=cuda,
+                         **kw)
+    ec = TpuflowDatapath(copy.deepcopy(cluster.ps), services, device="cpu",
+                         **kw)
+    for dp in (eg, ec):
+        dp.enable_deny_export()
+    for i in range(4):
+        b = _engine_batch(cluster, services, 3 + i % 2)
+        b.pkt_len = np.full(b.size, 2**31 - 1 - 100 * i, np.int32)
+        k0 = (consumer.launches, op.launches)
+        rg, rc = eg.step(b, 100 + i), ec.step(b, 100 + i)
+        assert (consumer.launches, op.launches) == k0
+        for f in ("code", "est", "pending", "svc_idx", "dnat_ip",
+                  "committed"):
+            np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f),
+                                          err_msg=f"step {i}: {f}")
+        assert eg.drain_slowpath(100 + i) == ec.drain_slowpath(100 + i)
+        assert (consumer.launches, op.launches) != k0
+    eg.maintenance_tick(110), ec.maintenance_tick(110)
+    assert eg.flush_slowpath() == ec.flush_slowpath()
+    sg, sc = eg.slowpath_stats(), ec.slowpath_stats()
+    sg.pop("drain_hist"), sc.pop("drain_hist")
+    assert sg == sc and sg["source_limited_total"] > 0
+    assert eg.telemetry_stats()["counters"] == ec.telemetry_stats()["counters"]
+    assert eg.deny_drain() == ec.deny_drain()
+    assert eg.dump_flows(110) == ec.dump_flows(110)
+    for part in ("flow", "aff"):
+        for tg, tcpu in zip(getattr(eg._state, part),
+                            getattr(ec._state, part)):
+            assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), part

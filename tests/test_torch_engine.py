@@ -4,8 +4,10 @@ batches through both engines, in the staged unfused (the default), staged
 fused and one-pass modes, through steps, bundles, group deltas (set, clear,
 set then clear, a no-op, the overflow and named-port folds), a topology
 install, trace, dump_flows, the stats and the state tensors; the commit and
-audit planes; the table digests; and every knob the port refuses.  Every
-value is an int32 or u32 word, so the tolerance is exact equality (the
+audit planes; the table digests; every knob the port refuses; and the knobs
+of the async slow path and the step, which tests/test_torch_async.py and
+tests/test_torch_knobs.py hold to the JAX engine.  Every value is an int32
+or u32 word, so the tolerance is exact equality (the
 flow-cache and affinity tables row for row, the dump row excluded).  The
 JAX side runs its Pallas kernels in interpret mode, as its own tests do."""
 
@@ -432,20 +434,52 @@ def test_tensor_digest_equals_reference(world):
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"async_slowpath": True}, 3), ({"autotune_drain": True}, 3),
-    ({"overlap_commits": True}, 3), ({"miss_source_rate": 10.0}, 3),
-    ({"second_chance": True}, 4), ({"telemetry": True}, 4),
-    ({"feature_gates": "FlowExporter"}, 4), ({"dual_stack": True}, 5),
-    ({"serving_batcher": True}, 6), ({"persist_dir": "unused"}, 8),
+    ({"dual_stack": True}, 5), ({"serving_batcher": True}, 6),
+    ({"persist_dir": "unused"}, 8),
 ])
 def test_refused_knobs_name_their_roadmap_item(knob, item):
+    with pytest.raises(NotImplementedError, match=f"queue A item {item}\\)"):
+        td.TpuflowDatapath(device="cpu", flow_slots=16, aff_slots=16,
+                           **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    {"async_slowpath": True},
+    {"async_slowpath": True, "autotune_drain": True},
+    {"async_slowpath": True, "overlap_commits": True},
+    {"async_slowpath": True, "miss_source_rate": 4.0,
+     "miss_source_burst": 16},
+    {"second_chance": True}, {"telemetry": True},
+    {"feature_gates": "FlowExporter"},
+], ids=["async_slowpath", "autotune_drain", "overlap_commits",
+        "miss_source_rate", "second_chance", "telemetry", "FlowExporter"])
+def test_formerly_refused_knobs_construct_and_step(world, knob):
+    """The knobs of queue A items 3 and 4 (refused until they were ported)
+    build an engine on the CPU that steps, drains and ticks; the async ones
+    admit the misses a step leaves pending."""
     if knob.get("feature_gates"):
         from antrea_tpu_torch.features import FeatureGates
 
         knob = {"feature_gates": FeatureGates({"FlowExporter": True})}
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}\\)"):
-        td.TpuflowDatapath(device="cpu", flow_slots=16, aff_slots=16,
-                           **knob)
+    cluster, services, _ = world
+    t = td.TpuflowDatapath(port_ps(cluster.ps), port_svcs(services),
+                           device="cpu", **{**KW, **knob})
+    b = tb(batch(cluster, services, 64, 2))
+    r = t.step(b, 10)
+    assert r.code.shape == (64,) and r.n_miss > 0
+    if knob.get("async_slowpath"):
+        assert (r.pending != 0).any() and t.slowpath_stats()["depth"] > 0
+        assert t.drain_slowpath(11)["drained"] > 0
+        assert t.flush_slowpath() >= 0
+    else:
+        assert r.pending is None and t.slowpath_stats() is None
+    t.maintenance_tick(12)
+    r2 = t.step(b, 13)
+    assert r2.n_miss < r.n_miss
+    if knob.get("telemetry"):
+        assert t.telemetry_stats()["steps_total"] == 2
+    if "feature_gates" in knob:
+        assert sum(f["packets"] for f in t.dump_flows(13)) > 0
 
 
 def test_refused_surfaces_name_their_roadmap_item(world):
@@ -453,13 +487,9 @@ def test_refused_surfaces_name_their_roadmap_item(world):
     t = td.TpuflowDatapath(port_ps(cluster.ps), port_svcs(services),
                            device="cpu", **KW)
     b = tb(batch(cluster, services, 16, 1))
-    for call, item in ((lambda: t.profile(b, b), 4),
-                       (lambda: t.enable_deny_export(), 4),
-                       (lambda: t.tenant_create("a", None), 6),
+    for call, item in ((lambda: t.tenant_create("a", None), 6),
                        (lambda: t.step_tenants(np.zeros(16), b, 1), 6),
                        (lambda: t.serving_batcher(), 6),
-                       (lambda: t._drain_classify({}, 1), 3),
-                       (lambda: t._epoch_maintain(1), 3),
                        (lambda: td.make_datapath("oracle"), 9),
                        (lambda: td.OracleDatapath(), 9)):
         with pytest.raises(NotImplementedError,

@@ -216,7 +216,8 @@ def _np_probes(dims, iso, x, miss, prog_svc=None):
             np.where(miss, iso_in | (iso_out << 1), 0))
 
 
-def _pallas(x, dims, iso, act, miss, meta, k, now, gen_w, prog_svc=None):
+def _pallas(x, dims, iso, act, miss, meta, k, now, gen_w, prog_svc=None,
+            pref_mask=tpl.PREF_MASK):
     """The JAX package's one-pass kernel (interpret mode) on x, with its
     probes made by _np_probes -> ((main, keys8, meta8, aux) numpy, the
     numpy iv and isolation column)."""
@@ -232,8 +233,7 @@ def _pallas(x, dims, iso, act, miss, meta, k, now, gen_w, prog_svc=None):
     s_in, s_out = aggs[0].shape[1], aggs[3].shape[1]
     call = jm._onepass_call(bp, s_in, s_out, k, k, mm.in_phases,
                             mm.out_phases, prog_svc is not None, True,
-                            meta.timeouts, meta.flow_slots, tpl.PREF_MASK,
-                            True)
+                            meta.timeouts, meta.flow_slots, pref_mask, True)
     scal = jnp.asarray([[now, gen_w, 0, 0]], jnp.int32)
     inc2 = [jnp.asarray(np.asarray(t.inc).view(np.uint32).reshape(-1, 32))
             for t in dims]
@@ -343,8 +343,11 @@ def test_plain_onepass_edge_cases_equal_pallas(world, b3):
     world's prog_svc) and iso_in.val[0] = 1, so every hit lane's fresh code
     in meta8 reads isolation row 0.  Lanes of both tiles carry the msk bits
     the step sets from its lane masks: valid = 0 (one of them a lane that
-    would hit), no_commit = 1, and fb_force = 1.  The all-hit tile alone is
-    also run through the plain version as a batch of its own."""
+    would hit), no_commit = 1, and fb_force = 1.  The call runs at second
+    chance's stamp mask (PREF_MASK_CHANCE) with now past 2**28 (ts shifted
+    with it, so every lane keeps its age), and half the hit lanes' meta3
+    carry collision-counter bits.  The all-hit tile alone is also run
+    through the plain version as a batch of its own."""
     cluster, services = world[:2]
     host = b3["host"]
     rng = np.random.default_rng(11)
@@ -378,7 +381,10 @@ def test_plain_onepass_edge_cases_equal_pallas(world, b3):
     msk[[5, 230, 231, 232], 0] = 0
     msk[[7, 232, 236, 237, 238], 1] = 1
     msk[[236, 240, 241, 242], 2] = 1
-    x = x._replace(msk=msk)
+    now = 101 + (1 << 28)
+    mrow = x.mrow.clone()
+    mrow[:64:2, 3] |= tpl.CHANCE_MASK
+    x = x._replace(msk=msk, ts=x.ts + (1 << 28), mrow=mrow)
     valid = msk[:, 0].numpy() != 0
     refs = np.unique(host["prog_svc"][x.lb[128:, 0].numpy()[
         x.lb[128:, 0].numpy() >= 0]])[:4]
@@ -394,11 +400,12 @@ def test_plain_onepass_edge_cases_equal_pallas(world, b3):
         inc=tuple(_t(t.inc) for t in dims),
         iso_val=(_t(iso[0].val), tabs.iso_val[1]),
         prog_svc=_t(host["prog_svc"]))
-    st = st._replace(svcref=True)
+    st = st._replace(svcref=True, pref_mask=tpl.PREF_MASK_CHANCE)
     want, iv, iso_col = _pallas(x, dims, iso, host["act"], ~hit & valid,
-                                b3["meta"], K, 101, 0,
-                                prog_svc=host["prog_svc"])
-    _assert_b3(top.onepass(x, tabs, 101, 0, st), want, iv, iso_col,
+                                b3["meta"], K, now, 0,
+                                prog_svc=host["prog_svc"],
+                                pref_mask=tpl.PREF_MASK_CHANCE)
+    _assert_b3(top.onepass(x, tabs, now, 0, st), want, iv, iso_col,
                "edge cases")
     main, aux = want[0], want[3]
     # valid = 0: neither hit nor miss, the plain ALLOW image, nothing
@@ -408,8 +415,13 @@ def test_plain_onepass_edge_cases_equal_pallas(world, b3):
     assert (main[[7, 236, 237, 238], 14] == 0).all()
     assert (main[[236, 237, 238], 8] == 0).all()
     assert (aux[[236, 240, 241, 242], 1] == 1).all()
+    # The committed rows' stamps are now under the narrowed mask.
+    ins = main[:, 14] != 0
+    assert ins.any()
+    assert (want[2][ins, 3] & tpl.PREF_MASK == now & tpl.PREF_MASK_CHANCE
+            ).all()
     x_hot = top.OnepassInputs(*(t[:128] for t in x))
-    _assert_b3(top.onepass(x_hot, tabs, 101, 0, st), [w[:128] for w in want],
+    _assert_b3(top.onepass(x_hot, tabs, now, 0, st), [w[:128] for w in want],
                iv[:128], iso_col[:128], "all-hit batch")
     # The searches reached both ends of the tables, and the toServices
     # rows inserted above.

@@ -78,7 +78,7 @@ _ENGINE_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
     "datapath.tenancy", "datapath.slowpath", "datapath.slowpath.engine",
     "datapath.slowpath.queue", "observability.metrics",
     "observability.flightrec", "observability.telemetry",
-    "observability.tracing", "oracle.interpreter",
+    "observability.tracing", "observability.flowexport", "oracle.interpreter",
     "controller.networkpolicy", "controller.admission",
     "controller.grouping", "dissemination", "dissemination.serde",
     "apis.crd", "config", "features"))
@@ -149,26 +149,49 @@ def test_entry_points_default_to_the_card(tiny, monkeypatch):
     assert drs.ingress.at.inc.device.type == "cpu"
 
 
-@pytest.mark.parametrize("knob", [
-    {"dual_stack": True}, {"count_flow_stats": True},
-    # The one-pass step's second-chance and telemetry branches.
-    {"prune_budget": 4, "fused": True, "second_chance": True},
-    {"second_chance": True},
-    {"prune_budget": 4, "onepass": True, "telemetry": True},
-    {"telemetry": True},
-])
+@pytest.mark.parametrize("knob", [{"dual_stack": True}])
 def test_unported_pipeline_knobs_raise(tiny, knob):
     cps, svc = tiny
     with pytest.raises(NotImplementedError):
         tpl.make_pipeline(cps, svc, device="cpu", **knob)
 
 
+@pytest.mark.parametrize("knob", [
+    {"count_flow_stats": True},
+    # The one-pass step's second-chance and telemetry branches.
+    {"prune_budget": 4, "fused": True, "second_chance": True},
+    {"second_chance": True},
+    {"prune_budget": 4, "onepass": True, "telemetry": True},
+    {"telemetry": True},
+])
+def test_ported_pipeline_knobs_step(tiny, knob):
+    """The step knobs refused until queue A item 4: each builds a step
+    whose meta carries it, and the step and the full walk (with lens) run;
+    tests/test_torch_knobs.py holds them to the JAX step."""
+    cps, svc = tiny
+    step, state, (drs, dsvc) = tpl.make_pipeline(
+        cps, svc, flow_slots=16, aff_slots=16, device="cpu", **knob)
+    for k in ("count_flow_stats", "second_chance", "telemetry"):
+        assert getattr(step.meta, k) == knob.get(k, False)
+    lanes = [torch.arange(4, dtype=torch.int32)] * 5
+    lens = torch.full((4,), 100, dtype=torch.int32)
+    state, out = step(state, drs, dsvc, *lanes, 1, 0, lens=lens)
+    assert ("tel_probe_hit" in out) == bool(knob.get("telemetry"))
+    dft = tfw.fwd_to_device(ttopo.compile_topology(ttopo.Topology()), "cpu")
+    state, out = tfw.pipeline_step_full(state, drs, dsvc, dft, *lanes,
+                                        lanes[0], 2, 0, lens=lens,
+                                        meta=step.meta)
+    assert int(out["n_miss"]) == 0
+    if knob.get("count_flow_stats"):
+        assert int(state.flow.octets[:-1].sum()) >= 2 * 100
+
+
 @pytest.mark.parametrize("fn,knob", [
     ("pipeline_step", "v6"), ("pipeline_step_full", "v6"),
-    ("pipeline_step_full", "lens"), ("pipeline_step_full", "prune_exclude")])
+    ("pipeline_step_full", "prune_exclude")])
 def test_unported_step_arguments_raise(tiny, fn, knob):
-    """v6 lanes, the flow counters' lengths and the mesh engine's spill
-    mask are not ported (hit_combine, valid and no_commit are)."""
+    """v6 lanes and the mesh engine's spill mask are not ported
+    (hit_combine, valid, no_commit and lens are)."""
     cps, svc = tiny
     step, state, (drs, dsvc) = tpl.make_pipeline(
         cps, svc, flow_slots=16, aff_slots=16, device="cpu")
@@ -252,9 +275,28 @@ def test_constants_equal_reference():
                  "CONF_BIT", "DSR_BIT", "REJECT_NONE", "REJECT_TCP_RST",
                  "REJECT_ICMP_UNREACH", "TCP_FIN", "TCP_RST", "PH_SLOW",
                  "PH_LB", "PH_CLS", "PH_COMMIT", "PH_EVICT", "PH_CLS_SUM",
-                 "PH_ALL"):
+                 "PH_ALL", "CHANCE_SHIFT", "CHANCE_MAX", "CHANCE_MASK",
+                 "PREF_MASK_CHANCE"):
         assert getattr(tpl, name) == getattr(jpl, name), name
     assert tm.BIG == jm.BIG
+    # tel_dma_hb counts the JAX one-pass kernel's half-blocks.
+    assert (tpl.TEL_TILE, tpl.TEL_HALF_BLOCK) == (jm._FUSE_TB, jm._OP_HB)
+    meta = tpl.PipelineMeta(match=None, flow_slots=16, aff_slots=16,
+                            ct_timeout_s=1, miss_chunk=4)
+    assert meta.pref_mask == tpl.PREF_MASK
+    assert meta._replace(second_chance=True).pref_mask == tpl.PREF_MASK_CHANCE
+
+
+def test_no_commit_mask_equals_reference():
+    rng = np.random.default_rng(8)
+    dst = rng.integers(0, 2**32, 512, dtype=np.uint64).astype(np.uint32)
+    dst[::5] = 0xE0000000 + dst[::5] % 2**28  # multicast
+    proto = rng.choice([6, 17, 1], 512).astype(np.int32)
+    flags = rng.integers(0, 64, 512).astype(np.int32)
+    got = tpl.no_commit_mask(dst, proto, flags)
+    want = jpl.no_commit_mask(dst, proto, flags)
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want.all()
 
 
 def _t(a):
