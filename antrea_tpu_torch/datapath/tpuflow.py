@@ -17,7 +17,10 @@ semantics of the reference's OVS binding layer:
 
 Every step runs the full per-packet walk (models/forwarding
 .pipeline_step_full), staged (B1 under fused=True) or one-pass (B3, with
-fused=True and prune_budget > 0).  The step updates the state tensors in
+fused=True and prune_budget > 0).  A dual_stack engine keys its cache on
+wide (10-word) keys and takes v6 lanes; it runs the staged rounds only (the
+one-pass step is v4-only), and StepResult gains the wide views dnat_key
+and peer_key.  The step updates the state tensors in
 place; a bundle's attribution remap writes a new flow-meta tensor, so the
 commit plane's retained snapshot keeps the pre-remap rows.
 
@@ -33,7 +36,8 @@ Cached rule attribution follows rule IDENTITY across bundles
 
 Entry points run on the card unless the caller passes device="cpu" (on CPU
 tensors every kernel wrapper runs its plain version).  Knobs this port has
-not re-homed yet raise NotImplementedError naming their ROADMAP.md item.
+not re-homed yet raise NotImplementedError naming their ROADMAP.md item;
+the JAX engine's own refusals stay ConfigErrors with its words.
 """
 
 from __future__ import annotations
@@ -72,7 +76,6 @@ from .slowpath import ADMIT_HOLD
 from .tenancy import TenantedDatapath, TenantSpec
 
 # ROADMAP.md queue A items that take the knobs this slice refuses.
-ITEM_DUAL_STACK = 5
 ITEM_TENANCY = 6
 ITEM_PERSIST = 8
 
@@ -172,7 +175,6 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._device = resolve_device(device)
         gates = feature_gates or DEFAULT_GATES
         for what, on, item in (
-                ("dual_stack", dual_stack, ITEM_DUAL_STACK),
                 ("serving_batcher", serving_batcher, ITEM_TENANCY),
                 ("persist_dir", persist_dir is not None, ITEM_PERSIST)):
             if on:
@@ -194,6 +196,13 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                 "autotune_prune retunes the aggregate-prune K budget, but "
                 "prune_budget=0 disables the aggregate layer — set an "
                 "initial prune_budget (e.g. 4) to autotune from")
+        # The one-pass step is v4-only: fused + dual_stack + pruning is
+        # refused, not silently downgraded (tpuflow.py:175).
+        if fused and dual_stack and prune_budget > 0:
+            raise ConfigError(
+                "the one-kernel fast path (fused=True with prune_budget "
+                "> 0) is v4-only; dual-stack instances use the staged "
+                "kernel (drop fused or prune_budget, or dual_stack)")
         if delta_slots < 0:
             raise ConfigError(f"delta_slots must be >= 0, got {delta_slots}")
         self._prune_tuner = None
@@ -210,7 +219,8 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._gates = gates
         # Per-entry traffic counters ride the FlowExporter gate.
         self._flow_stats = gates.enabled("FlowExporter")
-        self._dual_stack = False
+        # Wide (10-word) flow keys, the v6 frontend and forwarding tables.
+        self._dual_stack = bool(dual_stack)
         self._init_slowpath(async_slowpath, dual_stack, miss_queue_slots,
                             admission, drain_batch, autotune_drain,
                             autotune_bounds, overlap_commits,
@@ -277,7 +287,13 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         return self._device
 
     def _init_pipeline_state(self, flow_slots: int, aff_slots: int):
-        return pl.init_state(flow_slots, aff_slots, device=self._device)
+        return pl.init_state(flow_slots, aff_slots, device=self._device,
+                             key_words=10 if self._dual_stack else 4)
+
+    @property
+    def _addr_cols(self) -> int:
+        """Address columns of a key row: 2 (v4) or 8 (wide)."""
+        return self._meta.key_words - 2
 
     def _place_rules(self, cps):
         """Compile -> device rule tensors + match meta (tenant worlds pad
@@ -355,7 +371,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         r_in = remap_arr(old_in, new_in)
         r_out = remap_arr(old_out, new_out)
         meta = self._state.flow.meta.clone()
-        RC = pl._meta_cols(2)[2]
+        RC = pl._meta_cols(self._addr_cols)[2]
         rp = meta[:, RC]
         # int32 >> is arithmetic: the & 0xFFFF keeps the high half's bits.
         vi = (rp & 0xFFFF).long().clamp(0, r_in.shape[0] - 1)
@@ -442,11 +458,43 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
     def _flipped(self, ips) -> torch.Tensor:
         return self._lane(iputil.flip_u32(np.asarray(ips, np.uint32)))
 
-    def _v4_only(self, batch: PacketBatch) -> None:
-        if batch.has_v6:
-            raise ValueError(
-                "batch carries v6 lanes but this datapath is v4-only; "
-                "construct it with dual_stack=True")
+    def _v6_lanes(self, batch: PacketBatch):
+        """Batch -> the pipeline's v6 lane tuple (src6w_f, dst6w_f, is6), or
+        None.  A dual-stack engine always passes the wide lanes (all v4
+        when the batch has none); a v4 engine refuses a v6 batch."""
+        if not self._dual_stack:
+            if batch.has_v6:
+                raise ValueError(
+                    "batch carries v6 lanes but this datapath is v4-only; "
+                    "construct it with dual_stack=True")
+            return None
+        if batch.src_ip6 is None:
+            z = self._flipped(np.zeros((batch.size, 4), np.uint32))
+            return z, z.clone(), self._lane(np.zeros(batch.size, np.int32))
+        return (self._flipped(batch.src_ip6), self._flipped(batch.dst_ip6),
+                self._lane(batch.is6))
+
+    @staticmethod
+    def _wide_keys(wide_col: np.ndarray) -> list:
+        """(B, 4) flipped word rows -> per-lane combined keys (v4-mapped
+        rows: the v4 value).  The JAX engine's keys_of: one numpy pass,
+        then Python big ints for the lanes that carry a v6 address."""
+        words = iputil.unflip_u32_array(wide_col).astype(np.int64)
+        mapped = ((words[:, 0] == 0) & (words[:, 1] == 0)
+                  & (words[:, 2] == 0xFFFF))
+        keys = words[:, 3].tolist()
+        for i in np.nonzero(~mapped)[0]:
+            w = words[i]
+            keys[i] = iputil.V6_OFF + ((int(w[0]) << 96) | (int(w[1]) << 64)
+                                       | (int(w[2]) << 32) | int(w[3]))
+        return keys
+
+    @staticmethod
+    def _wide_row_key(row) -> int:
+        """4 flipped words -> combined-keyspace int (mapped form = v4)."""
+        w = [iputil.unflip_u32(int(x)) for x in row]
+        v = (w[0] << 96) | (w[1] << 64) | (w[2] << 32) | w[3]
+        return v & 0xFFFFFFFF if (v >> 32) == 0xFFFF else iputil.V6_OFF + v
 
     @staticmethod
     def _to_host(out: dict) -> dict:
@@ -485,7 +533,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                 self._telemetry.observe_step(dt)
 
     def _step(self, batch: PacketBatch, now: int, valid=None) -> StepResult:
-        self._v4_only(batch)
+        v6 = self._v6_lanes(batch)
         # Byte lengths clamped once: a negative length never decrements a
         # counter.
         lens = np.maximum(batch.lens(), 0)
@@ -506,6 +554,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             self._lane(batch.arp_ops()) if batch.arp_op is not None else None,
             self._lane(lens) if self._flow_stats else None,
             meta=self._meta_step,
+            v6=v6,
             valid=(None if valid is None
                    else torch.from_numpy(np.asarray(valid, bool)).to(
                        self._device)),
@@ -536,6 +585,14 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         if self._deny is not None:
             self._deny_verdicts(batch, o["code"], pending, now)
         unflip = iputil.unflip_u32_array
+        dnat_key = peer_key = None
+        if self._dual_stack:
+            dnat_key = self._wide_keys(o["dnat_w_f"])
+            # Non-tunnel lanes report 0, not the mapped zero's key.
+            peer_key = [
+                k if (kind == FWD_TUNNEL and port != -1) else 0
+                for k, kind, port in zip(self._wide_keys(o["peer_w"]),
+                                         o["fwd_kind"], o["out_port"])]
         return StepResult(
             code=o["code"],
             est=o["est"],
@@ -564,6 +621,8 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             dec_ttl=o["dec_ttl"],
             tc_act=o["tc_act"],
             tc_port=o["tc_port"],
+            dnat_key=dnat_key,
+            peer_key=peer_key,
         )
 
     def stats(self) -> DatapathStats:
@@ -592,30 +651,41 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         octets = (flow.octets[:-1].cpu().numpy().view(np.uint32).astype(
             np.int64) + (flow.octets_hi[:-1].cpu().numpy().astype(np.int64)
                          << 32))
-        DC, M1C, RC, _ZC = pl._meta_cols(2)
-        kpg = keys[:, 3]
+        A = self._addr_cols
+        DC, M1C, RC, _ZC = pl._meta_cols(A)
+        kpg = keys[:, A + 1]
         live, _entry_gen = self._live_mask(keys, meta, ts, now)
         out = []
 
         def unflip_ip(v: int) -> str:
             return iputil.u32_to_ip(iputil.unflip_u32(v))
 
+        def wide_ip(row) -> str:
+            """4 flipped words -> address string (mapped form = v4)."""
+            return iputil.key_to_ip(self._wide_row_key(row))
+
         for i in np.nonzero(live)[0]:
             pg = int(kpg[i])
             gen = (pg >> 9) & pl.GEN_ETERNAL
             code, svc_idx, dnat_port = pl._unpack_meta1(int(meta[i, M1C]))
             rule_in, rule_out = pl._unpack_rules(int(meta[i, RC]))
+            if A == 2:
+                src, dst = unflip_ip(keys[i, 0]), unflip_ip(keys[i, 1])
+                dnat = unflip_ip(meta[i, DC])
+            else:
+                src, dst = wide_ip(keys[i, 0:4]), wide_ip(keys[i, 4:8])
+                dnat = wide_ip(meta[i, 0:4])
             out.append({
-                "src": unflip_ip(keys[i, 0]),
-                "dst": unflip_ip(keys[i, 1]),
-                "sport": (int(keys[i, 2]) >> 16) & 0xFFFF,
-                "dport": int(keys[i, 2]) & 0xFFFF,
+                "src": src,
+                "dst": dst,
+                "sport": (int(keys[i, A]) >> 16) & 0xFFFF,
+                "dport": int(keys[i, A]) & 0xFFFF,
                 "proto": pg & 0xFF,
                 "reply": bool(pg & (1 << 31)),
                 "committed": gen == pl.GEN_ETERNAL,
                 "code": code,
                 "svc_idx": svc_idx,
-                "dnat_ip": unflip_ip(meta[i, DC]),
+                "dnat_ip": dnat,
                 "dnat_port": dnat_port,
                 "ingress_rule": _rid(self._cps.ingress.rule_ids, rule_in),
                 "egress_rule": _rid(self._cps.egress.rule_ids, rule_out),
@@ -820,9 +890,10 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         by name)."""
         from ..models import profile as prof
 
-        self._v4_only(batch)
-        if fresh is not None:
-            self._v4_only(fresh)
+        if batch.has_v6 or (fresh is not None and fresh.has_v6):
+            raise ValueError(
+                "profile() probes are v4-only; dual-stack instances "
+                "profile their v4 lanes (the wide fast path is shared)")
 
         def cols(b):
             return (self._flipped(b.src_ip), self._flipped(b.dst_ip),
@@ -859,6 +930,9 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
     # -- refused planes --------------------------------------------------------
 
     def tenant_create(self, name: str, ps: Optional[PolicySet] = None, **kw):
+        if self._dual_stack:
+            # The tenancy plane's own refusal (a ConfigError) comes first.
+            return super().tenant_create(name, ps, **kw)
         raise refuse("tenant worlds (tenant_create)", ITEM_TENANCY)
 
     def serving_batcher(self):
@@ -955,7 +1029,11 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
     def _canary_classify(self, batch: PacketBatch, now: int) -> np.ndarray:
         """Fresh-walk verdict of each probe through the current tables,
         state untouched: the bare classify with the serving meta (fused:
-        B1, or B2 under pruning) and the pending deltas."""
+        B1, or B2 under pruning) and the pending deltas; a dual-stack engine
+        takes the full trace walk (its wide lanes are what needs
+        certifying), as the JAX engine does."""
+        if self._dual_stack:
+            return self._trace_out(self._state, batch, now)["fresh_code"]
         cls = match.classify_batch(
             self._drs, self._flipped(batch.src_ip),
             self._flipped(batch.dst_ip), self._lane(batch.proto),
@@ -994,8 +1072,9 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
     def _live_mask(self, keys, meta, ts, now):
         """Liveness of decoded (int64) entry rows: occupied, within the
         per-state idle timeout, valid under the current generation."""
-        ZC = pl._meta_cols(2)[3]
-        kpg = keys[:, 3]
+        A = self._addr_cols
+        ZC = pl._meta_cols(A)[3]
+        kpg = keys[:, A + 1]
         entry_gen = (kpg >> 9) & pl.GEN_ETERNAL
         gen_w = self._gen % pl.GEN_ETERNAL
         tmo = pl.entry_timeout(
@@ -1022,8 +1101,9 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         keys = keys_d.cpu().numpy().astype(np.int64)
         meta = meta_d.cpu().numpy().astype(np.int64)
         ts = ts_d.cpu().numpy()
-        DC, M1C, RC, _ZC = pl._meta_cols(2)
-        kpg = keys[:, 3]
+        A = self._addr_cols
+        DC, M1C, RC, _ZC = pl._meta_cols(A)
+        kpg = keys[:, A + 1]
         live, entry_gen = self._live_mask(keys, meta, ts, now)
         in_ids = self._cps.ingress.rule_ids
         out_ids = self._cps.egress.rule_ids
@@ -1033,16 +1113,24 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             pg = int(kpg[i])
             code, svc_idx, dnat_port = pl._unpack_meta1(int(meta[i, M1C]))
             rule_in, rule_out = pl._unpack_rules(int(meta[i, RC]))
+            if A == 2:
+                src = iputil.unflip_u32(int(keys[i, 0]))
+                dst = iputil.unflip_u32(int(keys[i, 1]))
+                dnat = iputil.unflip_u32(int(meta[i, DC]))
+            else:
+                src = self._wide_row_key(keys[i, 0:4])
+                dst = self._wide_row_key(keys[i, 4:8])
+                dnat = self._wide_row_key(meta[i, 0:4])
             rows.append({
                 "slot": slot_of(int(i)),
-                "src": int(iputil.unflip_u32(int(keys[i, 0]))),
-                "dst": int(iputil.unflip_u32(int(keys[i, 1]))),
+                "src": int(src),
+                "dst": int(dst),
                 "proto": pg & 0xFF,
-                "sport": (int(keys[i, 2]) >> 16) & 0xFFFF,
-                "dport": int(keys[i, 2]) & 0xFFFF,
+                "sport": (int(keys[i, A]) >> 16) & 0xFFFF,
+                "dport": int(keys[i, A]) & 0xFFFF,
                 "code": code,
                 "svc": svc_idx,
-                "dnat_ip": int(iputil.unflip_u32(int(meta[i, DC]))),
+                "dnat_ip": int(dnat),
                 "dnat_port": dnat_port,
                 "rule_in": _rid(in_ids, rule_in),
                 "rule_out": _rid(out_ids, rule_out),
@@ -1066,7 +1154,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             self._flipped(batch.src_ip), self._flipped(batch.dst_ip),
             self._lane(batch.proto), self._lane(batch.src_port),
             self._lane(batch.dst_port), int(now), int(self._gen),
-            meta=self._meta)
+            meta=self._meta, v6=self._v6_lanes(batch))
         return self._to_host(o)
 
     def _audit_fresh_state(self, state: pl.PipelineState, rows: list,
@@ -1082,10 +1170,14 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         out = []
         for i in range(len(rows)):
             no_ep = bool(o["no_ep"][i])
+            if self._dual_stack:
+                dnat = self._wide_row_key(o["dnat_w_f"][i])
+            else:
+                dnat = iputil.unflip_u32(int(o["dnat_ip_f"][i]))
             out.append({
                 "code": int(o["fresh_code"][i]),
                 "svc": int(o["svc_idx"][i]),
-                "dnat_ip": int(iputil.unflip_u32(int(o["dnat_ip_f"][i]))),
+                "dnat_ip": int(dnat),
                 "dnat_port": int(o["dnat_port"][i]),
                 "rule_in": (None if no_ep
                             else _rid(in_ids, int(o["ingress_rule"][i]))),
@@ -1135,7 +1227,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         if idx.size == 0:
             return self._audit_corrupt("tensor")
         slot = int(idx[0])
-        M1C = pl._meta_cols(2)[1]
+        M1C = pl._meta_cols(self._addr_cols)[1]
         self._state.flow.meta[slot, M1C] ^= 1
         return f"flipped cached verdict bit of slot {slot}"
 
@@ -1149,7 +1241,6 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
 
     def _trace_batch(self, state: pl.PipelineState, batch: PacketBatch,
                      now: int) -> list[dict]:
-        self._v4_only(batch)
         o = self._trace_out(state, batch, now)
         in_ids = self._cps.ingress.rule_ids
         out_ids = self._cps.egress.rule_ids
@@ -1160,8 +1251,13 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         out = []
         for i in range(batch.size):
             p = batch.packet(i)
-            dnat_u = iputil.unflip_u32(o["dnat_ip_f"][i])
-            cached_dnat = iputil.unflip_u32(o["cached_dnat_ip_f"][i])
+            # Addresses flow as combined keys (the spec is family-blind).
+            if self._dual_stack:
+                dnat_u = self._wide_row_key(o["dnat_w_f"][i])
+                cached_dnat = self._wide_row_key(o["cached_dnat_w_f"][i])
+            else:
+                dnat_u = iputil.unflip_u32(o["dnat_ip_f"][i])
+                cached_dnat = iputil.unflip_u32(o["cached_dnat_ip_f"][i])
             if o["reply"][i]:
                 eff_dst = p.dst_ip
             elif o["cache_hit"][i]:
@@ -1264,9 +1360,12 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             ct_other_est_s=self._pipe_kw["ct_other_est_s"],
             fused=self._pipe_kw["fused"],
             # The one-pass step engages when B1's fusion and the aggregate
-            # layer are both on.
+            # layer are both on (never dual-stack: the constructor refused
+            # that combination).
             onepass=bool(self._pipe_kw["fused"]
-                         and match_meta.prune_budget > 0),
+                         and match_meta.prune_budget > 0
+                         and not self._dual_stack),
+            key_words=10 if self._dual_stack else 4,
             count_flow_stats=self._flow_stats,
             second_chance=bool(self._pipe_kw["second_chance"]),
             telemetry=bool(self._pipe_kw["telemetry"]),

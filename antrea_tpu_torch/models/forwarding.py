@@ -1,6 +1,8 @@
 """The full per-packet walk: SpoofGuard / ARP -> (IGMP punt) -> the policy
 and service pipeline -> L2/L3 forwarding -> Output.  The PyTorch port of
-antrea_tpu/models/forwarding.py for v4 lanes.
+antrea_tpu/models/forwarding.py, v4 and v6 lanes (a dual-stack pipeline's
+v6 lanes spoof-guard, forward and take their TrafficControl mark through
+the lexicographic v6 sub-tables, and answer Neighbor Discovery).
 
 The forwarding tables (compiler/topology.py) are sorted tensors: a packet's
 output decision is a few searchsorted probes and row gathers, run as plain
@@ -64,7 +66,7 @@ class DeviceForwardingTables(NamedTuple):
     n_mc: torch.Tensor
     arp_ip_f: torch.Tensor
     n_arp: torch.Tensor
-    # The v6 sub-tables: carried for layout parity; v6 lanes are not ported.
+    # The v6 sub-tables: per-word flipped 4-word rows, n_* valid rows each.
     lp6_ipw: torch.Tensor
     lp6_port: torch.Tensor
     lp6_tc_in: torch.Tensor
@@ -103,7 +105,9 @@ def _lp_row(dft: DeviceForwardingTables, ip_f: torch.Tensor):
 
 
 def _row_eq_wide(table: torch.Tensor, n: torch.Tensor, xw: torch.Tensor):
-    """-> (row, known) exact 4-word row match (all pairs)."""
+    """-> (row, known) exact 4-word row match over one node's small v6
+    tables (its pods, its ND addresses): all pairs, as in the JAX
+    package."""
     cap = table.shape[0]
     eq = (table[None, :, :] == xw[:, None, :]).all(dim=2)  # (B, cap)
     eq = eq & (torch.arange(cap, device=xw.device) < n[0])[None, :]
@@ -171,6 +175,38 @@ def forwarding_lookup(dft: DeviceForwardingTables, dst_f: torch.Tensor,
             "is_mc": is_mc, "mcast_idx": mcast_idx}
 
 
+def forwarding_lookup6(dft: DeviceForwardingTables, dst_w: torch.Tensor,
+                       in_port: torch.Tensor) -> dict:
+    """The v6 leg of L2ForwardingCalc + L3Forwarding + L3DecTTL
+    (forwarding.py:207): an exact local-pod match, the inclusive [lo, hi]
+    word interval of a remote node's v6 podCIDR (a few dozen rows, all
+    pairs), the local-CIDR unknown-pod drop, the gateway default; no v6
+    multicast.  -> forwarding_lookup's dict with peer_w ((B, 4)) in place
+    of peer_f."""
+    row, is_local = _row_eq_wide(dft.lp6_ipw, dft.n_lp6, dst_w)
+    rcap = dft.rn6_lo_w.shape[0]
+    in_row = (_lex_le(dft.rn6_lo_w[None, :, :], dst_w[:, None, :])
+              & _lex_le(dst_w[:, None, :], dft.rn6_hi_w[None, :, :])
+              & (torch.arange(rcap, device=dst_w.device)
+                 < dft.n_rn6[0])[None, :])
+    in_rn = in_row.any(dim=1)
+    r = in_row.to(_I32).argmax(dim=1)
+    in_local_cidr = (_lex_le(dft.local_range6_w[0][None, :], dst_w)
+                     & _lex_le(dst_w, dft.local_range6_w[1][None, :]))
+    kind = torch.where(is_local, FWD_LOCAL, torch.where(
+        in_rn, FWD_TUNNEL,
+        torch.where(in_local_cidr, FWD_DROP_UNKNOWN, FWD_GATEWAY))).to(_I32)
+    out_port = torch.where(is_local, dft.lp6_port[row], torch.where(
+        in_rn, OFPORT_TUNNEL,
+        torch.where(in_local_cidr, -1, OFPORT_GATEWAY))).to(_I32)
+    peer_w = torch.where((in_rn & ~is_local)[:, None], dft.rn6_peer_w[r], 0)
+    routed_in = (in_port == OFPORT_TUNNEL) | (in_port == OFPORT_GATEWAY)
+    dec_ttl = torch.where(is_local, routed_in,
+                          in_rn | (kind == FWD_GATEWAY)).to(_I32)
+    return {"kind": kind, "out_port": out_port, "peer_w": peer_w.to(_I32),
+            "dec_ttl": dec_ttl, "lp_row": row, "is_local": is_local}
+
+
 def tc_lookup(dft: DeviceForwardingTables, src_f: torch.Tensor,
               dst_row: torch.Tensor, dst_is_local: torch.Tensor):
     """TrafficControl mark: the dst pod's ingress word wins, else the src
@@ -178,6 +214,15 @@ def tc_lookup(dft: DeviceForwardingTables, src_f: torch.Tensor,
     srow, sknown = _lp_row(dft, src_f)
     w_in = torch.where(dst_is_local, dft.lp_tc_in[dst_row], 0)
     w_eg = torch.where(sknown, dft.lp_tc_eg[srow], 0)
+    return torch.where(w_in != 0, w_in, w_eg)
+
+
+def tc_lookup6(dft: DeviceForwardingTables, src_w: torch.Tensor,
+               dst_row6: torch.Tensor, dst_is_local6: torch.Tensor):
+    """tc_lookup's v6 leg over the lexicographic pod table."""
+    srow, sknown = _row_eq_wide(dft.lp6_ipw, dft.n_lp6, src_w)
+    w_in = torch.where(dst_is_local6, dft.lp6_tc_in[dst_row6], 0)
+    w_eg = torch.where(sknown, dft.lp6_tc_eg[srow], 0)
     return torch.where(w_in != 0, w_in, w_eg)
 
 
@@ -217,10 +262,24 @@ def pipeline_step_full(
     (parallel/mesh.py).  arp_op lanes (0 = not ARP) touch no conntrack or
     policy state: answered requests for addresses this node owns reply out
     the ingress port, every other ARP lane floods.  lens are the lanes'
-    byte lengths for the flow counters (meta.count_flow_stats).  v6 and
-    prune_exclude (the mesh engine's spill) are not ported."""
-    _refuse(v6=v6 is not None, prune_exclude=prune_exclude is not None)
-    spoof = spoof_lookup(dft, src_f, in_port)
+    byte lengths for the flow counters (meta.count_flow_stats).
+
+    v6 = (src6w_f, dst6w_f, is6), the v6 lanes of a dual-stack pipeline:
+    they spoof-guard, forward (by their wide effective destination) and
+    take their TC mark through the v6 sub-tables, an arp_op on a v6 lane is
+    Neighbor Discovery (a request answers from the nd table), and the walk
+    adds peer_w, the wide tunnel peer.  prune_exclude (the mesh engine's
+    spill) is not ported."""
+    _refuse(prune_exclude=prune_exclude is not None)
+    m6 = is6 = saddr_w = daddr_w = None
+    if v6 is not None:
+        src6w, dst6w, is6 = v6
+        saddr_w = pl._wide_words(src_f, src6w, is6)
+        daddr_w = pl._wide_words(dst_f, dst6w, is6)
+        m6 = is6 != 0
+        spoof = spoof_lookup(dft, src_f, in_port, src_w=saddr_w, is6=is6)
+    else:
+        spoof = spoof_lookup(dft, src_f, in_port)
     # IGMP membership traffic is punted to the controller, never forwarded:
     # kept out of the policy pipeline like spoofed lanes.
     is_arp = (arp_op > 0) if arp_op is not None else None
@@ -228,8 +287,11 @@ def pipeline_step_full(
     if is_arp is not None:
         igmp = igmp & ~is_arp
     # Multicast data traffic bypasses conntrack: classified every step,
-    # never cached.
+    # never cached.  The 224/4 window is v4: a v6 lane's narrow dst is a
+    # don't-care.
     is_mc = (dst_f >= MCAST_LO_F) & (dst_f <= MCAST_HI_F)
+    if m6 is not None:
+        is_mc = is_mc & ~m6
     no_commit_l = is_mc
     if flags is not None:
         # A FIN/RST TCP miss classifies but never establishes a connection.
@@ -245,13 +307,35 @@ def pipeline_step_full(
     state, out = pl.pipeline_step(
         state, drs, dsvc, src_f, dst_f, proto, sport, dport, now, gen,
         meta=meta, flags=flags, hit_combine=hit_combine, valid=valid_l,
-        no_commit=no_commit_l, lens=lens)
+        no_commit=no_commit_l, lens=lens, v6=v6)
     code = torch.where(spoof, ACT_DROP, out["code"]).to(_I32)
     # Forward toward the DNAT-resolved endpoint, except reply-direction
     # hits (their dnat fields carry the source un-rewrite): a reply
     # forwards to its literal dst.
     eff_dst = torch.where(out["reply"] == 1, dst_f, out["dnat_ip_f"])
     fwd = forwarding_lookup(dft, eff_dst, in_port)
+    peer_w = None
+    if m6 is not None:
+        # v6 lanes forward by their wide effective destination; the two
+        # families' results merge per lane.
+        eff_dst_w = torch.where((out["reply"] == 1)[:, None], daddr_w,
+                                out["dnat_w_f"])
+        fwd6 = forwarding_lookup6(dft, eff_dst_w, in_port)
+        fwd = {
+            "kind": torch.where(m6, fwd6["kind"], fwd["kind"]),
+            "out_port": torch.where(m6, fwd6["out_port"], fwd["out_port"]),
+            "peer_f": torch.where(m6, 0, fwd["peer_f"]),
+            "dec_ttl": torch.where(m6, fwd6["dec_ttl"], fwd["dec_ttl"]),
+            "lp_row": fwd["lp_row"],
+            "is_local": torch.where(m6, fwd6["is_local"], fwd["is_local"]),
+            "is_mc": fwd["is_mc"] & ~m6,
+            "mcast_idx": torch.where(m6, -1, fwd["mcast_idx"]),
+            "lp_row6": fwd6["lp_row"],
+            "is_local6": fwd6["is_local"] & m6,
+        }
+        # The wide peer view: v4 tunnel peers in mapped form, v6 native.
+        peer_w = torch.where(m6[:, None], fwd6["peer_w"],
+                             pl._wide_words(fwd["peer_f"], None, None))
     kind = torch.where(spoof, FWD_DROP_SPOOF,
                        torch.where(igmp, FWD_PUNT, fwd["kind"])).to(_I32)
     if is_arp is not None:
@@ -262,6 +346,12 @@ def pipeline_step_full(
         answer = (is_arp & ~spoof & (arow < dft.n_arp[0])
                   & (dft.arp_ip_f[arow] == dst_f)
                   & (arp_op == ARP_OP_REQUEST))
+        if m6 is not None:
+            # Neighbor Discovery: a v6 request answers from the nd table.
+            _ndrow, nd_known = _row_eq_wide(dft.nd_ipw, dft.n_nd, daddr_w)
+            answer = torch.where(
+                m6, is_arp & ~spoof & nd_known & (arp_op == ARP_OP_REQUEST),
+                answer)
         kind = torch.where(is_arp & ~spoof,
                            torch.where(answer, FWD_ARP_REPLY, FWD_ARP_FLOOD),
                            kind).to(_I32)
@@ -270,6 +360,10 @@ def pipeline_step_full(
         | (kind == FWD_MCAST))
     uni_deliverable = deliverable & (kind != FWD_MCAST)
     tc_base = tc_lookup(dft, src_f, fwd["lp_row"], fwd["is_local"])
+    if m6 is not None:
+        tc_base = torch.where(
+            m6, tc_lookup6(dft, saddr_w, fwd["lp_row6"], fwd["is_local6"]),
+            tc_base)
     tc_w = torch.where(uni_deliverable, tc_base, 0)
     tc_act = tc_w & 3
     tc_port = tc_w >> 2
@@ -303,5 +397,9 @@ def pipeline_step_full(
         tc_port=tc_port.to(_I32),
         mcast_idx=torch.where(deliverable, fwd["mcast_idx"], -1).to(_I32),
     )
+    if peer_w is not None:
+        # Zeroed like peer_f for lanes not delivered by unicast.
+        out["peer_w"] = torch.where(uni_deliverable[:, None], peer_w,
+                                    0).to(_I32)
     return state, out
 

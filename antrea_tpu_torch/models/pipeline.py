@@ -1,6 +1,6 @@
 """The datapath pipeline step: the PyTorch port of
-antrea_tpu/models/pipeline.py for the v4 regime, staged or one-pass, with
-the phase-mask surface the async engine's fast and drain steps and the
+antrea_tpu/models/pipeline.py, staged or one-pass over narrow (v4) keys and
+staged over wide (dual-stack) keys, with the phase-mask surface the async engine's fast and drain steps and the
 profiler (models/profile.py) run, and the off-step maintenance scans.
 
 One step takes a packet batch through a direct-mapped flow cache in front
@@ -35,6 +35,13 @@ the miss lanes when there are misses.  Under pruning each classify reads
 back whether any lane has a candidate and lists its fallback lanes; the
 one-pass slow path lists its fallback lanes once.
 
+Dual-stack pipelines (make_pipeline(dual_stack=True), PipelineMeta
+.key_words == 10) key the cache on both endpoints' 4-word addresses (v4
+lanes in v4-mapped form, _wide_words), hash them with flow_hash_wide, store
+the 4-word DNAT resolution in the meta row, key affinity on the 4-word
+client and run the v6 frontend lookup; the step then also outputs the wide
+DNAT view dnat_w_f.  The one-pass slow path stays v4-only.
+
 All tensors are int32 words; u32 quantities keep their bits in int32.
 """
 
@@ -50,10 +57,10 @@ from ..compiler.compile import ACT_ALLOW, ACT_REJECT, CompiledPolicySet
 from ..compiler.services import ServiceTables
 from ..ops import hashing, onepass
 from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
-                         _delta_matches, _patch_agg, _patch_iso, _refuse,
-                         _resolve, classify_batch, delta_overlay, from_numpy,
-                         resolve_device, rewalk_hits, ruleset_from_numpy,
-                         shard_offsets, to_host)
+                         _delta_matches, _patch_agg, _patch_iso, _resolve,
+                         _searchsorted6, classify_batch, delta_overlay,
+                         from_numpy, resolve_device, rewalk_hits,
+                         ruleset_from_numpy, shard_offsets, to_host)
 
 MISS = -1
 # Generation tag reserved for conntrack-committed (ALLOW) entries; rule
@@ -171,10 +178,12 @@ class FlowCache(NamedTuple):
     """Direct-mapped unified flow cache (the JAX package's layout).
 
       keys (N+1, 4) int32: [src_f, dst_f, sport<<16|dport, proto|0x100|gen<<9]
-        (bit 31 of the last word: REPLY_BIT)
+        (bit 31 of the last word: REPLY_BIT); dual-stack (N+1, 10):
+        [s0..s3, d0..d3, pp, pg], the addresses in wide word form
       meta (N+1, 4) int32: [dnat_ip_f, meta1, rules, snat<<31|dsr<<30|conf<<29|pref]
         meta1 = code(2) | (svc_idx+1)(14) | dnat_port(16)
         rules = (rule_in+1)(16) | (rule_out+1)(16)
+        dual-stack (N+1, 8): [dn_w0..dn_w3, meta1, rules, z, 0] (_meta_cols)
       ts (N+1,) int32: last-seen seconds
       pkts/octets/pkts_hi/octets_hi (N+1,) int32: per-direction packet and
         byte counters under PipelineMeta.count_flow_stats, each a 64-bit
@@ -193,7 +202,8 @@ class FlowCache(NamedTuple):
 class AffinityTable(NamedTuple):
     """Session-affinity learn table (slow-path only); row M is a dump."""
 
-    key_client: torch.Tensor  # (M+1,) sign-flipped client ip
+    key_client: torch.Tensor  # (M+1,) sign-flipped client ip; (M+1, 4)
+    # wide words in dual-stack pipelines
     key_svc: torch.Tensor  # (M+1,) service index
     ep: torch.Tensor  # endpoint slot within the service bucket row, +1
     ts: torch.Tensor  # creation seconds (hard timeout, no refresh)
@@ -217,8 +227,9 @@ class DeviceServiceTables(NamedTuple):
     slot_snat: torch.Tensor  # (NU, MAXP) 0/1 per-frontend SNAT-mark flag
     prog_svc: torch.Tensor  # (P,) owning service index per program
     prog_dsr: torch.Tensor  # (P,) 0/1 per-program DSR delivery flag
-    # v6 frontend tables: carried for layout parity, unused (v4 only).
-    uip6_w: torch.Tensor
+    # The v6 frontend sub-table (sorted lexicographically, unique rows) and
+    # every endpoint's wide words; (0, ...) shapes without v6 frontends.
+    uip6_w: torch.Tensor  # (NU6, 4) per-word sign-flipped
     ppk6: torch.Tensor
     slot_svc6: torch.Tensor
     slot_snat6: torch.Tensor
@@ -266,6 +277,9 @@ class PipelineMeta(NamedTuple):
     second_chance: bool = False
     # Hot-path telemetry: the tel_* counter outputs.
     telemetry: bool = False
+    # Flow-cache key row width: 4 (v4: [src, dst, pp, pg]) or 10
+    # (dual-stack: [s0..s3, d0..d3, pp, pg]).
+    key_words: int = 4
 
     @property
     def pref_mask(self) -> int:
@@ -312,24 +326,29 @@ def state_from_numpy(state_np, device=None) -> PipelineState:
 
 
 def init_state(flow_slots: int = 1 << 20, aff_slots: int = 1 << 18,
-               device=None) -> PipelineState:
+               device=None, key_words: int = 4) -> PipelineState:
+    """An empty state; key_words=10 is the dual-stack layout (wide keys,
+    8-column meta rows, 4-word affinity clients)."""
     dev = resolve_device(device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=_I32, device=dev)
 
+    wide = key_words > 4
     n = flow_slots + 1
-    flow = FlowCache(keys=zeros(n, 4), meta=zeros(n, 4), ts=zeros(n),
-                     pkts=zeros(n), octets=zeros(n), pkts_hi=zeros(n),
-                     octets_hi=zeros(n))
+    flow = FlowCache(keys=zeros(n, key_words), meta=zeros(n, 8 if wide else 4),
+                     ts=zeros(n), pkts=zeros(n), octets=zeros(n),
+                     pkts_hi=zeros(n), octets_hi=zeros(n))
     m = aff_slots + 1
-    aff = AffinityTable(key_client=zeros(m), key_svc=zeros(m), ep=zeros(m),
-                        ts=zeros(m))
+    aff = AffinityTable(key_client=zeros(m, 4) if wide else zeros(m),
+                        key_svc=zeros(m), ep=zeros(m), ts=zeros(m))
     return PipelineState(flow=flow, aff=aff)
 
 
 def _meta_cols(A: int) -> tuple[int, int, int, int]:
-    """Meta-row column indices (dn_narrow, meta1, rules, zcol)."""
+    """Meta-row column indices (dn_narrow, meta1, rules, zcol) for an
+    address width A (key_words - 2): narrow [dnat_ip, m1, rules, z], wide
+    [w0..w3, m1, rules, z, 0], whose narrow dnat view is word 3."""
     return (0, 1, 2, 3) if A == 2 else (3, 4, 5, 6)
 
 
@@ -337,6 +356,42 @@ def _raw_bits(x_f: torch.Tensor) -> torch.Tensor:
     """Sign-flipped int32 -> int32 whose u32 reinterpretation is the raw
     value."""
     return x_f ^ -(2**31)
+
+
+# The RFC 4291 v4-mapped words in flipped lane space: flip(0), flip(0xffff).
+_MAP0 = -(2**31)
+_MAPF = -(2**31) + 0xFFFF
+
+
+def _wide_words(col_f: torch.Tensor, w6, is6) -> torch.Tensor:
+    """(B,) flipped v4 column, optional (B, 4) flipped v6 words and the
+    family mask -> (B, 4) wide address words, v4 lanes in v4-mapped form
+    (pipeline.py:461).  The one wide projection: every wide key (the probe,
+    the reverse commit, the partner probe, the trace) goes through it."""
+    m = torch.stack([torch.full_like(col_f, _MAP0),
+                     torch.full_like(col_f, _MAP0),
+                     torch.full_like(col_f, _MAPF), col_f], dim=1)
+    if w6 is None:
+        return m
+    return torch.where((is6 != 0)[:, None], w6, m)
+
+
+def _wide_lanes(src_f, dst_f, v6):
+    """The step's wide lane view: v6 = (src6w, dst6w, is6) or None (every
+    lane v4) -> (saddr, daddr, is6)."""
+    if v6 is not None:
+        src6w, dst6w, is6 = v6
+    else:
+        src6w = dst6w = None
+        is6 = torch.zeros_like(src_f)
+    return (_wide_words(src_f, src6w, is6), _wide_words(dst_f, dst6w, is6),
+            is6)
+
+
+def _wide_hash(saddr, daddr, proto, sport, dport):
+    """flow_hash_wide of two (M, 4) address word blocks."""
+    return hashing.flow_hash_wide([*saddr.unbind(1), *daddr.unbind(1)],
+                                  proto, sport, dport)
 
 
 def _winner_mask(n_slots, slots, mask, dump):
@@ -393,7 +448,7 @@ def _second_chance_guard(flow: FlowCache, slot2, keys2, ins2, now: int,
     As in the JAX package, the staged rounds run one pass per round.
     -> (ins2 without the suppressed inserts, their count (int32) under
     meta.telemetry, else None)."""
-    A = 2
+    A = keys2.shape[1] - 2
     ZC = _meta_cols(A)[3]
     tgt2 = torch.where(ins2, slot2, dump)
     okr = flow.keys[tgt2]
@@ -444,13 +499,20 @@ def _unpack_rules(rp):
 
 def _fused_pack_rows(src_f, dst_f, proto, sport, dport, pp, f_code, svc_idx,
                      dnat_ip, dnat_port, snat_m, dsr_m, f_ri, f_ro, miss_m,
-                     nc_m, now, gen_w, n_slots, pmask):
+                     nc_m, now, gen_w, n_slots, pmask, wide=None):
     """The commit rows of a set of lanes: the forward entry, and the
     reply-direction entry keyed on the post-DNAT tuple with ports swapped,
     whose meta carries the un-DNAT rewrite; ALLOW entries as ETERNAL
     (conntrack), denials tagged with the generation; DSR lanes commit no
     reply leg.  The torch twin of B3's packing (pipeline.py:579).
-    -> dict(committed, ins, rev_ins, rev_slot, keys8 (M, 8), meta8 (M, 8))."""
+    -> dict(committed, ins, rev_ins, rev_slot, keys8 (M, 8), meta8 (M, 8)):
+    each row the forward then the reply entry.
+
+    wide = (saddr, daddr, dnat_w), each (M, 4): the dual-stack rows of the
+    staged commit (pipeline.py:1450-1520), keys8 (M, 20) and meta8
+    (M, 16): keys on the wide words, meta [dnat_w, m1, rules, z, 0]
+    forward and [daddr, m1, rules, pref, 0] reply, the reply slot hashed
+    with flow_hash_wide."""
     committed = miss_m & (f_code == ACT_ALLOW) & ~nc_m
     ins = miss_m & ~nc_m
     rev_ins = ins & committed & (dsr_m == 0)
@@ -462,15 +524,27 @@ def _fused_pack_rows(src_f, dst_f, proto, sport, dport, pp, f_code, svc_idx,
     zcol = (pref_col
             | torch.where(snat_m > 0, REPLY_BIT, 0)
             | torch.where(dsr_m > 0, DSR_BIT, 0)).to(_I32)
-    rev_h = hashing.flow_hash(_raw_bits(dnat_ip), _raw_bits(src_f), proto,
-                              dnat_port, sport)
-    rev_slot = (rev_h & (n_slots - 1)).to(_I32)
     rev_pg = proto | 0x100 | (GEN_ETERNAL << 9) | REPLY_BIT
-    keys8 = torch.stack([src_f, dst_f, pp, pg_ins, dnat_ip, src_f,
-                         _pair16(dnat_port, sport), rev_pg], dim=1)
-    meta8 = torch.stack([dnat_ip, m1, rules_p, zcol, dst_f,
-                         _pack_meta1(f_code, svc_idx, dport), rules_p,
-                         pref_col], dim=1)
+    rev_pp = _pair16(dnat_port, sport)
+    rev_m1 = _pack_meta1(f_code, svc_idx, dport)
+    if wide is None:
+        rev_h = hashing.flow_hash(_raw_bits(dnat_ip), _raw_bits(src_f), proto,
+                                  dnat_port, sport)
+        keys8 = torch.stack([src_f, dst_f, pp, pg_ins, dnat_ip, src_f,
+                             rev_pp, rev_pg], dim=1)
+        meta8 = torch.stack([dnat_ip, m1, rules_p, zcol, dst_f, rev_m1,
+                             rules_p, pref_col], dim=1)
+    else:
+        saddr, daddr, dnat_w = wide
+        rev_h = _wide_hash(dnat_w, saddr, proto, dnat_port, sport)
+        z = torch.zeros_like(proto)
+        keys8 = torch.cat([saddr, daddr, torch.stack([pp, pg_ins], dim=1),
+                           dnat_w, saddr, torch.stack([rev_pp, rev_pg], dim=1)],
+                          dim=1)
+        meta8 = torch.cat([dnat_w, torch.stack([m1, rules_p, zcol, z], dim=1),
+                           daddr, torch.stack([rev_m1, rules_p, pref_col, z],
+                                              dim=1)], dim=1)
+    rev_slot = (rev_h & (n_slots - 1)).to(_I32)
     return dict(committed=committed, ins=ins, rev_ins=rev_ins,
                 rev_slot=rev_slot, keys8=keys8, meta8=meta8)
 
@@ -512,7 +586,8 @@ def make_pipeline(
     """-> (step fn, initial PipelineState, (DeviceRuleSet, DeviceServiceTables)).
 
     step(state, drs, dsvc, src_f, dst_f, proto, sport, dport, now, gen,
-    flags=None) -> (state', out dict); state' is `state`, updated in place.
+    flags=None, lens=None, v6=None) -> (state', out dict); state' is
+    `state`, updated in place.
     drs/dsvc are explicit arguments so a rule-set swap is a call with new
     tensors and a bumped gen.  now and gen are ints (seconds, generation);
     the lane inputs are (B,) int32 tensors on the tables' device.
@@ -524,10 +599,12 @@ def make_pipeline(
     staged rounds (onepass=True demands it).  count_flow_stats,
     second_chance and telemetry set the PipelineMeta knobs of the same
     names (step then takes lens, the lanes' byte lengths, for the
-    counters).  dual_stack is not ported: it raises NotImplementedError.
+    counters).  dual_stack=True selects the wide (10-word) key layout: the
+    step then takes v6 = (src6w_f, dst6w_f, is6) lanes, and fused with
+    prune_budget keeps the staged pruned rounds (the one-pass step is
+    v4-only; onepass=True raises ValueError at the first step).
     """
     dev = resolve_device(device)
-    _refuse(dual_stack=dual_stack)
     check_rule_capacity(cps)
     drs_np, match_meta = to_host(cps, prune_budget=prune_budget)
     drs = ruleset_from_numpy(drs_np, dev)
@@ -542,28 +619,52 @@ def make_pipeline(
         ct_other_new_s=ct_other_new_s,
         ct_other_est_s=ct_other_est_s,
         fused=fused,
-        onepass=(bool(fused and prune_budget > 0) if onepass is None
-                 else bool(onepass)),
+        onepass=(bool(fused and prune_budget > 0 and not dual_stack)
+                 if onepass is None else bool(onepass)),
         count_flow_stats=count_flow_stats,
         second_chance=second_chance,
         telemetry=telemetry,
+        key_words=10 if dual_stack else 4,
     )
-    state = init_state(flow_slots, aff_slots, device=dev)
+    state = init_state(flow_slots, aff_slots, device=dev,
+                       key_words=meta.key_words)
 
     def step(state, drs, dsvc, src_f, dst_f, proto, sport, dport, now, gen,
-             flags=None, lens=None):
+             flags=None, lens=None, v6=None):
         return pipeline_step(state, drs, dsvc, src_f, dst_f, proto, sport,
                              dport, now, gen, meta=meta, flags=flags,
-                             lens=lens)
+                             lens=lens, v6=v6)
 
     step.meta = meta
     return step, state, (drs, dsvc)
 
 
-def _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now, aff_slots):
+def _frontend6(uip6_w: torch.Tensor, daddr: torch.Tensor):
+    """The v6 frontend probe: (row, hit) per lane of daddr (M, 4) in the
+    sorted, unique rows of uip6_w (NU6 > 0).  A search for the last row <=
+    the lane and one equality test; the JAX package compares every lane
+    with every row (pipeline.py:760-776), which gives the same row wherever
+    a row is equal."""
+    pos = _searchsorted6(uip6_w, daddr)
+    row = (pos - 1).clamp(min=0)
+    return row, (pos > 0) & (uip6_w[row] == daddr).all(dim=1)
+
+
+def _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now, aff_slots,
+                wide=None):
     """ServiceLB + affinity + endpoint choice for a (miss) sub-batch.
 
-    -> (svc_idx, no_ep, dnat_ip_f, dnat_port, snat, dsr, learn)."""
+    wide = (saddr, daddr, is6), the lanes' 4-word addresses (dual-stack
+    pipelines): v4 lanes probe the narrow frontend table as in a v4
+    pipeline, v6 lanes the v6 sub-table (_frontend6); affinity hashes and
+    matches the 4-word client, and a v6 service lane's DNAT resolution is
+    its endpoint's wide row.
+
+    -> (svc_idx, no_ep, dnat_ip_f, dnat_port, snat, dsr, dnat_w, learn);
+    dnat_w is the wide post-DNAT dst, (M, 4), None without `wide`."""
+    saddr = daddr = is6 = None
+    if wide is not None:
+        saddr, daddr, is6 = wide
     nu = dsvc.uip_f.shape[0]
     row = torch.searchsorted(dsvc.uip_f, dst_f).clamp(0, nu - 1)
     ip_is_svc = dsvc.uip_f[row] == dst_f
@@ -573,16 +674,34 @@ def _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now, aff_slots):
     # torch has no bool argmax; both frameworks return the first maximum.
     slot_col = slot_eq.to(_I32).argmax(dim=1)
     hit_lane = ip_is_svc & slot_found
+    if is6 is not None:
+        # A v6 lane's narrow dst column is a don't-care: never a frontend.
+        hit_lane = hit_lane & (is6 == 0)
     svc_idx = torch.where(hit_lane, dsvc.slot_svc[row, slot_col], MISS)
     snat_sel = torch.where(hit_lane, dsvc.slot_snat[row, slot_col], 0)
+    if is6 is not None and dsvc.uip6_w.shape[0] > 0:
+        row6, ip6_hit = _frontend6(dsvc.uip6_w, daddr)
+        slot_eq6 = dsvc.ppk6[row6] == key[:, None]
+        hit6 = (is6 != 0) & ip6_hit & slot_eq6.any(dim=1)
+        col6 = slot_eq6.to(_I32).argmax(dim=1)
+        svc_idx = torch.where(hit6, dsvc.slot_svc6[row6, col6], svc_idx)
+        snat_sel = torch.where(hit6, dsvc.slot_snat6[row6, col6], snat_sel)
 
     is_svc = svc_idx >= 0
     svc_safe = svc_idx.clamp(0, dsvc.n_ep.shape[0] - 1).long()
     no_ep = is_svc & (dsvc.has_ep[svc_safe] == 0)
 
-    # Session affinity (ClientIP, hard timeout) — the learn-flow analog.
+    # Session affinity (ClientIP, hard timeout) — the learn-flow analog;
+    # wide pipelines hash and match the client's 4 words.
     aff_on = is_svc & (dsvc.aff_timeout[svc_safe] > 0)
-    ah = hashing.fnv_mix([_raw_bits(src_f), svc_safe])
+    if saddr is None:
+        ah = hashing.fnv_mix([_raw_bits(src_f), svc_safe])
+        client_match = aff.key_client[ah & (aff_slots - 1)] == src_f
+    else:
+        ah = hashing.fnv_mix([_raw_bits(saddr[:, i]) for i in range(4)]
+                             + [svc_safe])
+        client_match = (aff.key_client[ah & (aff_slots - 1)]
+                        == saddr).all(dim=1)
     aslot = ah & (aff_slots - 1)
     a_ep = aff.ep[aslot]
     # Entry liveness = stored ep+1 > 0; a stored ep slot >= the service's
@@ -591,7 +710,7 @@ def _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now, aff_slots):
         aff_on
         & (a_ep > 0)
         & (a_ep - 1 < dsvc.n_ep[svc_safe])
-        & (aff.key_client[aslot] == src_f)
+        & client_match
         & (aff.key_svc[aslot] == svc_idx)
         & ((now - aff.ts[aslot]) <= dsvc.aff_timeout[svc_safe])
     )
@@ -603,32 +722,41 @@ def _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now, aff_slots):
     use_ep = is_svc & ~no_ep
     dnat_ip = torch.where(use_ep, dsvc.ep_ip_f[eidx], dst_f)
     dnat_port = torch.where(use_ep, dsvc.ep_port[eidx], dport)
+    dnat_w = None
+    if saddr is not None:
+        # v4 lanes map their narrow resolution, v6 service lanes take the
+        # endpoint's wide row, other v6 lanes keep their literal words.
+        dnat_w = torch.where((use_ep & (is6 != 0))[:, None],
+                             dsvc.ep_ipw_f[eidx],
+                             _wide_words(dnat_ip, daddr, is6))
     # SNAT is a property of the matched FRONTEND, DSR of the PROGRAM.
     snat = torch.where(use_ep, snat_sel, 0)
     dsr = torch.where(use_ep, dsvc.prog_dsr[svc_safe], 0)
     learn = {
         "mask": aff_on & ~aff_hit & ~no_ep,
         "aslot": aslot,
-        "client": src_f,
+        "client": src_f if saddr is None else saddr,
         "svc": svc_idx,
         "ep": ep_col + 1,  # stored +1: 0 means empty slot
     }
-    return svc_idx, no_ep, dnat_ip, dnat_port, snat, dsr, learn
+    return svc_idx, no_ep, dnat_ip, dnat_port, snat, dsr, dnat_w, learn
 
 
-def _lb_phase(meta, aff, dsvc, h, src_f, dst_f, proto, dport, now):
+def _lb_phase(meta, aff, dsvc, h, src_f, dst_f, proto, dport, now,
+              wide=None):
     """_service_lb under PH_LB; with it masked, no service resolution: lanes
-    keep their literal destination and nothing learns."""
+    keep their literal destination (and words) and nothing learns."""
     if meta.phases & PH_LB:
         return _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now,
-                           meta.aff_slots)
+                           meta.aff_slots, wide=wide)
     z = torch.zeros_like(src_f)
     svc_idx = torch.full_like(src_f, MISS)
     learn = {"mask": torch.zeros_like(src_f, dtype=torch.bool),
              "aslot": torch.zeros_like(src_f, dtype=torch.int64),
-             "client": src_f, "svc": svc_idx, "ep": z}
+             "client": src_f if wide is None else wide[0],
+             "svc": svc_idx, "ep": z}
     return (svc_idx, torch.zeros_like(src_f, dtype=torch.bool), dst_f, dport,
-            z, z, learn)
+            z, z, None if wide is None else wide[1], learn)
 
 
 def _svc_ref_of(svc_idx, dsvc):
@@ -713,9 +841,14 @@ def pipeline_step(
     meta.telemetry adds the tel_* outputs: the probe split of the valid
     lanes (hit, stale: the key matched but the entry aged out, miss), the
     one-pass dispatch's TEL_HALF_BLOCK count, and the inserts second chance
-    suppressed.  v6 is not ported."""
-    _refuse(v6=v6 is not None)
-    if meta.onepass and meta.match.prune_budget <= 0:
+    suppressed.
+
+    v6 = (src6w_f (B, 4), dst6w_f (B, 4), is6 (B,)) are the v6 lanes of a
+    dual-stack step (meta.key_words == 10; None: every lane v4), which then
+    also outputs dnat_w_f, the (B, 4) wide DNAT view (a reply hit's is the
+    un-DNAT frontend).  A v4 step refuses v6 lanes."""
+    A = meta.key_words - 2  # address columns: 2 (v4) or 8 (wide)
+    if meta.onepass and (A != 2 or meta.match.prune_budget <= 0):
         raise ValueError(
             "the one-kernel fast path (onepass) requires the narrow v4 "
             "key layout and an aggregate-pruned meta (prune_budget > 0)")
@@ -725,18 +858,26 @@ def pipeline_step(
     N = meta.flow_slots
     M = meta.miss_chunk
     dump = N
-    A = 2  # address columns (v4)
     DC, M1C, RC, ZC = _meta_cols(A)
     now = int(now)
     gen_w = int(gen) % GEN_ETERNAL  # never == GEN_ETERNAL
-
-    src_raw = _raw_bits(src_f)
-    dst_raw = _raw_bits(dst_f)
     pp = _pair16(sport, dport)
 
     # ---- fast path: flow-cache lookup ----
-    addr = torch.stack([src_f, dst_f], dim=1)
-    h = hashing.flow_hash(src_raw, dst_raw, proto, sport, dport)
+    if A == 2:
+        if v6 is not None:
+            raise ValueError(
+                "v6 lanes require a dual_stack pipeline "
+                "(make_pipeline(dual_stack=True))")
+        saddr = daddr = is6 = None
+        addr = torch.stack([src_f, dst_f], dim=1)
+        h = hashing.flow_hash(_raw_bits(src_f), _raw_bits(dst_f), proto,
+                              sport, dport)
+    else:
+        # Every lane as a 4-word v4-mapped or v6 address pair.
+        saddr, daddr, is6 = _wide_lanes(src_f, dst_f, v6)
+        addr = torch.cat([saddr, daddr], dim=1)
+        h = _wide_hash(saddr, daddr, proto, sport, dport)
     slot = h & (N - 1)
     pg_cur = proto | 0x100 | (gen_w << 9)
     pg_est = proto | 0x100 | (GEN_ETERNAL << 9)
@@ -763,7 +904,10 @@ def pipeline_step(
                "tel_probe_stale": (key_hit0 & ~hit & tv).sum(dtype=_I32),
                "tel_probe_miss": (~key_hit0 & tv).sum(dtype=_I32)}
     c_code, c_svc, c_dport = _unpack_meta1(mr[:, M1C])
+    # The narrow dnat view (wide rows: word 3, a don't-care for v6 lanes,
+    # whose consumers read c_dnat_w).
     c_dnat_ip = mr[:, DC]
+    c_dnat_w = mr[:, 0:4] if A == 8 else None
     c_rule_in, c_rule_out = _unpack_rules(mr[:, RC])
 
     # Idle-timeout refresh for hits (every duplicate writes the same value).
@@ -798,19 +942,29 @@ def pipeline_step(
 
     def partner_probe(keys, mask):
         """Each lane's partner tuple (the other direction of its hit
-        entry), key-verified against `keys`.  -> (p_slot, live_mask)."""
+        entry), key-verified against `keys`: a forward hit pairs with
+        (dnat, src), a reply hit with (dst, the cached frontend), in wide
+        words on a dual-stack step.  -> (p_slot, live_mask)."""
         p_sport = torch.where(rpl, dport, c_dport)
         p_dport = torch.where(rpl, c_dport, sport)
         p_pg = torch.where(rpl, pg_est, pg_est | REPLY_BIT)
-        p_src = torch.where(rpl, dst_f, c_dnat_ip)
-        p_dst = torch.where(rpl, c_dnat_ip, src_f)
-        p_h = hashing.flow_hash(_raw_bits(p_src), _raw_bits(p_dst), proto,
-                                p_sport, p_dport)
+        if A == 2:
+            p_src = torch.where(rpl, dst_f, c_dnat_ip)
+            p_dst = torch.where(rpl, c_dnat_ip, src_f)
+            p_addr = torch.stack([p_src, p_dst], dim=1)
+            p_h = hashing.flow_hash(_raw_bits(p_src), _raw_bits(p_dst), proto,
+                                    p_sport, p_dport)
+        else:
+            rplw = rpl[:, None]
+            p_srcw = torch.where(rplw, daddr, c_dnat_w)
+            p_dstw = torch.where(rplw, c_dnat_w, saddr)
+            p_addr = torch.cat([p_srcw, p_dstw], dim=1)
+            p_h = _wide_hash(p_srcw, p_dstw, proto, p_sport, p_dport)
         p_slot = p_h & (N - 1)
         pkr = keys[p_slot]
         live = (
             mask
-            & (pkr[:, 0] == p_src) & (pkr[:, 1] == p_dst)
+            & (pkr[:, :A] == p_addr).all(dim=1)
             & (pkr[:, A] == _pair16(p_sport, p_dport))
             & (pkr[:, A + 1] == p_pg)
         )
@@ -858,6 +1012,12 @@ def pipeline_step(
         torch.where(fwd_hit, (mr[:, ZC] >> 31) & 1, 0),
         torch.where(fwd_hit, (mr[:, ZC] >> 30) & 1, 0), zero],
         dim=1).to(_I32), torch.zeros((1, 9), dtype=_I32, device=dev)])
+    # The wide DNAT image (dual-stack): hits read the cached words, misses
+    # start from their literal dst words.
+    img_w = None
+    if A == 8:
+        img_w = torch.cat([torch.where(hit[:, None], c_dnat_w, daddr),
+                           torch.zeros((1, 4), dtype=_I32, device=dev)])
     n_evict = n_reclaim = torch.zeros((), dtype=_I32, device=dev)
     prune_on = meta.match.prune_budget > 0
     # Prune counters: aggregate-AND skips, full-width fallbacks, and the
@@ -903,10 +1063,16 @@ def pipeline_step(
             p_m = proto[safe]
             sp_m = sport[safe]
             dp_m = dport[safe]
+            wide_m = v6_m = None
+            if A == 8:
+                wide_m = (saddr[safe], daddr[safe], is6[safe])
 
-            svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = (
-                _lb_phase(meta, aff_snap, dsvc, h[safe], s_f, d_f, p_m, dp_m,
-                          now))
+            (svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, dnat_w,
+             learn) = _lb_phase(meta, aff_snap, dsvc, h[safe], s_f, d_f,
+                                p_m, dp_m, now, wide=wide_m)
+            if A == 8:
+                # The post-DNAT words double as the classifier's v6 lanes.
+                v6_m = (wide_m[0], dnat_w, wide_m[2])
             # Lanes classify on their POST-DNAT tuple; PH_CLS_SUM alone runs
             # the pruned classifier's aggregate phase only.
             cls = None
@@ -914,7 +1080,7 @@ def pipeline_step(
                                         and meta.phases & PH_CLS_SUM):
                 cls = classify_batch(
                     drs, s_f, dnat_ip, p_m, dnat_port, meta=meta.match,
-                    hit_combine=hit_combine, fused=meta.fused,
+                    hit_combine=hit_combine, fused=meta.fused, v6=v6_m,
                     svc_ref=_svc_ref_of(svc_idx, dsvc),
                     summary_only=not meta.phases & PH_CLS,
                     delta_n=meta.delta_n)
@@ -939,12 +1105,16 @@ def pipeline_step(
             rows = _fused_pack_rows(
                 s_f, d_f, p_m, sp_m, dp_m, pp[safe], code, svc_idx, dnat_ip,
                 dnat_port, snat_m, dsr_m, rule_in, rule_out, valid_m,
-                no_commit_m, now, gen_w, N, pmask)
+                no_commit_m, now, gen_w, N, pmask,
+                wide=None if A == 2 else (wide_m[0], wide_m[1], dnat_w))
             # Results into the output images (miss lanes are distinct;
             # padding lanes write the dump row).
-            img[torch.where(valid_m, idx, B)] = torch.stack(
+            tgt = torch.where(valid_m, idx, B)
+            img[tgt] = torch.stack(
                 [code, rule_in, rule_out, svc_idx, dnat_ip, dnat_port,
                  snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
+            if img_w is not None:
+                img_w[tgt] = dnat_w
             if meta.phases & PH_COMMIT:
                 lv = (lens[safe] if meta.count_flow_stats
                       and lens is not None else None)
@@ -983,6 +1153,9 @@ def pipeline_step(
     if prune_on:
         # Keys exist iff prune_budget > 0, as in the JAX step.
         out["n_prune_skips"], out["n_prune_fb"], out["prune_cand_hist"] = prune
+    if img_w is not None:
+        # The wide DNAT view; a v4 lane's word 3 is dnat_ip_f.
+        out["dnat_w_f"] = img_w[:B]
     if tel is not None:
         # Keys exist iff meta.telemetry.  The one-pass dispatch counts the
         # JAX kernel's half-blocks of the padded batch (TEL_TILE).
@@ -996,9 +1169,10 @@ def pipeline_step(
 def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
             lv=None):
     """In place: commit a set of lanes' forward and reply rows
-    (_fused_pack_rows output) interleaved per lane [fwd_i, rev_i], so
-    last-writer-wins resolves collisions in per-lane insert order, and
-    their affinity learns.  Under meta.second_chance the guard first drops
+    (_fused_pack_rows output, narrow or wide) interleaved per lane [fwd_i,
+    rev_i], so last-writer-wins resolves collisions in per-lane insert
+    order, and their affinity learns (a 4-word client row on a dual-stack
+    state).  Under meta.second_chance the guard first drops
     the inserts that would evict a protected entry.  Under PH_EVICT the
     eviction census (an insert over a live entry whose tuple differs; a
     same-tuple rewrite is an update) reads each target's key row, and under
@@ -1012,12 +1186,12 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
     int32 scalars."""
     flow, aff = state.flow, state.aff
     dump = meta.flow_slots
-    A = 2
+    A = meta.key_words - 2
     ZC = _meta_cols(A)[3]
     m = slot.shape[0]
     slot2 = torch.stack([slot, rows["rev_slot"].long()], dim=1).reshape(2 * m)
-    keys2 = rows["keys8"].reshape(2 * m, 4)
-    meta2 = rows["meta8"].reshape(2 * m, 4)
+    keys2 = rows["keys8"].reshape(2 * m, A + 2)
+    meta2 = rows["meta8"].reshape(2 * m, flow.meta.shape[1])
     ins2 = torch.stack([rows["ins"], rows["rev_ins"]], dim=1).reshape(2 * m)
     n_chance = None
     if meta.second_chance:
@@ -1097,7 +1271,7 @@ def _onepass_inputs(aff, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     onepass.OnepassStatic, the affinity learn dict)."""
     if lb is None:
         lb = _lb_phase(meta, aff, dsvc, h, src_f, dst_f, proto, dport, now)
-    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = lb
+    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, _dw, learn = lb
     mm = meta.match
     z = torch.zeros_like(src_f)
     x = onepass.OnepassInputs(
@@ -1148,7 +1322,7 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     mm = meta.match
     N = meta.flow_slots
     lb = _lb_phase(meta, state.aff, dsvc, h, src_f, dst_f, proto, dport, now)
-    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, learn = lb
+    svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, _dw, learn = lb
     nc = (torch.zeros_like(miss) if no_commit is None else no_commit)
     pv = torch.ones_like(miss) if valid is None else valid  # counted lanes
     zero = torch.zeros((), dtype=_I32, device=src_f.device)
@@ -1481,32 +1655,47 @@ def pipeline_trace(state: PipelineState, drs: DeviceRuleSet,
     """Read-only per-packet stage trace (pipeline.py:2388): every packet
     walks ServiceLB and the full classifier (the instance's fused and
     pruned meta, its pending deltas) whatever its cache state, and the
-    cache lookup is reported beside it.  No state is written."""
-    _refuse(v6=v6 is not None)
+    cache lookup is reported beside it.  No state is written.  On a
+    dual-stack meta, v6 lanes as in pipeline_step, and the wide views
+    dnat_w_f and cached_dnat_w_f."""
     flow, aff = state.flow, state.aff
     N = meta.flow_slots
+    A = meta.key_words - 2
     now = int(now)
     gen_w = int(gen) % GEN_ETERNAL
     pp = _pair16(sport, dport)
-    addr = torch.stack([src_f, dst_f], dim=1)
-    h = hashing.flow_hash(_raw_bits(src_f), _raw_bits(dst_f), proto, sport,
-                          dport)
+    wide = None
+    if A == 2:
+        if v6 is not None:
+            raise ValueError(
+                "v6 lanes require a dual_stack pipeline "
+                "(make_pipeline(dual_stack=True))")
+        addr = torch.stack([src_f, dst_f], dim=1)
+        h = hashing.flow_hash(_raw_bits(src_f), _raw_bits(dst_f), proto,
+                              sport, dport)
+    else:
+        wide = _wide_lanes(src_f, dst_f, v6)
+        addr = torch.cat(wide[:2], dim=1)
+        h = _wide_hash(*wide[:2], proto, sport, dport)
     slot = h & (N - 1)
     pg_cur = proto | 0x100 | (gen_w << 9)
     pg_est = proto | 0x100 | (GEN_ETERNAL << 9)
     hit, est, rpl, mr, _kr, _ts = _cache_lookup(
         flow, slot, addr, pp, pg_cur, pg_est, now, proto, meta)
-    DC, M1C, _RC, _ZC = _meta_cols(2)
+    DC, M1C, _RC, _ZC = _meta_cols(A)
     c_code, _c_svc, c_dport = _unpack_meta1(mr[:, M1C])
-    svc_idx, no_ep, dnat_ip, dnat_port, snat, dsr, _learn = _service_lb(
-        aff, dsvc, h, src_f, dst_f, proto, dport, now, meta.aff_slots)
+    svc_idx, no_ep, dnat_ip, dnat_port, snat, dsr, dnat_w, _learn = (
+        _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now,
+                    meta.aff_slots, wide=wide))
     cls = classify_batch(drs, src_f, dnat_ip, proto, dnat_port,
                          meta=meta.match, hit_combine=hit_combine,
                          fused=meta.fused, svc_ref=_svc_ref_of(svc_idx, dsvc),
-                         delta_n=meta.delta_n)
+                         delta_n=meta.delta_n,
+                         v6=None if wide is None else (wide[0], dnat_w,
+                                                       wide[2]))
     fresh_code = torch.where(no_ep, ACT_REJECT, cls["code"]).to(_I32)
     code = torch.where(hit, c_code, fresh_code)
-    return {
+    out = {
         "cache_hit": hit.to(_I32),
         "est": est.to(_I32),
         "reply": rpl.to(_I32),
@@ -1527,3 +1716,7 @@ def pipeline_trace(state: PipelineState, drs: DeviceRuleSet,
         "code": code,
         "reject_kind": reject_kind_of(code, proto),
     }
+    if A == 8:
+        out["dnat_w_f"] = dnat_w
+        out["cached_dnat_w_f"] = mr[:, 0:4]
+    return out

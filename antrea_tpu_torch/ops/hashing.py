@@ -42,3 +42,16 @@ def flow_hash(src, dst, proto, sport, dport, salt=0x5CA1AB1E) -> torch.Tensor:
         ((u32(proto) << 16) & _U32) ^ u32(sport),
         u32(dport) ^ salt,
     ])
+
+
+def flow_hash_wide(addr_cols, proto, sport, dport,
+                   salt=0x5CA1AB1E) -> torch.Tensor:
+    """Dual-stack 5-tuple hash: the 8 address words of both endpoints in
+    the wide word form (sign-flipped int32 is fine: their u32 bits are
+    hashed, as in the JAX package) then the proto/port words -> int64
+    u32."""
+    return fnv_mix([
+        *addr_cols,
+        ((u32(proto) << 16) & _U32) ^ u32(sport),
+        u32(dport) ^ salt,
+    ])

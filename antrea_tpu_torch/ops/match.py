@@ -1,9 +1,11 @@
 """Batched conjunctive-match classification: the PyTorch port of
-antrea_tpu/ops/match.py (v4 lanes), on one card or on one rule shard of a
-mesh (parallel/mesh.py).
+antrea_tpu/ops/match.py (v4 and v6 lanes), on one card or on one rule shard
+of a mesh (parallel/mesh.py).
 
 Per packet and direction: an interval lookup per dimension (appliedTo, peer,
-service) over that dimension's own boundaries, one incidence-row gather per
+service) over that dimension's own boundaries (a v6 lane looks its 4-word
+address up in the dimension's v6 sub-space, whose rows follow the v4 ones:
+_dim_index, _searchsorted6), one incidence-row gather per
 dimension, the AND of the three rows, and per rule phase the lowest set rule
 index (rule order is priority order).  With fused=True the row reads, the
 AND and the phase scan are the B1 consumer (ops/consumer.py, a CUDA kernel
@@ -77,8 +79,8 @@ _FB_MIN = 64
 class DimTable(NamedTuple):
     """One match dimension: interval bounds + rule-incidence rows.
 
-    Rows 0..NB4 are the v4 interval space; rows NB4+1.. the v6 space (this
-    port classifies v4 lanes only, but keeps the table layout)."""
+    Rows 0..NB4 are the v4 interval space; rows NB4+1.. the v6 space (ip
+    dimensions only: the svc key space is shared by both families)."""
 
     bounds: torch.Tensor  # (NB4,) int32 ascending (sign-flipped for IP dims)
     bounds6: torch.Tensor  # (NB6, 4) int32, v6 boundaries
@@ -113,8 +115,9 @@ class DeltaTable(NamedTuple):
     order, so a later clear undoes an earlier set on the same lane and bit.
     The number of active slots is a host int the caller passes (the
     engine's count; PipelineMeta.delta_n), so no step reads `n` back from
-    the device.  Empty slots: sign == 0.  v6 slots (fam) are kept for
-    layout parity; this port patches v4 lanes."""
+    the device.  Empty slots: sign == 0.  Slots are family-pure: a v4 slot
+    (fam 0) covers [lo_f, hi_f] of v4 lanes, a v6 slot (fam 1) the
+    lexicographic word range [lo6_w, hi6_w] of v6 lanes."""
 
     lo_f: torch.Tensor  # (D,) sign-flipped int32, inclusive
     hi_f: torch.Tensor  # (D,) sign-flipped int32, inclusive
@@ -662,10 +665,96 @@ def to_device(
 # ---------------------------------------------------------------------------
 
 
-def _dim_index(tab, x: torch.Tensor) -> torch.Tensor:
-    """Interval row index of v4 lanes: searchsorted(side='right') in the v4
-    sub-space, as int64 indices."""
-    return torch.searchsorted(tab.bounds, x, right=True)
+def _lex_le4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lexicographic a <= b over a trailing 4-word axis of per-word
+    sign-flipped int32 (match.py:620), so signed compares give the
+    unsigned order of the 128-bit values."""
+    lt = a < b
+    eq = a == b
+    return lt[..., 0] | (eq[..., 0] & (lt[..., 1] | (eq[..., 1] & (
+        lt[..., 2] | (eq[..., 2] & (lt[..., 3] | eq[..., 3]))))))
+
+
+def _key2(w: torch.Tensor) -> torch.Tensor:
+    """(..., 4) per-word sign-flipped int32 -> (..., 2) int64 whose
+    lexicographic signed order is _lex_le4's: each key is a word pair, the
+    high (signed) word times 2**32 plus the low word's unsigned value."""
+    w = w.to(torch.int64)
+    return torch.stack([(w[..., 0] << 32) + (w[..., 1] + 2**31),
+                        (w[..., 2] << 32) + (w[..., 3] + 2**31)], dim=-1)
+
+
+def _le2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """_lex_le4 over _key2 keys (..., 2)."""
+    return (a[..., 0] < b[..., 0]) | ((a[..., 0] == b[..., 0])
+                                      & (a[..., 1] <= b[..., 1]))
+
+
+_KEY_MAX = 2**63 - 1
+
+
+def _searchsorted6_many(bounds6s, xws) -> list:
+    """_searchsorted6 of T (bounds6, lanes) pairs in one binary search:
+    the tables' _key2 keys stacked into (T, P, 2), P the least power of
+    two above every N, the rows past a table's own N padded with the
+    largest key (>= every lane, so each table's predicate "row <= lane"
+    stays a prefix), and each count capped at its N.  log2(P) steps of one
+    (T, B, 2) gather each.  -> T (B,) int64 counts."""
+    ns = [b.shape[0] for b in bounds6s]
+    lanes = xws[0].shape[0]
+    dev = xws[0].device
+    if max(ns) == 0:
+        return [torch.zeros(lanes, dtype=torch.int64, device=dev)
+                for _ in ns]
+    p = 1 << max(ns).bit_length()
+    keys = torch.full((len(ns) * p, 2), _KEY_MAX, dtype=torch.int64,
+                      device=dev)
+    at = np.concatenate([t * p + np.arange(n) for t, n in enumerate(ns)])
+    keys[torch.from_numpy(at).to(dev)] = _key2(torch.cat(bounds6s))
+    keys = keys.view(len(ns), p, 2)
+    xk = _key2(torch.stack(xws))  # (T, B, 2)
+    pos = torch.zeros((len(ns), lanes), dtype=torch.int64, device=dev)
+    step = p >> 1
+    while step:
+        row = keys.gather(1, (pos + (step - 1))[..., None].expand(-1, -1, 2))
+        le = torch.where(row[..., 0] == xk[..., 0], row[..., 1] <= xk[..., 1],
+                         row[..., 0] < xk[..., 0])
+        pos = pos + le * step
+        step >>= 1
+    cap = torch.tensor(ns, dtype=torch.int64, device=dev)[:, None]
+    return list(torch.minimum(pos, cap))
+
+
+def _searchsorted6(bounds6: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
+    """Lexicographic searchsorted(side='right') over 4-word v6 boundaries:
+    per lane of xw (B, 4), the number of rows of bounds6 (N, 4), sorted
+    ascending, that are <= it (match.py:1170; 0 when N == 0).
+
+    The JAX package compares every lane with every bound, a (B, N)
+    intermediate; here a binary search over the bounds' _key2 keys takes
+    log2(N) + 1 steps of one (B,) gather each (_searchsorted6_many).
+    Pad rows (the all-ones address) sit at the end, so the predicate "row
+    <= lane" stays a prefix and the count is exact, duplicates
+    included."""
+    return _searchsorted6_many([bounds6], [xw])[0]
+
+
+def _dim_index(tab, x: torch.Tensor, x6w=None, is6=None) -> torch.Tensor:
+    """Interval row index for one dimension (int64): searchsorted
+    (side='right') in the v4 sub-space, or, for a v6 lane (is6 != 0), its
+    4-word address x6w searched in the v6 sub-space, offset past the v4
+    rows (match.py:813).  x6w None: no v6 lanes in this probe (a v4 batch,
+    or the family-blind svc key space)."""
+    i4 = torch.searchsorted(tab.bounds, x, right=True)
+    if x6w is None:
+        return i4
+    return _rows6(tab, i4, _searchsorted6(tab.bounds6, x6w), is6)
+
+
+def _rows6(tab, i4, n6, is6):
+    """A dimension's interval rows from the v4 index i4 and the v6 count n6:
+    a v6 lane's row lies past the v4 rows (the DimTable layout)."""
+    return torch.where(is6 != 0, tab.bounds.shape[0] + 1 + n6, i4)
 
 
 def _svcref_key(svc_key: torch.Tensor, svc_ref) -> torch.Tensor:
@@ -719,19 +808,37 @@ def tables(drs: DeviceRuleSet) -> tuple:
                                  eg.svc))
 
 
-def interval_rows(drs: DeviceRuleSet, src_ip_f, dst_ip_f, svc_key,
-                  ref_key=None) -> torch.Tensor:
-    """The lanes' interval rows, (B, 8) int32 [in_at, in_peer, in_svc,
-    out_at, out_peer, out_svc, svcref_row, 0]: ingress probes appliedTo with
-    the pod side (dst) and peer with src, egress the reverse; svcref_row is
-    the egress svc row of ref_key (0 without one)."""
+def lane_rows(drs: DeviceRuleSet, src_ip_f, dst_ip_f, svc_key,
+              ref_key=None, v6=None):
+    """The lanes' interval rows and isolation bits -> (iv, iso_in,
+    iso_out): iv (B, 8) int32 [in_at, in_peer, in_svc, out_at, out_peer,
+    out_svc, svcref_row, 0], ingress probing appliedTo with the pod side
+    (dst) and peer with src, egress the reverse, svcref_row the egress svc
+    row of ref_key (0 without one); iso_in on dst, iso_out on src.  v6 =
+    (src6w, dst6w, is6): v6 lanes take their ip rows in the tables' v6
+    sub-spaces, all six found by one _searchsorted6_many."""
     ing, eg = drs.ingress, drs.egress
-    cols = [_dim_index(ing.at, dst_ip_f), _dim_index(ing.peer, src_ip_f),
-            _dim_index(ing.svc, svc_key), _dim_index(eg.at, src_ip_f),
-            _dim_index(eg.peer, dst_ip_f), _dim_index(eg.svc, svc_key)]
+    ip_tabs = (ing.at, ing.peer, eg.at, eg.peer, drs.iso_in, drs.iso_out)
+    on_dst = (True, False, False, True, True, False)
+    ip = [torch.searchsorted(t.bounds, dst_ip_f if d else src_ip_f,
+                             right=True) for t, d in zip(ip_tabs, on_dst)]
+    if v6 is not None:
+        s6, d6, is6 = v6
+        six = _searchsorted6_many([t.bounds6 for t in ip_tabs],
+                                  [d6 if d else s6 for d in on_dst])
+        ip = [_rows6(t, i4, n6, is6) for t, i4, n6 in zip(ip_tabs, ip, six)]
+    cols = [ip[0], ip[1], _dim_index(ing.svc, svc_key), ip[2], ip[3],
+            _dim_index(eg.svc, svc_key)]
     z = torch.zeros_like(cols[0])
     ref = z if ref_key is None else _dim_index(eg.svc, ref_key)
-    return torch.stack([*cols, ref, z], dim=1).to(torch.int32)
+    iv = torch.stack([*cols, ref, z], dim=1).to(torch.int32)
+    return iv, drs.iso_in.val[ip[4]], drs.iso_out.val[ip[5]]
+
+
+def interval_rows(drs: DeviceRuleSet, src_ip_f, dst_ip_f, svc_key,
+                  ref_key=None, v6=None) -> torch.Tensor:
+    """The lanes' interval rows, (B, 8) int32 (lane_rows' iv)."""
+    return lane_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key, v6)[0]
 
 
 def shard_offsets(hit_combine=None) -> tuple[int, int]:
@@ -760,19 +867,39 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
 
 
-def _delta_lane_match(ip_f: torch.Tensor, dt: DeltaTable,
-                      i: int) -> torch.Tensor:
-    """Lanes slot i's (v4) range covers.  lo_f and hi_f are sign-flipped,
-    so the compares are int32 ones."""
-    return (ip_f >= dt.lo_f[i]) & (ip_f <= dt.hi_f[i])
+def _delta_lane_match(ip_f: torch.Tensor, dt: DeltaTable, i: int,
+                      wide=None) -> torch.Tensor:
+    """Lanes slot i covers (match.py:628).  Without `wide` the narrow test:
+    lo_f and hi_f are sign-flipped, so the compares are int32 ones.  With
+    wide = (xw (B, 4), is6) the family-aware one: a v4 slot covers v4 lanes
+    on the narrow column, a v6 slot (fam 1) v6 lanes whose words lie in
+    [lo6_w, hi6_w] lexicographically."""
+    m4 = (ip_f >= dt.lo_f[i]) & (ip_f <= dt.hi_f[i])
+    if wide is None:
+        return m4
+    xw, is6 = wide
+    m4 = m4 & (is6 == 0) & (dt.fam[i] == 0)
+    m6 = ((is6 != 0) & (dt.fam[i] == 1)
+          & _lex_le4(dt.lo6_w[i][None, :], xw)
+          & _lex_le4(xw, dt.hi6_w[i][None, :]))
+    return m4 | m6
 
 
-def _delta_matches(ip_f: torch.Tensor, dt: DeltaTable,
-                   n: int) -> torch.Tensor:
+def _delta_matches(ip_f: torch.Tensor, dt: DeltaTable, n: int,
+                   wide=None) -> torch.Tensor:
     """(B,) lanes x the first n slots -> (B, n) bool, _delta_lane_match of
-    every slot at once."""
-    return ((ip_f[:, None] >= dt.lo_f[None, :n])
-            & (ip_f[:, None] <= dt.hi_f[None, :n]))
+    every slot at once (the v6 ranges compared as _key2 pairs)."""
+    m4 = ((ip_f[:, None] >= dt.lo_f[None, :n])
+          & (ip_f[:, None] <= dt.hi_f[None, :n]))
+    if wide is None:
+        return m4
+    xw, is6 = wide
+    v6 = (is6 != 0)[:, None]
+    fam6 = (dt.fam[:n] == 1)[None, :]
+    xk = _key2(xw)[:, None, :]
+    m6 = (_le2(_key2(dt.lo6_w[:n])[None, :, :], xk)
+          & _le2(xk, _key2(dt.hi6_w[:n])[None, :, :]))
+    return torch.where(v6, fam6 & m6, ~fam6 & m4)
 
 
 def _patch_rows_m(rows: torch.Tensor, m: torch.Tensor, dt: DeltaTable,
@@ -792,23 +919,24 @@ def _patch_rows_m(rows: torch.Tensor, m: torch.Tensor, dt: DeltaTable,
 
 
 def _patch_rows(rows: torch.Tensor, ip_f: torch.Tensor, dt: DeltaTable,
-                masks: torch.Tensor, n: int) -> torch.Tensor:
+                masks: torch.Tensor, n: int, wide=None) -> torch.Tensor:
     """The n active delta slots applied to gathered incidence rows (B, W)
-    of lanes probed with ip_f (match.py:_patch_rows)."""
+    of lanes probed with ip_f (match.py:_patch_rows; wide as in
+    _delta_lane_match)."""
     if n <= 0:
         return rows
-    return _patch_rows_m(rows, _delta_matches(ip_f, dt, n), dt, masks)
+    return _patch_rows_m(rows, _delta_matches(ip_f, dt, n, wide), dt, masks)
 
 
 def _patch_iso(bit: torch.Tensor, ip_f: torch.Tensor, dt: DeltaTable,
-               which: int, n: int) -> torch.Tensor:
+               which: int, n: int, wide=None) -> torch.Tensor:
     """Isolation bits (B,) patched by the n active slots whose iso bit
     `which` is set (0: iso_in, 1: iso_out): of the slots covering a lane,
     the last one with a sign decides, as the in-order loop of
     match.py:_patch_iso does."""
     if n <= 0:
         return bit
-    m = (_delta_matches(ip_f, dt, n)
+    m = (_delta_matches(ip_f, dt, n, wide)
          & (((dt.iso[:n] >> which) & 1) == 1)[None, :]
          & (dt.sign[:n] != 0)[None, :])
     order = torch.arange(n, device=bit.device)
@@ -841,11 +969,11 @@ def _patch_agg_m(rows: torch.Tensor, m: torch.Tensor, dt: DeltaTable,
 
 
 def _patch_agg(rows: torch.Tensor, ip_f: torch.Tensor, dt: DeltaTable,
-               masks: torch.Tensor, n: int) -> torch.Tensor:
+               masks: torch.Tensor, n: int, wide=None) -> torch.Tensor:
     """match.py:_patch_agg over the n active slots."""
     if n <= 0:
         return rows
-    return _patch_agg_m(rows, _delta_matches(ip_f, dt, n), dt, masks)
+    return _patch_agg_m(rows, _delta_matches(ip_f, dt, n, wide), dt, masks)
 
 
 # The four address dimensions a delta patches: (interval-row column of iv,
@@ -888,9 +1016,20 @@ class DeltaOverlay(NamedTuple):
     aggs: Optional[tuple] = None
 
 
+def _wide_pair(v6, lanes=None):
+    """v6 = (src6w, dst6w, is6) -> the (src, dst) `wide` arguments of the
+    delta tests, restricted to `lanes`; (None, None) without v6."""
+    if v6 is None:
+        return None, None
+    s6, d6, is6 = v6
+    if lanes is not None:
+        s6, d6, is6 = s6[lanes], d6[lanes], is6[lanes]
+    return (s6, is6), (d6, is6)
+
+
 def delta_overlay(drs: DeviceRuleSet, iv: torch.Tensor, src_ip_f, dst_ip_f,
                   n: int, lanes: Optional[torch.Tensor] = None,
-                  with_agg: bool = False) -> Optional[DeltaOverlay]:
+                  with_agg: bool = False, v6=None) -> Optional[DeltaOverlay]:
     """The overlay of the lanes that one of the n active delta slots covers
     (ingress probes appliedTo with dst and peer with src, egress the
     reverse, so a lane is touched when a slot covers its src or its dst);
@@ -898,12 +1037,14 @@ def delta_overlay(drs: DeviceRuleSet, iv: torch.Tensor, src_ip_f, dst_ip_f,
     patched row per distinct (interval row, set of covering slots), so its
     size follows the distinct addresses, not the lanes.  None when no lane
     is touched.  iv (B, 8) are the lanes' interval rows (interval_rows, or
-    B3's); its svc columns are kept."""
+    B3's); its svc columns are kept.  v6 = (src6w, dst6w, is6) makes the
+    slot tests family-aware (_delta_lane_match)."""
     d = drs.ip_delta
+    w_src, w_dst = _wide_pair(v6, lanes)
     m_src = _delta_matches(src_ip_f if lanes is None else src_ip_f[lanes],
-                           d, n)
+                           d, n, w_src)
     m_dst = _delta_matches(dst_ip_f if lanes is None else dst_ip_f[lanes],
-                           d, n)
+                           d, n, w_dst)
     if lanes is None:
         lanes = torch.nonzero((m_src | m_dst).any(dim=1)).flatten()
         m_src, m_dst = m_src[lanes], m_dst[lanes]
@@ -929,12 +1070,14 @@ def delta_overlay(drs: DeviceRuleSet, iv: torch.Tensor, src_ip_f, dst_ip_f,
 
 
 def _patch_isos(drs: DeviceRuleSet, iso_in, iso_out, src_ip_f, dst_ip_f,
-                lanes, n: int):
+                lanes, n: int, v6=None):
     """In place: the isolation bits of `lanes` patched, iso_in on dst and
     iso_out on src (match.py:1277-1278)."""
     d = drs.ip_delta
-    iso_in[lanes] = _patch_iso(iso_in[lanes], dst_ip_f[lanes], d, 0, n)
-    iso_out[lanes] = _patch_iso(iso_out[lanes], src_ip_f[lanes], d, 1, n)
+    w_src, w_dst = _wide_pair(v6, lanes)
+    iso_in[lanes] = _patch_iso(iso_in[lanes], dst_ip_f[lanes], d, 0, n, w_dst)
+    iso_out[lanes] = _patch_iso(iso_out[lanes], src_ip_f[lanes], d, 1, n,
+                                w_src)
 
 
 def rewalk_hits(tabs, iv: torch.Tensor, fb: torch.Tensor,
@@ -1012,36 +1155,40 @@ def classify_batch(
     the rule shards, with an attribute w0 = (w0_in, w0_out), the global
     index of this shard's first word per direction (host ints).  The
     tables are then this shard's word slice, and the per-phase first
-    matches are combined between the scan and the resolution.  v6 lanes
-    are not ported.
+    matches are combined between the scan and the resolution.
+
+    v6 = (src6w_f (B, 4), dst6w_f (B, 4), is6 (B,)) is the dual-stack lane
+    extension: per-word sign-flipped v6 addresses and the family mask.  v6
+    lanes take their ip dimensions' and isolation tables' rows in the v6
+    sub-spaces (their v4 columns are ignored), so B1 and B2 read those rows
+    unchanged; None is a v4 batch.
 
     delta_n > 0 applies the first delta_n slots of drs.ip_delta (the
     engine's pending membership deltas; a host int, so nothing is read
     back to find them): the lanes a slot covers are walked a second time
     on a DeltaOverlay (B1 again when fused) and written back, and their
-    isolation bits patched."""
-    _refuse(v6=v6 is not None)
+    isolation bits patched (family-aware with v6)."""
     if meta.prune_budget > 0 and drs.ingress.at.agg is not None:
         return _classify_pruned(drs, src_ip_f, dst_ip_f, proto, dst_port,
                                 meta=meta, fused=fused, svc_ref=svc_ref,
                                 summary_only=summary_only,
-                                hit_combine=hit_combine, delta_n=delta_n)
+                                hit_combine=hit_combine, delta_n=delta_n,
+                                v6=v6)
     ing, eg = drs.ingress, drs.egress
     svc_key = (proto << 16) | dst_port
     ref_key = _svcref_key(svc_key, svc_ref) if meta.svcref else None
-    iso_in = drs.iso_in.val[_dim_index(drs.iso_in, dst_ip_f)]
-    iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
-    iv = interval_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key)
+    iv, iso_in, iso_out = lane_rows(drs, src_ip_f, dst_ip_f, svc_key,
+                                    ref_key, v6)
     w0_in, w0_out = shard_offsets(hit_combine)
 
     hits = walk_hits(tables(drs), iv, meta, fused, w0_in, w0_out)
-    ov = (delta_overlay(drs, iv, src_ip_f, dst_ip_f, delta_n)
+    ov = (delta_overlay(drs, iv, src_ip_f, dst_ip_f, delta_n, v6=v6)
           if delta_n > 0 else None)
     if ov is not None:
         hits[ov.lanes] = walk_hits(ov.tabs, ov.iv, meta, fused, w0_in,
                                    w0_out)
         _patch_isos(drs, iso_in, iso_out, src_ip_f, dst_ip_f, ov.lanes,
-                    delta_n)
+                    delta_n, v6)
     if hit_combine is not None:
         hits = hit_combine(hits.contiguous())
     in_hits = (hits[:, 0], hits[:, 1], hits[:, 2])
@@ -1063,9 +1210,9 @@ def classify_batch(
 def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
                      dst_port, *, meta: StaticMeta, fused: bool, svc_ref,
                      summary_only: bool = False, hit_combine=None,
-                     delta_n: int = 0):
-    """The two-level pruned classify (match.py:_classify_pruned), v4, on
-    one card or one rule shard.  An aggregate bit is set iff its incidence word is nonzero, so a
+                     delta_n: int = 0, v6=None):
+    """The two-level pruned classify (match.py:_classify_pruned), v4 and v6
+    lanes, on one card or one rule shard.  An aggregate bit is set iff its incidence word is nonzero, so a
     zero aggregate AND proves no match and the candidate superblocks cover
     every matching word.  Candidates are scanned lowest first, so a phase
     hit among the K lowest is the true first match; lanes with more than K
@@ -1096,16 +1243,16 @@ def _classify_pruned(drs: DeviceRuleSet, src_ip_f, dst_ip_f, proto,
     K = meta.prune_budget
     svc_key = (proto << 16) | dst_port
     ref_key = _svcref_key(svc_key, svc_ref) if meta.svcref else None
-    iv = interval_rows(drs, src_ip_f, dst_ip_f, svc_key, ref_key)
-    iso_in = drs.iso_in.val[_dim_index(drs.iso_in, dst_ip_f)]
-    iso_out = drs.iso_out.val[_dim_index(drs.iso_out, src_ip_f)]
+    iv, iso_in, iso_out = lane_rows(drs, src_ip_f, dst_ip_f, svc_key,
+                                    ref_key, v6)
     w0_in, w0_out = shard_offsets(hit_combine)
 
-    ov = (delta_overlay(drs, iv, src_ip_f, dst_ip_f, delta_n, with_agg=True)
+    ov = (delta_overlay(drs, iv, src_ip_f, dst_ip_f, delta_n, with_agg=True,
+                        v6=v6)
           if delta_n > 0 else None)
     if ov is not None:
         _patch_isos(drs, iso_in, iso_out, src_ip_f, dst_ip_f, ov.lanes,
-                    delta_n)
+                    delta_n, v6)
     g, nc, ke = [], [], []
     for d, dd in enumerate((ing, eg)):
         # The aggregate AND of the direction's three dimension rows (the
@@ -1191,6 +1338,9 @@ def make_classifier(cps: CompiledPolicySet, device=None):
     def fn(src_f, dst_f, proto, dport, v6=None):
         args = (torch.as_tensor(x, device=dev)
                 for x in (src_f, dst_f, proto, dport))
+        if v6 is not None:
+            v6 = tuple(torch.as_tensor(np.asarray(x, np.int32), device=dev)
+                       for x in v6)
         return classify_batch(drs, *args, meta=meta, v6=v6)
 
     return fn, drs

@@ -118,6 +118,26 @@ package is missing, or when any phase fails.  Phases, in order:
      engine: the chain's phases, summing to the total, cache_stats()
      unchanged.
 
+ 15. dual-stack at the headline width, on the headline world's twin (each
+     pod also at fd00:10:0:<node>::<pod + 2>, each Service also at
+     fd00:96::<i> with its endpoints' twins; the lanes of every flow with an
+     odd source port carry its v6 twin, about half the batch), one pipeline
+     or engine at a time: (a) B1 and B2 (K = 4) against their plain versions
+     on the dual-stack tables at the batch's post-DNAT interval rows, v6
+     sub-space rows included (first 256 and 32768 lanes, timed with both
+     bounds as in phase 3); (b) the full walk on the staged fused
+     dual-stack pipeline with node-0's dual-stack topology: cold, warm, 8
+     steady steps, two coverage steps (spoofed v6 lanes, ND requests,
+     FIN/RST), and its 4096-lane card-vs-CPU check; (c) the pruned classify
+     with v6 lanes on 2**15 lanes; (d) the dual-stack engine (fused,
+     canary_probes=8, delta_slots=128): cold, warm, 8 steady steps (the host
+     views of the wide columns timed), v6 pod churn on 4 address groups and
+     a step of 2**17 fresh v6 flows to the churned addresses, whose
+     verdicts and rule ids equal an engine built from the post-delta
+     PolicySet; (e) 4096 lanes, half v6, cold then warm through fresh
+     engines on the card and on the CPU: every StepResult field, the
+     tables, dump_flows() and a 16-lane trace() bitwise equal.
+
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
 of a 2-way word split (shard 1 at w0 = W / 2); in phase 5 on the warm
@@ -574,8 +594,11 @@ def check_out(out, b, slow=True):
             if slow and int(v[:-1].sum()) != int(out["n_miss"]):
                 raise SystemExit("prune_cand_hist does not count every miss")
             continue
-        if v.dim() and v.shape != (b,):
-            raise SystemExit(f"out[{k}] has shape {tuple(v.shape)}, not ({b},)")
+        # The dual-stack walk's wide views are (b, 4).
+        want = (b, 4) if k in ("dnat_w_f", "peer_w") else (b,)
+        if v.dim() and v.shape != want:
+            raise SystemExit(f"out[{k}] has shape {tuple(v.shape)}, not "
+                             f"{want}")
         if v.dtype != torch.int32:
             raise SystemExit(f"out[{k}] is {v.dtype}, not int32")
     code = out["code"]
@@ -706,19 +729,19 @@ def drive_onepass(step, state, drs, dsvc, lanes):
     return rec, launches, state
 
 
-def drive_pruned_classify(step, drs, lanes, dev):
-    """Phase 6a: classify_batch(prune_budget=4, fused=True) on B_COLD
-    lanes, timed on the host clock around synchronized calls."""
+def drive_pruned_classify(meta, drs, lanes, dev, v6=None, what=""):
+    """Phase 6a (15c with v6 lanes): classify_batch(prune_budget=4,
+    fused=True) on B_COLD lanes, timed on the host clock around
+    synchronized calls.  -> (record, launches)."""
     import torch
 
     from antrea_tpu_torch.ops.match import classify_batch
 
     src, dst, proto, _, dport = (t[:B_COLD] for t in lanes)
-    meta = step.meta.match
 
     def run():
         return classify_batch(drs, src, dst, proto, dport, meta=meta,
-                              fused=True)
+                              fused=True, v6=v6)
 
     run()
     times = []
@@ -736,13 +759,13 @@ def drive_pruned_classify(step, drs, lanes, dev):
     med = sorted(times)[len(times) // 2]
     skip = float(cls["prune_skip"].float().mean())
     fb = float(cls["prune_fb"].float().mean())
-    log(f"pruned classify B={B_COLD}: median {med * 1e3:.3f} ms "
+    log(f"{what}pruned classify B={B_COLD}: median {med * 1e3:.3f} ms "
         f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
         f"{B_COLD / med / 1e6:.2f} M packets/s; skip rate {skip:.4f}, "
         f"fallback rate {fb:.4f}; (B1, B2, B3) launches over 5 calls "
         f"{launches}")
     return dict(ms=med * 1e3, pps=B_COLD / med, skip_rate=skip,
-                fallback_rate=fb)
+                fallback_rate=fb), launches
 
 
 def drive_staged_pruned(step, drs, dsvc, lanes, dev):
@@ -1032,11 +1055,11 @@ def full_lanes(tr, pod_ips, dev):
             "coverage": on(cover_port, flags, arp_op)}
 
 
-def full_step(meta, state, drs, dsvc, dft, cols, now):
+def full_step(meta, state, drs, dsvc, dft, cols, now, v6=None):
     from antrea_tpu_torch.models import forwarding as fw
 
     return fw.pipeline_step_full(state, drs, dsvc, dft, *cols[:6], now, 0,
-                                 cols[6], cols[7], meta=meta)
+                                 cols[6], cols[7], meta=meta, v6=v6)
 
 
 NOWS = (100, 101) + tuple(102 + i for i in range(STEADY_STEPS))
@@ -1057,22 +1080,24 @@ def step_stats(times) -> dict:
                 steady_max_ms=steady[-1] * 1e3, steady_pps=B / med)
 
 
-def drive_full(meta, drs, dsvc, dft, cols, dev, what):
-    """Phase 10: pipeline_step_full on the card on a fresh state over
-    FULL_STEPS, with every launch count set to 0 just before and read just
-    after.  -> (record, each step's outputs (CPU), the final state (CPU),
-    launches)."""
+def drive_full(meta, drs, dsvc, dft, cols, dev, what, v6=None):
+    """Phase 10 (15b with the v6 lanes v6): pipeline_step_full on the card
+    on a fresh state over FULL_STEPS, with every launch count set to 0 just
+    before and read just after.  -> (record, each step's outputs (CPU), the
+    final state (CPU), launches)."""
     import torch
 
     from antrea_tpu_torch.models import pipeline as pl
 
-    state = pl.init_state(FLOW_SLOTS, meta.aff_slots, device=dev)
+    state = pl.init_state(FLOW_SLOTS, meta.aff_slots, device=dev,
+                          key_words=meta.key_words)
     reset_counts()
     outs, times = [], []
     for key, now in FULL_STEPS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, out = full_step(meta, state, drs, dsvc, dft, cols[key], now)
+        state, out = full_step(meta, state, drs, dsvc, dft, cols[key], now,
+                               v6)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         check_out(out, B)
@@ -1110,24 +1135,28 @@ def drive_full(meta, drs, dsvc, dft, cols, dev, what):
     return rec, outs, st_cpu, launches
 
 
-def cross_check_full(meta, drs, dsvc, dft, cols, dev, what):
-    """Phase 10b: CROSS_LANES lanes of the full walk on a fresh state on
-    the card and on the CPU (plain versions), same tables: cold on the
-    headline columns, then warm on the coverage columns; outputs and state
-    bitwise equal."""
+def cross_check_full(meta, drs, dsvc, dft, cols, dev, what, v6=None):
+    """Phase 10b (15b with the v6 lanes v6): CROSS_LANES lanes of the full
+    walk on a fresh state on the card and on the CPU (plain versions), same
+    tables: cold on the headline columns, then warm on the coverage
+    columns; outputs and state bitwise equal."""
     import torch
 
     from antrea_tpu_torch.models import pipeline as pl
     from antrea_tpu_torch.ops.match import tree_map
 
     cpu = [tree_map(lambda t: t.cpu(), x) for x in (drs, dsvc, dft)]
-    st_g = pl.init_state(FLOW_SLOTS, meta.aff_slots, device=dev)
-    st_c = pl.init_state(FLOW_SLOTS, meta.aff_slots, device="cpu")
+    st_g = pl.init_state(FLOW_SLOTS, meta.aff_slots, device=dev,
+                         key_words=meta.key_words)
+    st_c = pl.init_state(FLOW_SLOTS, meta.aff_slots, device="cpu",
+                         key_words=meta.key_words)
+    sub6 = None if v6 is None else tuple(c[:CROSS_LANES] for c in v6)
     for key, now in (("headline", 100), ("coverage", 101)):
         sub = tuple(c[:CROSS_LANES] for c in cols[key])
-        st_g, og = full_step(meta, st_g, drs, dsvc, dft, sub, now)
+        st_g, og = full_step(meta, st_g, drs, dsvc, dft, sub, now, sub6)
         st_c, oc = full_step(meta, st_c, *cpu, tuple(c.cpu() for c in sub),
-                             now)
+                             now, None if sub6 is None
+                             else tuple(c.cpu() for c in sub6))
         for k in oc:
             if not torch.equal(og[k].cpu(), oc[k]):
                 raise SystemExit(f"full-walk cross-check {what} now={now}: "
@@ -2078,6 +2107,507 @@ def drive_chance(cps, svc, tr, dev, b3_ref):
     return rec, knob_ms
 
 
+# ---- phase 15: dual-stack ---------------------------------------------------
+# The headline world's dual-stack twin: each pod also at fd00:10:0:<n>::<p+2>
+# (node n's v6 podCIDR fd00:10:0:<n>::/64), each Service also at
+# fd00:96::<i> with its endpoints' twins, every other address at
+# 2001:db8::<a>; the lanes of every flow with an odd source port carry the
+# flow's v6 twin.  Test data derived here (the simulator has no dual-stack
+# generator).
+PODS_PER_NODE = 32
+V6_POD_W0, V6_SVC_W0, V6_OTHER_W0 = 0xFD000010, 0xFD000096, 0x20010DB8
+
+
+def pod_twin(i: int) -> str:
+    """The v6 twin of pod i of gen_cluster (node i // 32, pod i % 32)."""
+    n, p = divmod(i, PODS_PER_NODE)
+    return f"fd00:10:0:{n:x}::{p + 2:x}"
+
+
+def twin_words(addr, pod_ips, services):
+    """(B,) u32 v4 addresses -> (B, 4) u32 words of their v6 twins."""
+    import numpy as np
+
+    from antrea_tpu_torch.utils import ip as iputil
+
+    addr = np.asarray(addr, np.uint32)
+
+    def index_of(table):
+        order = np.argsort(table, kind="stable")
+        srt = table[order]
+        pos = np.searchsorted(srt, addr).clip(0, len(srt) - 1)
+        return srt[pos] == addr, order[pos]
+
+    is_pod, pod = index_of(np.asarray(pod_ips, np.uint32))
+    is_svc, svc = index_of(np.array([iputil.ip_to_u32(s.cluster_ip)
+                                     for s in services], np.uint32))
+    is_svc &= ~is_pod
+    w = np.zeros((addr.shape[0], 4), np.uint32)
+    w[:, 0] = np.where(is_pod, V6_POD_W0,
+                       np.where(is_svc, V6_SVC_W0, V6_OTHER_W0))
+    w[:, 1] = np.where(is_pod, pod // PODS_PER_NODE, 0)
+    w[:, 3] = np.where(is_pod, pod % PODS_PER_NODE + 2,
+                       np.where(is_svc, svc, addr))
+    return w
+
+
+def dual_world(ps, services, pod_ips):
+    """The headline PolicySet and Services with their v6 twins -> (ps6,
+    services6).  Each group member that is a pod gains its twin as a
+    second member; ipBlocks stay v4.  Each Service gains a v6 twin entry
+    (the metaProxier's split of a RequireDualStack Service)."""
+    import dataclasses
+
+    from antrea_tpu_torch.utils import ip as iputil
+
+    twin = {iputil.u32_to_ip(int(u)): pod_twin(i)
+            for i, u in enumerate(pod_ips)}
+
+    def dual(g):
+        extra = [dataclasses.replace(m, ip=twin[m.ip]) for m in g.members
+                 if m.ip in twin]
+        return dataclasses.replace(g, members=list(g.members) + extra)
+
+    ps6 = dataclasses.replace(
+        ps, address_groups={k: dual(g) for k, g in ps.address_groups.items()},
+        applied_to_groups={k: dual(g)
+                           for k, g in ps.applied_to_groups.items()})
+    svc6 = [dataclasses.replace(
+        s, cluster_ip=f"fd00:96::{i:x}",
+        endpoints=[dataclasses.replace(e, ip=twin[e.ip])
+                   for e in s.endpoints])
+        for i, s in enumerate(services)]
+    return ps6, list(services) + svc6
+
+
+def dual_spec(pod_ips):
+    """Node-0's topology with its v6 half: the v6 gateway and podCIDR, each
+    local pod's twin at the same ofport, every remote node's v6 podCIDR
+    over its v4 underlay address."""
+    import dataclasses
+
+    from antrea_tpu_torch.compiler.topology import NodeRoute
+
+    t = node0_spec(pod_ips)
+    return dataclasses.replace(
+        t, gateway_ip6="fd00:10::1", pod_cidr6="fd00:10:0:0::/64",
+        local_pods=t.local_pods + [(pod_twin(i), port) for i, (_, port)
+                                   in enumerate(t.local_pods)],
+        remote_nodes=t.remote_nodes + [
+            NodeRoute(name=f"node-{k}", node_ip=f"192.168.0.{k}",
+                      pod_cidr=f"fd00:10:0:{k:x}::/64") for k in range(1, 64)])
+
+
+DUAL_NODE_IPS = ["fd00:10::1"]
+
+
+def dual_batch(tr, pod_ips, services, n=None, shadow=None):
+    """The batch with the v6 lanes of every flow whose source port is odd
+    (their v4 columns zero, as PacketBatch.from_packets leaves them); in_port
+    honest as node-0 sees the v4 flow (a twin enters where its pod does).
+    -> PacketBatch."""
+    import numpy as np
+
+    from antrea_tpu_torch.packet import PacketBatch
+
+    sl = slice(None, n)
+    src, dst = tr.src_ip[sl], tr.dst_ip[sl]
+    is6 = (tr.src_port[sl] & 1).astype(np.int32)
+    return PacketBatch(
+        src_ip=np.where(is6 == 1, 0, src).astype(np.uint32),
+        dst_ip=np.where(is6 == 1, 0, dst).astype(np.uint32),
+        proto=tr.proto[sl], src_port=tr.src_port[sl],
+        dst_port=tr.dst_port[sl],
+        in_port=honest_ports(src if shadow is None else shadow[sl], pod_ips),
+        src_ip6=np.where(is6[:, None] == 1,
+                         twin_words(src, pod_ips, services), 0).astype(
+                             np.uint32),
+        dst_ip6=np.where(is6[:, None] == 1,
+                         twin_words(dst, pod_ips, services), 0).astype(
+                             np.uint32),
+        is6=is6)
+
+
+def v6_lanes(b, dev, n=None):
+    """A batch's (src6w_f, dst6w_f, is6) on dev."""
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.utils import ip as iputil
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(c[:n], np.int32))
+                 .to(dev) for c in (iputil.flip_u32(b.src_ip6),
+                                    iputil.flip_u32(b.dst_ip6), b.is6))
+
+
+def dual_rows(step, state, drs, dsvc, lanes, v6):
+    """The lanes' post-DNAT interval rows on the dual-stack tables, as the
+    staged classify builds them (wide ServiceLB, then the v6 lanes' rows in
+    the v6 sub-spaces) -> (B, 8) int32."""
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops import match as tm
+
+    src, dst, proto, sport, dport = lanes
+    wide = pl._wide_lanes(src, dst, v6)
+    h = pl._wide_hash(*wide[:2], proto, sport, dport)
+    svc_idx, _, dnat_ip, dnat_port, _, _, dnat_w, _ = pl._service_lb(
+        state.aff, dsvc, h, src, dst, proto, dport, 100, step.meta.aff_slots,
+        wide=wide)
+    key = (proto << 16) | dnat_port
+    ref = (tm._svcref_key(key, pl._svc_ref_of(svc_idx, dsvc))
+           if step.meta.match.svcref else None)
+    return tm.interval_rows(drs, src, dnat_ip, key, ref,
+                            v6=(wide[0], dnat_w, wide[2]))
+
+
+def v6_row_count(drs, iv) -> int:
+    """How many of the lanes' ip-dimension rows lie in a v6 sub-space."""
+    ing, eg = drs.ingress, drs.egress
+    return sum(int((iv[:, c] > t.bounds.shape[0]).sum())
+               for c, t in ((0, ing.at), (1, ing.peer), (3, eg.at),
+                            (4, eg.peer)))
+
+
+def agg_and(drs, iv, svcref):
+    """The lanes' aggregate-AND rows per direction (svcref's row ORed into
+    egress svc) -> (g_in, g_out)."""
+    g = []
+    for d, dd in enumerate((drs.ingress, drs.egress)):
+        rows = [t.agg[iv[:, 3 * d + k].long()]
+                for k, t in enumerate((dd.at, dd.peer, dd.svc))]
+        if d and svcref:
+            rows[2] = rows[2] | dd.svc.agg[iv[:, 6].long()]
+        g.append((rows[0] & rows[1] & rows[2]).contiguous())
+    return g
+
+
+def churn_plan6(eng, ps):
+    """v6 pod churn for CHURN_GROUPS address groups: per group a fresh v6 pod
+    (fd00:10:0:<k>::<200 + k>, in node k's v6 podCIDR) joins and one v6
+    member leaves, one whose address no other group of the same rule
+    dimensions covers (so each delta takes slots).  -> [(group, added,
+    removed)]."""
+    from antrea_tpu_torch.datapath.tpuflow import _overlaps
+    from antrea_tpu_torch.utils import ip as iputil
+
+    plan = []
+    for name in sorted(ps.address_groups):
+        g = ps.address_groups[name]
+        gids = eng._name_gids.get(name)
+        if not g.members or g.ip_blocks or not gids:
+            continue
+        ips = [m.ip for m in g.members]
+        for ip in ips:
+            if not iputil.is_v6(ip) or ips.count(ip) != 1:
+                continue
+            r = iputil.cidr_to_range(ip)
+            others = [iputil.merge_ranges(list(eng._gid_ident[gid][2]))
+                      for gid in gids]
+            others += [eng._ranges_of(n) for gid in gids
+                       for n in eng._gid_ident[gid][1] if n != name]
+            if not any(_overlaps(o, r) for o in others):
+                k = len(plan) + 1
+                plan.append((name, [f"fd00:10:0:{k:x}::{200 + k:x}"], [ip]))
+                break
+        if len(plan) == CHURN_GROUPS:
+            return plan
+    raise SystemExit(f"dual-stack engine: found {len(plan)} churnable "
+                     f"groups, not {CHURN_GROUPS}")
+
+
+def delta_batch6(plan, pod_ips, n, seed):
+    """n fresh v6 flows, each with one of the churned v6 addresses on one
+    side (source and destination in turn) and a seeded pod's twin on the
+    other; TCP from source ports below 1024 (never in the headline
+    traffic).  in_port: a node-0 pod's port where the source is its twin,
+    else the tunnel.  -> PacketBatch."""
+    import numpy as np
+
+    from antrea_tpu_torch.packet import PacketBatch
+    from antrea_tpu_torch.utils import ip as iputil
+
+    twin_ip = {pod_twin(i): int(u) for i, u in enumerate(pod_ips)}
+    churned = [ip for _, a, r in plan for ip in a + r]
+    cw = np.array([iputil.key_to_words(iputil.ip_to_key(ip))
+                   for ip in churned], np.uint32)
+    cshadow = np.array([twin_ip.get(ip, 0) for ip in churned], np.uint32)
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)
+    a = i % len(churned)
+    pod = rng.integers(0, len(pod_ips), n)
+    pw = np.zeros((n, 4), np.uint32)
+    pw[:, 0], pw[:, 1] = V6_POD_W0, pod // PODS_PER_NODE
+    pw[:, 3] = pod % PODS_PER_NODE + 2
+    swap = ((i // len(churned)) % 2 == 1)[:, None]
+    src6, dst6 = np.where(swap, pw, cw[a]), np.where(swap, cw[a], pw)
+    shadow = np.where(swap[:, 0], np.asarray(pod_ips, np.uint32)[pod],
+                      cshadow[a])
+    z = np.zeros(n, np.uint32)
+    return PacketBatch(
+        src_ip=z, dst_ip=z, proto=np.full(n, 6, np.int32),
+        src_port=(1 + i % 1023).astype(np.int32),
+        dst_port=rng.choice(np.array([80, 443, 5432, 8080], np.int32), n),
+        in_port=honest_ports(shadow, pod_ips), src_ip6=src6, dst_ip6=dst6,
+        is6=np.ones(n, np.int32))
+
+
+DUAL_FIELDS = RESULT_FIELDS + ("pending", "n_miss", "punt", "mcast_idx",
+                               "l7_redirect", "dec_ttl", "dnat_key",
+                               "peer_key")
+
+
+def same_engine_state(a, b, now, what):
+    """Two engines' flow and affinity tables (dump row excluded) and
+    dump_flows() bitwise equal."""
+    import torch
+
+    for part in ("flow", "aff"):
+        for f, ta, tb in zip(getattr(a._state, part)._fields,
+                             getattr(a._state, part), getattr(b._state, part)):
+            if not torch.equal(ta[:-1].cpu(), tb[:-1].cpu()):
+                raise SystemExit(f"{what}: {part}.{f} differs")
+    if a.dump_flows(now) != b.dump_flows(now):
+        raise SystemExit(f"{what}: dump_flows() differs")
+
+
+def sub_batch(b, idx):
+    """The lanes idx of a PacketBatch."""
+    import dataclasses
+
+    return dataclasses.replace(b, **{
+        f.name: getattr(b, f.name)[idx] for f in dataclasses.fields(b)
+        if getattr(b, f.name) is not None})
+
+
+def timed_wide_keys(cls):
+    """Wrap cls._wide_keys (the engine's host views of the wide columns)
+    to add each call's seconds to the returned list; -> (list, restore)."""
+    orig = cls.__dict__["_wide_keys"]
+    spent = []
+
+    def timed(col):
+        t0 = time.perf_counter()
+        out = orig.__func__(col)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    cls._wide_keys = staticmethod(timed)
+
+    def restore():
+        cls._wide_keys = orig
+
+    return spent, restore
+
+
+def drive_dual(ps, services, pod_ips, tr, dev):
+    """Phase 15: the dual-stack path at the headline width, one pipeline or
+    engine at a time.  Cuts for time (no width is cut): (e)'s fresh
+    engines are built from the post-delta PolicySet, and its card engine
+    then serves as (d)'s recompile reference, so (d) and (e) build three
+    engines, not four; those two engines classify in rounds of
+    CROSS_LANES lanes, not MISS_CHUNK (the reference's 2**17-lane delta
+    step in 32 rounds, not 512; chunking moves no verdict or rule id).
+    Still over the 60 s aim (about 90 s on an NVIDIA H100 80GB HBM3 at
+    700 W): four 100k-rule host compiles of the twin world (~36 s) and the
+    four deltas' canaries (~11 s) are most of it.  -> (record, B1 records, B2
+    records, B2's launches in (c))."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.compiler.compile import compile_policy_set
+    from antrea_tpu_torch.compiler.services import compile_services
+    from antrea_tpu_torch.compiler.topology import (FWD_ARP_REPLY,
+                                                    compile_topology)
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.models import forwarding as fw
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops import match as tm
+
+    t15 = time.perf_counter()
+    ps6, services6 = dual_world(ps, services, pod_ips)
+    t0 = time.perf_counter()
+    cps6 = compile_policy_set(ps6)
+    svc6 = compile_services(services6, node_ips=DUAL_NODE_IPS)
+    step, state, (drs, dsvc) = pl.make_pipeline(
+        cps6, svc6, flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK, fused=True,
+        dual_stack=True, device=dev)
+    meta = step.meta.match
+    torch.cuda.synchronize()
+    hb = dual_batch(tr, pod_ips, services)
+    n6 = int(hb.is6.sum())
+    log(f"dual-stack world: {sum(len(g.members) for g in ps6.address_groups.values())}"
+        f" address-group members, {len(services6)} services "
+        f"({svc6.uip6_w.shape[0]} v6 frontends), compiled and on the card "
+        f"in {time.perf_counter() - t0:.1f} s; v6 bounds per ip dimension "
+        f"{[t.bounds6.shape[0] for t in (drs.ingress.at, drs.ingress.peer, drs.egress.at, drs.egress.peer)]}"
+        f"; batch {B} lanes, {n6} v6; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    lanes = to_lanes(hb, dev)
+    v6 = v6_lanes(hb, dev)
+
+    # (a) B1 and B2 on the dual-stack tables at the batch's interval rows.
+    iv = dual_rows(step, state, drs, dsvc, lanes, v6)
+    n_rows6 = v6_row_count(drs, iv)
+    log(f"dual-stack interval rows: {n_rows6} of {4 * B} ip-dimension rows "
+        f"in a v6 sub-space")
+    stabs = tm.tables(drs)
+    b1 = {b: check_consumer(stabs, iv[:b], meta.svcref, meta.in_phases,
+                            meta.out_phases, f"dual-stack, first {b} lanes, "
+                            f"{v6_row_count(drs, iv[:b])} v6 rows", inner)
+          for b, inner in ((256, 50), (32768, 3))}
+    pdrs, pmeta = tm.to_device(cps6, dev, prune_budget=PRUNE_K)
+    g_in, g_out = agg_and(pdrs, iv, pmeta.svcref)
+    b2 = {b: check_pruned(g_in[:b], g_out[:b], iv[:b], tm.tables(pdrs),
+                          PRUNE_K, pmeta.svcref, pmeta.in_phases,
+                          pmeta.out_phases, inner)
+          for b, inner in ((256, 50), (32768, 5))}
+    del iv, g_in, g_out, stabs
+    torch.cuda.empty_cache()
+
+    # (b) The walk on the staged fused dual-stack pipeline.
+    spec = dual_spec(pod_ips)
+    dft = fw.fwd_to_device(compile_topology(spec), dev)
+    # The full walk's columns with the v6 lanes' v4 addresses zero (flipped),
+    # as the batch carries them.
+    six = v6[2] != 0
+    zf = torch.tensor(-(2**31), dtype=torch.int32, device=dev)
+    cols = {k: (torch.where(six, zf, c[0]), torch.where(six, zf, c[1]))
+            + c[2:] for k, c in full_lanes(tr, pod_ips, dev).items()}
+    walk, outs, _, walk_launches = drive_full(step.meta, drs, dsvc, dft,
+                                              cols, dev, "dual-stack staged "
+                                              "fused", v6=v6)
+    nd = [int(((o["fwd_kind"] == FWD_ARP_REPLY) & six.cpu()).sum())
+          for o in outs[N_TIMED:]]
+    log(f"dual-stack walk: v6 ND replies in the coverage steps {nd}")
+    del outs
+    cross_check_full(step.meta, drs, dsvc, dft, cols, dev,
+                     "dual-stack staged fused", v6=v6)
+    del state, drs, dsvc, dft, cols
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The pruned classify with v6 lanes.
+    pcls, pc_launches = drive_pruned_classify(
+        pmeta, pdrs, lanes, dev, v6=tuple(t[:B_COLD] for t in v6),
+        what="dual-stack ")
+    del pdrs, lanes
+    torch.cuda.empty_cache()
+
+    # (d) The dual-stack engine: steps, v6 churn, the delta step.
+    kw = dict(flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK, fused=True,
+              dual_stack=True, canary_probes=ENGINE_PROBES, delta_slots=128,
+              topology=spec, node_ips=DUAL_NODE_IPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = TpuflowDatapath(world_copy(ps6), services6, device=dev, **kw)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    spent, restore = timed_wide_keys(TpuflowDatapath)
+    reset_counts()
+    times, misses = [], []
+    for now in NOWS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = eng.step(hb, now)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        misses.append(r.n_miss)
+        if r.code.shape != (B,) or not np.isin(r.code, (0, 1, 2)).all():
+            raise SystemExit("dual-stack engine: bad verdict column")
+    restore()
+    # Per step the two views (dnat_key, peer_key); the steady steps' median.
+    views = sorted(a + b for a, b in zip(spent[4::2], spent[5::2]))
+    rec = step_stats(times)
+    rec["host_views_ms"] = views[len(views) // 2] * 1e3
+    plan = churn_plan6(eng, ps6)
+    inc0 = eng._drs.ingress.at.inc
+    lat = []
+    for name, added, removed in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.apply_group_delta(name, added, removed)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    if eng._n_deltas < 1 or eng._drs.ingress.at.inc is not inc0:
+        raise SystemExit(f"dual-stack engine: the v6 deltas folded into a "
+                         f"recompile ({eng._n_deltas} slots)")
+    st = eng.commit_stats()
+    if st["canary_probes_total"] < len(plan) or st["degraded"]:
+        raise SystemExit(f"dual-stack engine: canary did not certify: {st}")
+    main = delta_batch6(plan, pod_ips, B, 31)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = eng.step(main, NOWS[-1] + 1)
+    torch.cuda.synchronize()
+    delta_s = time.perf_counter() - t0
+    eng_launches = counts()
+    if r.n_miss != B or not eng_launches[0] or eng_launches[2]:
+        raise SystemExit(f"dual-stack engine: delta step n_miss {r.n_miss}, "
+                         f"(B1, B2, B3) launches {eng_launches}")
+    rec.update(compile_s=compile_s, delta_ms=[x * 1e3 for x in lat],
+               delta_step_ms=delta_s * 1e3, n_deltas=eng._n_deltas,
+               launches=list(eng_launches),
+               canary_probes=st["canary_probes_total"])
+    log(f"dual-stack engine: built in {compile_s:.1f} s; headline traffic "
+        f"({n6} v6 lanes): cold {rec['cold_ms']:.1f} ms, warm "
+        f"{rec['warm_ms']:.2f} ms, steady median {rec['steady_ms']:.3f} "
+        f"ms/step (min {rec['steady_min_ms']:.3f}, max "
+        f"{rec['steady_max_ms']:.3f}), {rec['steady_pps'] / 1e6:.2f} M "
+        f"packets/s, of which the host views of the wide columns "
+        f"(dnat_key, peer_key) {rec['host_views_ms']:.1f} ms a step; n_miss "
+        f"per step {misses}")
+    log(f"dual-stack engine: {len(plan)} v6 group deltas in "
+        f"{eng._n_deltas} slots, apply_group_delta "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; delta step of {B} "
+        f"fresh v6 lanes {delta_s * 1e3:.1f} ms; (B1, B2, B3) launches over "
+        f"(d) {eng_launches}")
+    post_ps = world_copy(eng._ps)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) Card against CPU on fresh engines (the post-delta PolicySet's, at
+    # CROSS_SLOTS so that their tables compare): 4096 of the batch's lanes,
+    # half v6, cold then warm; then the card engine is (d)'s recompile
+    # reference (the delta lanes' tuples are not in its cache: their
+    # source ports are below 1024).
+    half = CROSS_LANES // 2
+    idx = np.concatenate([np.nonzero(hb.is6 == 0)[0][:half],
+                          np.nonzero(hb.is6 == 1)[0][:half]])
+    cb = sub_batch(hb, np.sort(idx))
+    ekw = {**kw, "canary_probes": 0, "flow_slots": CROSS_SLOTS,
+           "miss_chunk": CROSS_LANES}
+    eg = TpuflowDatapath(world_copy(post_ps), services6, device=dev, **ekw)
+    ec = TpuflowDatapath(world_copy(post_ps), services6, device="cpu", **ekw)
+    for now in (NOWS[-1] + 1, NOWS[-1] + 2):
+        what = f"dual-stack card vs CPU now={now}"
+        same_result(eg.step(cb, now), ec.step(cb, now), what, DUAL_FIELDS)
+        same_engine_state(eg, ec, now, what)
+    lanes16 = sub_batch(cb, np.arange(16))
+    if eg.trace(lanes16, NOWS[-1] + 3) != ec.trace(lanes16, NOWS[-1] + 3):
+        raise SystemExit("dual-stack card vs CPU: trace() differs")
+    log(f"dual-stack engines card vs CPU: {CROSS_LANES} lanes ({half} v6), "
+        f"cold then warm: every StepResult field, the tables, dump_flows() "
+        f"and a 16-lane trace() bitwise equal")
+    del ec
+    gc.collect()
+    same_result(r, eg.step(main, NOWS[-1] + 1),
+                "dual-stack deltas vs full recompile", fields=("code",))
+    log("dual-stack engine: delta step verdicts and rule ids bitwise equal "
+        "to the engine built from the post-delta PolicySet")
+    del eg, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec15 = dict(walk=walk, walk_launches=list(walk_launches),
+                 pruned_classify=pcls, engine=rec, v6_rows=n_rows6,
+                 seconds=time.perf_counter() - t15)
+    log(f"phase 15 took {rec15['seconds']:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return rec15, b1, b2, pc_launches
+
+
 def main() -> int:
     import torch
 
@@ -2216,7 +2746,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. The pruned classify and the staged pruned step.
-    pcls = drive_pruned_classify(ostep, pdrs, lanes, dev)
+    pcls, _ = drive_pruned_classify(ostep.meta.match, pdrs, lanes, dev)
     spruned, sp_launches = drive_staged_pruned(ostep, pdrs, pdsvc, lanes, dev)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
         f" GiB")
@@ -2303,6 +2833,11 @@ def main() -> int:
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
+    # 15. Dual-stack: B1 and B2 on v6 interval rows, the walk, the pruned
+    # classify, the engine with v6 churn, the engines card against CPU.
+    dual, b1_6, b2_6, b2_6_launches = drive_dual(ps, services, pod_ips, tr,
+                                                 dev)
+
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
         return {"name": name, "route": "cuda", "source": src,
@@ -2366,6 +2901,18 @@ def main() -> int:
         rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
             "bench_cold_study.py:129", s1_launches, s1[32768],
             at_B256=at(s1[256]), study_case4_ms=study_s * 1e3),
+        # Phase 15: the same kernels on the dual-stack tables' v6 rows;
+        # launches on the dual-stack walk (B1) and pruned classify (B2).
+        rec("B1 consumer, dual-stack rows",
+            "antrea_tpu_torch/csrc/consumer.cu",
+            "antrea_tpu/ops/match.py:1422", dual["walk_launches"][0],
+            b1_6[256], **rows_bounds(b1_6[256]), at_B32768=at(b1_6[32768]),
+            launches_engine_dual_stack=dual["engine"]["launches"][0],
+            v6_rows_of_batch=dual["v6_rows"]),
+        rec("B2 pruned consumer, dual-stack rows",
+            "antrea_tpu_torch/csrc/pruned_consumer.cu",
+            "antrea_tpu/ops/match.py:1517", b2_6_launches[1], b2_6[256],
+            **rows_bounds(b2_6[256]), at_B32768=at(b2_6[32768])),
     ]
     log(json.dumps({"card": card, "staged": staged, "onepass": one,
                     "pruned_classify": pcls, "staged_pruned": spruned,
@@ -2375,7 +2922,8 @@ def main() -> int:
                     "mesh_1x2": mesh12,
                     "engine": {"onepass": eng_one, "staged": eng_st},
                     "flood": flood, "churn": churn, "knobs": knobs14,
-                    "profile": profiles, "knob_step_ms": knob_ms}))
+                    "profile": profiles, "knob_step_ms": knob_ms,
+                    "dual_stack": dual}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

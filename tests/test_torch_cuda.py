@@ -843,3 +843,122 @@ def test_async_engine_with_knobs_on_the_card_equals_cpu(cuda, knobs):
         for tg, tcpu in zip(getattr(eg._state, part),
                             getattr(ec._state, part)):
             assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), part
+
+
+@pytest.fixture(scope="module")
+def dual_world():
+    """A 2500-rule world's dual-stack twin (chip_smoke.py phase 15's
+    derivation), its compiled tables and a 512-lane batch, about half v6."""
+    import chip_smoke as cs
+    from antrea_tpu_torch.compiler.compile import compile_policy_set
+    from antrea_tpu_torch.compiler.services import compile_services
+    from antrea_tpu_torch.simulator import (gen_cluster, gen_services,
+                                            gen_traffic)
+
+    cluster = gen_cluster(2500, n_nodes=4, pods_per_node=32, seed=12)
+    services = gen_services(40, cluster.pod_ips, affinity_fraction=0.3,
+                            no_ep_fraction=0.1, seed=4)
+    ps6, services6 = cs.dual_world(cluster.ps, services, cluster.pod_ips)
+    tr = gen_traffic(cluster.pod_ips, 512, n_flows=256, seed=3,
+                     services=services, svc_fraction=0.3)
+    hb = cs.dual_batch(tr, cluster.pod_ips, services)
+    assert 0 < int(hb.is6.sum()) < 512
+    return (cs, ps6, services6, compile_policy_set(ps6),
+            compile_services(services6), hb, cluster.pod_ips)
+
+
+def test_b1_b2_on_dual_stack_v6_rows_equal_plain(cuda, dual_world):
+    """B1 and B2 (K = 2) on a dual-stack world's tables at a mixed batch's
+    post-DNAT interval rows, v6 sub-space rows included, against their
+    plain versions."""
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops import match as tm
+    from antrea_tpu_torch.ops import pruned_consumer as pc
+
+    cs, _, _, cps, svc, hb, _ = dual_world
+    step, state, (drs, dsvc) = pl.make_pipeline(
+        cps, svc, flow_slots=1 << 10, fused=True, dual_stack=True,
+        device=cuda)
+    iv = cs.dual_rows(step, state, drs, dsvc, cs.to_lanes(hb, cuda),
+                      cs.v6_lanes(hb, cuda))
+    assert cs.v6_row_count(drs, iv) > 0
+    meta = step.meta.match
+    args = (tm.tables(drs), iv, meta.svcref, meta.in_phases,
+            meta.out_phases)
+    before = consumer.launches
+    got = consumer.fused_hits(*args)
+    assert consumer.launches == before + 1
+    assert torch.equal(got, consumer.fused_hits_plain(*args))
+    pdrs, pmeta = tm.to_device(cps, cuda, prune_budget=2)
+    g_in, g_out = cs.agg_and(pdrs, iv, pmeta.svcref)
+    pargs = (g_in, g_out, iv, tm.tables(pdrs), min(2, g_in.shape[1]),
+             min(2, g_out.shape[1]), pmeta.svcref, pmeta.in_phases,
+             pmeta.out_phases)
+    before = pc.launches
+    got = pc.pruned_hits(*pargs)
+    assert pc.launches == before + 1
+    assert torch.equal(got, pc.pruned_hits_plain(*pargs))
+
+
+def test_v6_search_on_the_card_equals_cpu(cuda):
+    """The batched v6 interval search on the card against the CPU: sorted
+    bounds with the all-ones pad rows, lanes on, beside and between
+    them."""
+    from antrea_tpu_torch.ops import match as tm
+
+    g = torch.Generator().manual_seed(6)
+    tabs = []
+    for n in (1, 37, 300, 0):
+        w = torch.randint(-(2**31), 2**31, (n, 4), generator=g,
+                          dtype=torch.int64)
+        k = tm._key2(w.to(torch.int32))
+        order = torch.from_numpy(np.lexsort((k[:, 1].numpy(),
+                                             k[:, 0].numpy())))
+        w = torch.cat([w[order], torch.full((n // 4, 4), 2**31 - 1)])
+        tabs.append(w.to(torch.int32))
+    lanes = torch.cat([tabs[2], tabs[2] + 1,
+                       torch.randint(-(2**31), 2**31, (700, 4), generator=g,
+                                     dtype=torch.int64).to(torch.int32)])
+    want = tm._searchsorted6_many(tabs, [lanes] * 4)
+    got = tm._searchsorted6_many([t.to(cuda) for t in tabs],
+                                 [lanes.to(cuda)] * 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dual_stack_engine_on_the_card_equals_cpu(cuda, dual_world):
+    """A dual-stack engine (fused, delta slots, canary) on the card against
+    the same engine on the CPU: cold and warm steps of a mixed batch, v6
+    pod churn on the address groups, a step of fresh v6 flows to the
+    churned addresses; every StepResult field (the wide views included),
+    the tables, dump_flows() and trace() equal."""
+    import copy
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+
+    cs, ps6, services6, _, _, hb, pod_ips = dual_world
+    kw = dict(flow_slots=1 << 12, aff_slots=1 << 8, miss_chunk=64,
+              fused=True, dual_stack=True, canary_probes=8,
+              topology=cs.dual_spec(pod_ips), node_ips=cs.DUAL_NODE_IPS)
+    eg = TpuflowDatapath(copy.deepcopy(ps6), services6, device=cuda, **kw)
+    ec = TpuflowDatapath(copy.deepcopy(ps6), services6, device="cpu", **kw)
+
+    def both(b, now, what):
+        cs.same_result(eg.step(b, now), ec.step(b, now), what,
+                       cs.DUAL_FIELDS)
+        cs.same_engine_state(eg, ec, now, what)
+
+    before = consumer.launches
+    both(hb, 100, "cold")
+    both(hb, 101, "warm")
+    assert consumer.launches > before
+    plan = cs.churn_plan6(ec, ps6)
+    for dp in (eg, ec):
+        for name, added, removed in plan:
+            dp.apply_group_delta(name, added, removed)
+    assert eg._n_deltas == ec._n_deltas > 0
+    assert eg.commit_stats()["canary_probes_total"] > 0
+    assert not eg.commit_stats()["degraded"]
+    b = cs.delta_batch6(plan, pod_ips, 256, 5)
+    both(b, 102, "delta step")
+    assert eg.trace(b, 103) == ec.trace(b, 103)

@@ -434,8 +434,7 @@ def test_tensor_digest_equals_reference(world):
 
 
 @pytest.mark.parametrize("knob,item", [
-    ({"dual_stack": True}, 5), ({"serving_batcher": True}, 6),
-    ({"persist_dir": "unused"}, 8),
+    ({"serving_batcher": True}, 6), ({"persist_dir": "unused"}, 8),
 ])
 def test_refused_knobs_name_their_roadmap_item(knob, item):
     with pytest.raises(NotImplementedError, match=f"queue A item {item}\\)"):
@@ -450,13 +449,16 @@ def test_refused_knobs_name_their_roadmap_item(knob, item):
     {"async_slowpath": True, "miss_source_rate": 4.0,
      "miss_source_burst": 16},
     {"second_chance": True}, {"telemetry": True},
-    {"feature_gates": "FlowExporter"},
+    {"feature_gates": "FlowExporter"}, {"dual_stack": True},
 ], ids=["async_slowpath", "autotune_drain", "overlap_commits",
-        "miss_source_rate", "second_chance", "telemetry", "FlowExporter"])
+        "miss_source_rate", "second_chance", "telemetry", "FlowExporter",
+        "dual_stack"])
 def test_formerly_refused_knobs_construct_and_step(world, knob):
-    """The knobs of queue A items 3 and 4 (refused until they were ported)
-    build an engine on the CPU that steps, drains and ticks; the async ones
-    admit the misses a step leaves pending."""
+    """The knobs of queue A items 3, 4 and 5 (refused until they were
+    ported) build an engine on the CPU that steps, drains and ticks; the
+    async ones admit the misses a step leaves pending; a dual-stack engine
+    reports the wide views (tests/test_torch_dual_stack_engine.py holds it
+    to the JAX engine)."""
     if knob.get("feature_gates"):
         from antrea_tpu_torch.features import FeatureGates
 
@@ -480,6 +482,7 @@ def test_formerly_refused_knobs_construct_and_step(world, knob):
         assert t.telemetry_stats()["steps_total"] == 2
     if "feature_gates" in knob:
         assert sum(f["packets"] for f in t.dump_flows(13)) > 0
+    assert (r2.dnat_key is not None) == bool(knob.get("dual_stack"))
 
 
 def test_refused_surfaces_name_their_roadmap_item(world):
@@ -515,6 +518,8 @@ def test_engine_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         td.TpuflowDatapath()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        td.TpuflowDatapath(dual_stack=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         td.make_datapath("tpuflow")
     t = td.make_datapath("tpuflow", device="cpu", flow_slots=16,

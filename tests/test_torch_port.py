@@ -138,6 +138,10 @@ def test_entry_points_default_to_the_card(tiny, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.make_pipeline(cps, svc)
     with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.make_pipeline(cps, svc, dual_stack=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpl.init_state(16, 16, key_words=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
         tm.make_classifier(cps)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpl.init_state(16, 16)
@@ -149,11 +153,26 @@ def test_entry_points_default_to_the_card(tiny, monkeypatch):
     assert drs.ingress.at.inc.device.type == "cpu"
 
 
-@pytest.mark.parametrize("knob", [{"dual_stack": True}])
-def test_unported_pipeline_knobs_raise(tiny, knob):
+@pytest.mark.parametrize("knob", [
+    {"dual_stack": True}, {"dual_stack": True, "fused": True},
+    {"dual_stack": True, "fused": True, "prune_budget": 2}])
+def test_dual_stack_pipeline_constructs_and_steps(tiny, knob):
+    """dual_stack was refused until queue A item 5: it builds the wide
+    state on the CPU, keeps the staged rounds under fused + prune_budget,
+    and its step and full walk run v6 lanes (tests/test_torch_dual_stack.py
+    holds them to the JAX step)."""
     cps, svc = tiny
-    with pytest.raises(NotImplementedError):
-        tpl.make_pipeline(cps, svc, device="cpu", **knob)
+    step, state, (drs, dsvc) = tpl.make_pipeline(
+        cps, svc, flow_slots=16, aff_slots=16, device="cpu", **knob)
+    assert step.meta.key_words == 10 and not step.meta.onepass
+    assert state.flow.keys.shape == (17, 10)
+    assert state.flow.meta.shape == (17, 8)
+    assert state.aff.key_client.shape == (17, 4)
+    lanes = [torch.arange(4, dtype=torch.int32)] * 5
+    v6 = (torch.arange(16, dtype=torch.int32).reshape(4, 4),) * 2 + (
+        torch.tensor([0, 1, 0, 1], dtype=torch.int32),)
+    state, out = step(state, drs, dsvc, *lanes, 1, 0, v6=v6)
+    assert out["dnat_w_f"].shape == (4, 4) and int(out["n_miss"]) == 4
 
 
 @pytest.mark.parametrize("knob", [
@@ -187,11 +206,10 @@ def test_ported_pipeline_knobs_step(tiny, knob):
 
 
 @pytest.mark.parametrize("fn,knob", [
-    ("pipeline_step", "v6"), ("pipeline_step_full", "v6"),
     ("pipeline_step_full", "prune_exclude")])
 def test_unported_step_arguments_raise(tiny, fn, knob):
-    """v6 lanes and the mesh engine's spill mask are not ported
-    (hit_combine, valid, no_commit and lens are)."""
+    """The mesh engine's spill mask is not ported (hit_combine, valid,
+    no_commit, lens and v6 are)."""
     cps, svc = tiny
     step, state, (drs, dsvc) = tpl.make_pipeline(
         cps, svc, flow_slots=16, aff_slots=16, device="cpu")
@@ -260,14 +278,31 @@ def test_onepass_needs_the_aggregate_layer(tiny):
 
 def test_classify_summary_only_raises(tiny):
     """summary_only is ported (tests/test_torch_phases.py holds it to the
-    JAX package): alone it runs, beside an unported knob it still raises."""
+    JAX package): alone it runs, and with v6 lanes (ported since queue A
+    item 5) it runs and equals the JAX package's."""
     drs, meta = tm.to_device(tiny[0], "cpu", prune_budget=2)
     lanes = [torch.zeros(4, dtype=torch.int32)] * 4
     out = tm.classify_batch(drs, *lanes, meta=meta, summary_only=True)
     assert not out["prune_fb"].any()
-    with pytest.raises(NotImplementedError, match="v6"):
-        tm.classify_batch(drs, *lanes, meta=meta, summary_only=True,
-                          v6=object())
+    from antrea_tpu.compiler.compile import compile_policy_set as jcompile
+    from antrea_tpu.simulator import gen_cluster as jgen_cluster
+
+    jdrs, jmeta = jm.to_device(jcompile(jgen_cluster(
+        40, n_nodes=2, pods_per_node=4, seed=1).ps), prune_budget=2)
+    rng = np.random.default_rng(2)
+    w6 = rng.integers(-(2**31), 2**31, (2, 4, 4)).astype(np.int32)
+    is6 = np.array([0, 1, 1, 0], np.int32)
+    got = tm.classify_batch(drs, *lanes, meta=meta, summary_only=True,
+                            v6=(torch.from_numpy(w6[0]),
+                                torch.from_numpy(w6[1]),
+                                torch.from_numpy(is6)))
+    want = jm.classify_batch(jdrs, *(jnp.zeros(4, jnp.int32),) * 4,
+                             meta=jmeta, summary_only=True,
+                             v6=(jnp.asarray(w6[0]), jnp.asarray(w6[1]),
+                                 jnp.asarray(is6)))
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
 
 
 def test_constants_equal_reference():
