@@ -16,6 +16,11 @@ has an obvious counterpart:
   csrc/        CUDA C++ sources for sm_90a, built on first use by _build.py
   utils/timing.py
                CUDA-event timing (device_time, device_loop_time)
+  datapath/    the engine (tpuflow.py) with its planes, tenant worlds
+               included, and the scalar twin engine (oracle_dp.py)
+  serving/     the serving batcher in front of step_tenants
+  native/      the journaled config store (ovsdb_lite.cc, built with g++
+               on first use) that persist_dir's round journal uses
 
 Every tensor on the datapath is an int32 word; u32 tables are kept as int32
 tensors with identical bits.  Entry points run on the card unless the caller

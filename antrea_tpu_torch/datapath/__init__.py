@@ -1,29 +1,20 @@
 """Datapath plugin boundary of the PyTorch port (the JAX package's
 datapath/): the engine (tpuflow.TpuflowDatapath) with its commit, audit,
-maintenance, persistence and tenancy planes."""
+maintenance, persistence and tenancy planes, and its scalar twin
+(oracle_dp.OracleDatapath, host-only numpy: the differential reference)."""
 
 from .audit import AuditPlane
 from .commit import BundleQuarantinedError, CanaryMismatchError, CommitPlane
 from .interface import Datapath, DatapathType, StepResult
+from .oracle_dp import OracleDatapath
 from .tenancy import TenantedDatapath, TenantRegistry, TenantSpec
-from .tpuflow import TpuflowDatapath, refuse
-
-# ROADMAP.md queue A item that re-homes the scalar twin engine.
-ITEM_ORACLE = 9
-
-
-class OracleDatapath:
-    """The scalar twin engine (the JAX package's datapath/oracle_dp.py) is
-    not re-homed yet: constructing it raises NotImplementedError."""
-
-    def __init__(self, *args, **kwargs):
-        raise refuse("OracleDatapath", ITEM_ORACLE)
+from .tpuflow import TpuflowDatapath
 
 
 def make_datapath(kind: DatapathType | str, *args, **kwargs) -> Datapath:
     """Factory keyed on DatapathType.  TPUFLOW builds the port's engine
-    (on the card unless device="cpu" is passed); ORACLE raises
-    NotImplementedError."""
+    (on the card unless device="cpu" is passed); ORACLE builds the scalar
+    twin, which runs on the host and takes no device."""
     kind = DatapathType(kind)
     if kind == DatapathType.TPUFLOW:
         return TpuflowDatapath(*args, **kwargs)

@@ -34,10 +34,18 @@ next step's reads, which is the lost-update guard.
 Cached rule attribution follows rule IDENTITY across bundles
 (_remap_cached_attribution), as in the JAX engine.
 
+Tenant worlds (datapath/tenancy.py) swap the engine's per-world fields in
+and out: each world has its own rung-padded rule tensors and quota-sized
+state on the engine's device, and steps through the same kernels.  The
+serving batcher (serving/batcher.py) packs mixed-tenant lanes onto a ladder
+of canonical batch sizes, its padding lanes masked out by `valid`.  With
+persist_dir the engine restores its PolicySet, services, topology, tenant
+worlds and a monotonic generation on construction (datapath/persist.py,
+the round journal in native/store.py); the flow cache starts empty.
+
 Entry points run on the card unless the caller passes device="cpu" (on CPU
-tensors every kernel wrapper runs its plain version).  Knobs this port has
-not re-homed yet raise NotImplementedError naming their ROADMAP.md item;
-the JAX engine's own refusals stay ConfigErrors with its words.
+tensors every kernel wrapper runs its plain version).  The JAX engine's own
+refusals stay ConfigErrors with its words.
 """
 
 from __future__ import annotations
@@ -75,18 +83,6 @@ from .maintenance import MaintainableDatapath
 from .slowpath import ADMIT_HOLD
 from .tenancy import TenantedDatapath, TenantSpec
 
-# ROADMAP.md queue A items that take the knobs this slice refuses.
-ITEM_TENANCY = 6
-ITEM_PERSIST = 8
-
-
-def refuse(what: str, item: int):
-    """NotImplementedError naming the ROADMAP.md queue A item that ports
-    `what`."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item {item})")
-
-
 def _rid(ids: list, idx: int):
     """Stored rule INDEX -> stable rule id, None for default/vanished — the
     one attribution-resolution rule shared by dump/trace/audit."""
@@ -113,7 +109,19 @@ class _RuleIds:
 class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                       TransactionalDatapath, AuditableDatapath,
                       persist.PersistableDatapath, Datapath):
-    # The per-world swap set (datapath/tenancy.py), as in the JAX engine.
+    # The per-world swap set (datapath/tenancy.py): the JAX engine's list
+    # and the port's rule-id caches (_RuleIds, one pair a world: a shared
+    # pair would rebuild its id array at every swap).  The one-pass meta
+    # and the delta overlay's slot count ride _meta / _meta_step, the
+    # overlay's tables _drs.ip_delta, and its host mirror _delta_host, so
+    # they swap with their world.  Shared across worlds, as in the JAX
+    # engine: the service view (_services, _dsvc), forwarding (_topo,
+    # _ft, _rt, _dft), the prune plane and its meters (K is the default
+    # world's; tenant worlds never retune it), the slow-path queue and
+    # its overlap ring (a tenant drain's finalizer re-enters its owner
+    # world, datapath/tenancy._tenant_drain_dispatch), the device, and
+    # every scheduler and observability object.
+    # tests/test_torch_tenancy.py pins this list.
     _TENANT_WORLD_FIELDS = (
         "_ps", "_cps", "_drs", "_meta", "_meta_step", "_state", "_gen",
         "_has_named_ports", "_n_deltas", "_delta_host", "_name_gids",
@@ -121,6 +129,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         "_stats_in", "_stats_out", "_bytes_in", "_bytes_out",
         "_default_allow", "_default_deny", "_evictions", "_reclaims",
         "_state_mutations", "_pipe_kw", "_persist_dirty",
+        "_rule_ids_in", "_rule_ids_out",
     )
 
     def __init__(
@@ -174,11 +183,6 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
 
         self._device = resolve_device(device)
         gates = feature_gates or DEFAULT_GATES
-        for what, on, item in (
-                ("serving_batcher", serving_batcher, ITEM_TENANCY),
-                ("persist_dir", persist_dir is not None, ITEM_PERSIST)):
-            if on:
-                raise refuse(what, item)
         if canary_probes == 0 and audit_divergence_trip is not None:
             raise ConfigError(
                 "canary_probes=0 disables the canary, but "
@@ -246,16 +250,13 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._services = list(services or [])
         self._topo = topology
         self._gen = 0
-        self._init_persist(None, ps, services)
+        # Restart recovery (datapath/persist.py): constructed without
+        # explicit state, the engine reloads the last committed snapshot
+        # and resumes with a monotonic generation; the flow cache starts
+        # empty (flows re-classify, never re-verdict differently).
+        self._init_persist(persist_dir, ps, services)
         self._state = self._init_pipeline_state(flow_slots, aff_slots)
-        self._stats_in: Counter = Counter()
-        self._stats_out: Counter = Counter()
-        self._bytes_in: Counter = Counter()
-        self._bytes_out: Counter = Counter()
-        self._default_allow = 0
-        self._default_deny = 0
-        self._evictions = 0
-        self._reclaims = 0
+        self._reset_world_counters()
         # Wall time of step() as the caller sees it (dispatch, device walk
         # and the read-back of the outputs).
         self.step_hist = Histogram()
@@ -275,7 +276,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._init_maintenance(maint_budget=maint_budget,
                                maint_clock=maint_clock)
         self._init_tenancy()
-        self._init_serving(False, canonical_sizes=canonical_sizes,
+        self._init_serving(serving_batcher, canonical_sizes=canonical_sizes,
                            flush_depth=flush_depth,
                            flush_deadline=flush_deadline,
                            ring_slots=serving_ring_slots)
@@ -927,20 +928,6 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                          pool, n_new=n_new, now0=now, gen=self._gen,
                          k_small=k_small, k_big=k_big, repeats=repeats)
 
-    # -- refused planes --------------------------------------------------------
-
-    def tenant_create(self, name: str, ps: Optional[PolicySet] = None, **kw):
-        if self._dual_stack:
-            # The tenancy plane's own refusal (a ConfigError) comes first.
-            return super().tenant_create(name, ps, **kw)
-        raise refuse("tenant worlds (tenant_create)", ITEM_TENANCY)
-
-    def serving_batcher(self):
-        raise refuse("the serving batcher", ITEM_TENANCY)
-
-    def _tenant_init_world(self, spec: TenantSpec, ps) -> None:
-        raise refuse("tenant worlds (_tenant_init_world)", ITEM_TENANCY)
-
     # -- commit plane hooks (datapath/commit.py) ------------------------------
 
     def _commit_snapshot(self, group: Optional[str] = None) -> dict:
@@ -1511,6 +1498,35 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         return match.from_numpy(DeltaTable, host, self._device)
 
     # -- tenancy hooks ---------------------------------------------------------
+
+    def _reset_world_counters(self) -> None:
+        """Zero the per-world counters (a new engine's and a new tenant
+        world's)."""
+        self._stats_in: Counter = Counter()
+        self._stats_out: Counter = Counter()
+        self._bytes_in: Counter = Counter()
+        self._bytes_out: Counter = Counter()
+        self._default_allow = 0
+        self._default_deny = 0
+        self._evictions = 0
+        self._reclaims = 0
+
+    def _tenant_init_world(self, spec: TenantSpec, ps) -> None:
+        """Re-initialize the swapped-out engine fields as a fresh world for
+        `spec`: its own compiled (rung-padded) tensors, its own state
+        tables at the quota rungs on the engine's device, zeroed counters,
+        generation 0.  The caller (tenant_create) holds the saved world and
+        restores it afterwards."""
+        self._ps = ps
+        self._gen = 0
+        self._pipe_kw = dict(self._pipe_kw, flow_slots=spec.quota,
+                             aff_slots=spec.aff_quota)
+        self._reset_world_counters()
+        self._state_mutations = 0
+        self._persist_dirty = False
+        self._rule_ids_in, self._rule_ids_out = _RuleIds(), _RuleIds()
+        self._compile_rules()
+        self._state = self._init_pipeline_state(spec.quota, spec.aff_quota)
 
     def _tenant_occupied(self, fields: dict) -> int:
         return int(pl.cache_stats(fields["_state"])["occupied"])

@@ -138,6 +138,54 @@ package is missing, or when any phase fails.  Phases, in order:
      engines on the card and on the CPU: every StepResult field, the
      tables, dump_flows() and a 16-lane trace() bitwise equal.
 
+ 16. tenant worlds, the serving batcher, restart and the scalar twin:
+     (a) a staged fused engine on the headline world (flow_slots=2**22,
+     canary_probes=8, serving_batcher=True, canonical_sizes=(2048, 8192))
+     with 12 tenant worlds, 4 each of gen_cluster(n, n_nodes=8,
+     pods_per_node=32) for n = 2,000, 8,000 and 25,000 (five rungs: each
+     phase capacity pads to its own power of two, which splits the
+     2,000-rule worlds over three), each at quota=2**18 and
+     aff_quota=2**16: tenant_create seconds per rule count, device bytes
+     per world; (b)'s first 4096 lanes cold then warm through this
+     engine's step_tenants and a CPU engine's with the same worlds: every
+     StepResult field, every world's tables, dump_flows(),
+     tenant_dump_flows() and tenant_stats() bitwise equal (the card's
+     worlds fresh again after); (b) step_tenants on 2**17 mixed lanes
+     (half the headline traffic on the default world, half split evenly
+     over the tenants, gen_traffic over each tenant's own pods): cold, warm
+     and 8 steady steps, with every launch count set to 0 just before and
+     read just after, and each dispatch's launches read around it with its
+     world (B1 launched inside tenant worlds); packets/s, dispatches a
+     step, the padded share, and the distinct (rung signature, lane count)
+     pairs reaching models/forwarding.pipeline_step_full, at most (rungs +
+     1) x 2; beside it the same engine's plain step on 2**17 default-world
+     lanes; B1 against its plain version on a 25,000-rule world's
+     rung-padded tables at 2048 lanes and at MISS_CHUNK (256), the round
+     the staged step launches it on; (e) the
+     same two installs (the headline bundle, one tenant's) on that engine
+     and on an engine with a persist dir (in a temporary directory, one
+     tenant per rule count), which is dropped and rebuilt from the dir: boot
+     seconds, the generation, the tenants' tids, specs and generations, the
+     native round journal, and from the second step on the codes and rule
+     ids of the headline batch and of each tenant equal to the engine that
+     never restarted; (f) 64 fresh headline lanes through
+     make_datapath("oracle") and through the restarted engine (its cache
+     empty): every StepResult field equal; (c) a one-pass engine
+     (fused=True, prune_budget=4) with one tenant per rule count on the
+     card and on the CPU: 4096 mixed lanes (half default) cold then warm
+     through step_tenants, every StepResult field, every world's tables,
+     dump_flows() and tenant_dump_flows() bitwise equal, and lane for lane
+     equal to unbatched step/tenant_step from the same states on the card;
+     the launch counts set to 0 just before each card step_tenants and read
+     just after (B3 launched inside the tenant worlds, read around each of
+     its dispatches, not the replays'); B2 and B3 against their plain
+     versions on the 25,000-rule world's rung-padded pruned tables; (d) a
+     tenant install through the pruned canary (B2), then a forced canary
+     veto (a FaultPlan) on another tenant: only that world rolls back; (f)
+     the twin on the 8,000-rule tenant's PolicySet against the engine on
+     the card, 512 lanes cold then warm: every field and dump_flows()
+     equal.  Each sub-phase's seconds are printed.
+
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
 of a 2-way word split (shard 1 at w0 = W / 2); in phase 5 on the warm
@@ -619,6 +667,13 @@ def counts() -> tuple[int, int, int]:
     from antrea_tpu_torch.ops import consumer, onepass, pruned_consumer
 
     return consumer.launches, pruned_consumer.launches, onepass.launches
+
+
+def counts5() -> tuple[int, int, int, int, int]:
+    """(B1, B2, B3, B3h, S1) launches since reset_counts()."""
+    from antrea_tpu_torch.ops import consumer2, onepass
+
+    return counts() + (onepass.launches_hits, consumer2.launches)
 
 
 def timed_step(step, state, drs, dsvc, lanes, now):
@@ -2608,6 +2663,617 @@ def drive_dual(ps, services, pod_ips, tr, dev):
     return rec15, b1, b2, pc_launches
 
 
+# ---- phase 16: tenant worlds, the serving batcher, restart, the twin -------
+# (a)'s tenant worlds (TENANTS_PER_RUNG of each rule count, each
+# gen_cluster(n, n_nodes=8, pods_per_node=32), at the per-tenant flow and
+# affinity quotas), the batcher's ladder, the flows of each tenant's share of
+# (b)'s batch, (c)'s mixed lanes, the one-pass engines' default-world cache
+# in (c) and (d) (card and CPU alike), and (f)'s lanes.
+TENANT_RULES = (2_000, 8_000, 25_000)
+TENANTS_PER_RUNG = 4
+TENANT_QUOTA = 1 << 18
+TENANT_AFF_QUOTA = 1 << 16
+LADDER = (2048, 8192)
+TENANT_FLOWS = 2048
+ONEPASS_SLOTS = 1 << 16
+TWIN_LANES = 512
+TWIN_HEADLINE_LANES = 64
+
+
+def tenant_worlds():
+    """-> [(rule count, cluster)]: TENANTS_PER_RUNG worlds of each of
+    TENANT_RULES, rule count r's i-th at seed 100 + 10 * r + i."""
+    from antrea_tpu_torch.simulator import gen_cluster
+
+    return [(n, gen_cluster(n, n_nodes=8, pods_per_node=32,
+                            seed=100 + 10 * r + i))
+            for r, n in enumerate(TENANT_RULES)
+            for i in range(TENANTS_PER_RUNG)]
+
+
+def tenant_traffic(cluster, n, seed, n_flows=None):
+    """n lanes of gen_traffic over the tenant's own pods."""
+    from antrea_tpu_torch.simulator import gen_traffic
+
+    return gen_traffic(cluster.pod_ips, n, seed=seed,
+                       n_flows=n_flows or max(8, n // 2))
+
+
+def mixed(parts, tids, seed):
+    """PacketBatches `parts`, one per world id of `tids`, concatenated and
+    shuffled by a seeded permutation -> (batch, each lane's world id)."""
+    import dataclasses
+
+    import numpy as np
+
+    cols = {f.name: np.concatenate([getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(parts[0])
+            if getattr(parts[0], f.name) is not None}
+    b = type(parts[0])(**cols)
+    lane = np.concatenate([np.full(p.size, t, np.int64)
+                           for p, t in zip(parts, tids)])
+    perm = np.random.default_rng(seed).permutation(b.size)
+    return sub_batch(b, perm), lane[perm]
+
+
+def world_bytes(drs, state) -> int:
+    """Device bytes of one world's rule and state tensors."""
+    from antrea_tpu_torch.models.pipeline import tree_leaves
+
+    return sum(x.numel() * x.element_size()
+               for x in tree_leaves(drs) + tree_leaves(state))
+
+
+def world_states(eng, tids) -> list:
+    return [eng._state] + [eng._tenants.world(t).fields["_state"]
+                           for t in tids]
+
+
+def set_world_states(eng, tids, states) -> None:
+    eng._state = states[0]
+    for t, s in zip(tids, states[1:]):
+        eng._tenants.world(t).fields["_state"] = s
+
+
+def recording_signatures(eng):
+    """Wrap models/forwarding.pipeline_step_full to record each dispatch's
+    (rung signature, lane count), the signature being what the tenancy
+    plane keys a world's rung by: its step meta and the shapes of its rule
+    and state tensors; and, per dispatch, the world of `eng` it ran in and
+    the (B1, B2, B3) launches it made.  -> (signatures, [(world id,
+    launches)], restore)."""
+    from antrea_tpu_torch.models import forwarding as fw
+    from antrea_tpu_torch.models.pipeline import tree_leaves
+
+    real = fw.pipeline_step_full
+    sigs, per_world = [], []
+
+    def recording(state, drs, *args, meta, **kw):
+        sigs.append(((meta, tuple(tuple(x.shape) for x in tree_leaves(drs)),
+                      tuple(tuple(x.shape) for x in tree_leaves(state))),
+                     int(args[2].shape[0])))
+        c0 = counts()
+        out = real(state, drs, *args, meta=meta, **kw)
+        per_world.append((eng._tenant_id(),
+                          tuple(x - y for x, y in zip(counts(), c0))))
+        return out
+
+    fw.pipeline_step_full = recording
+
+    def restore():
+        fw.pipeline_step_full = real
+
+    return sigs, per_world, restore
+
+
+def tenant_launches(per_world) -> tuple[int, int, int]:
+    """(B1, B2, B3) launches of the dispatches that ran in a tenant world
+    (not the default world, id 0)."""
+    return tuple(sum(ln[k] for tid, ln in per_world if tid)
+                 for k in range(3))
+
+
+def add_counts(a, b) -> tuple:
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def step_fields():
+    """Every StepResult field but the rule ids (compared as lists)."""
+    import dataclasses
+
+    from antrea_tpu_torch.datapath.interface import StepResult
+
+    return tuple(f.name for f in dataclasses.fields(StepResult)
+                 if f.name not in ("ingress_rule", "egress_rule"))
+
+
+def same_worlds(a, b, tids, now, what):
+    """Two engines' worlds (the default and each tenant): the flow and
+    affinity tables (dump row excluded), dump_flows() of each, bitwise."""
+    import torch
+
+    for k, (sa, sb) in enumerate(zip(world_states(a, tids),
+                                     world_states(b, tids))):
+        for part in ("flow", "aff"):
+            for f, x, y in zip(getattr(sa, part)._fields,
+                               getattr(sa, part), getattr(sb, part)):
+                if not torch.equal(x[:-1].cpu(), y[:-1].cpu()):
+                    raise SystemExit(f"{what}: world {k} {part}.{f} "
+                                     f"differs")
+    if a.dump_flows(now) != b.dump_flows(now):
+        raise SystemExit(f"{what}: dump_flows() differs")
+    for t in tids:
+        if a.tenant_dump_flows(t, now) != b.tenant_dump_flows(t, now):
+            raise SystemExit(f"{what}: tenant_dump_flows({t}) differs")
+
+
+def same_tenant_stats(a, b, tids, what):
+    """Two engines' tenant_stats() on the fields a step does not meter."""
+    ta, tb = a.tenant_stats(), b.tenant_stats()
+    if any(ta[t][k] != tb[t][k] for t in tids
+           for k in ("generation", "degraded", "occupied", "rule_words",
+                     "word_off", "quota_slots")):
+        raise SystemExit(f"{what}: tenant_stats() differs")
+
+
+def drive_tenants(ps, services, pod_ips, tr, pool_tr, dev):
+    """Phase 16: tenant worlds and the serving batcher at the headline
+    width, restart from a persist dir, and the scalar twin.  Cuts for time
+    (no width is cut): (e)'s engine holds one tenant per rule count (each
+    commit rewrites the whole snapshot, ~50 MB of JSON with the headline
+    PolicySet), and (c) runs on (d)'s one-pass engines, one tenant per rule
+    count.
+    -> (record, {kernel: record}, {window: (B1, B2, B3, B3h, S1)
+    launches})."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath, make_datapath
+    from antrea_tpu_torch.datapath.commit import CanaryMismatchError
+    from antrea_tpu_torch.datapath.tenancy import _sub_batch
+    from antrea_tpu_torch.dissemination.faults import FaultPlan
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.ops.match import interval_rows, tables
+
+    t16 = time.perf_counter()
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fields = step_fields()
+    kw = dict(flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK, fused=True,
+              canary_probes=ENGINE_PROBES, serving_batcher=True,
+              canonical_sizes=LADDER)
+    tq = dict(quota=TENANT_QUOTA, aff_quota=TENANT_AFF_QUOTA)
+    rec, kern, launches = {}, {}, {}
+
+    # (a) The tenant engine: the headline world and 12 tenant worlds.
+    t0 = time.perf_counter()
+    worlds = tenant_worlds()
+    gen_s = time.perf_counter() - t0
+    eng, build_s, _ = timed(lambda: TpuflowDatapath(
+        world_copy(ps), services, device=dev, **kw))
+    mem_default = torch.cuda.memory_allocated()
+    tids, create_s = [], {n: [] for n in TENANT_RULES}
+    for i, (n, c) in enumerate(worlds):
+        tid, s, _ = timed(lambda: eng.tenant_create(
+            f"t{n}-{i % TENANTS_PER_RUNG}", world_copy(c.ps), **tq))
+        tids.append(tid)
+        create_s[n].append(s)
+    # Worlds of one rule count may still take several rungs: the padding
+    # rounds each phase's capacity up to a power of two on its own.
+    rungs = eng.tenant_rungs()
+    if not len(TENANT_RULES) <= len(rungs) <= len(tids):
+        raise SystemExit(f"tenants: {len(rungs)} rung signatures over "
+                         f"{len(tids)} worlds")
+    wbytes = {n: [] for n in TENANT_RULES}
+    for (n, _), tid in zip(worlds, tids):
+        f = eng._tenants.world(tid).fields
+        wbytes[n].append(world_bytes(f["_drs"], f["_state"]))
+    rec["a"] = dict(
+        gen_s=gen_s, build_s=build_s, create_s=create_s,
+        world_bytes=wbytes,
+        default_world_bytes=world_bytes(eng._drs, eng._state),
+        device_bytes_after=torch.cuda.memory_allocated(),
+        device_bytes_default=mem_default, rungs=len(rungs))
+    log(f"tenants (a): headline engine built in {build_s:.1f} s; "
+        f"{len(tids)} tenant worlds generated in {gen_s:.1f} s; "
+        + "; ".join(f"{n} rules: tenant_create "
+                    f"{', '.join(f'{s:.2f}' for s in create_s[n])} s, "
+                    f"{wbytes[n][0] / 2**20:.1f} MiB on the card a world"
+                    for n in TENANT_RULES)
+        + f"; {len(rungs)} rungs; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB (the default "
+        f"world {mem_default / 2**30:.3f})")
+
+    # (b) step_tenants on mixed B-lane batches: half the headline traffic
+    # on the default world, half split evenly over the tenants.
+    half = B // 2
+    per = [half // len(tids) + (1 if i < half % len(tids) else 0)
+           for i in range(len(tids))]
+    parts = [sub_batch(tr, np.arange(half))] + [
+        tenant_traffic(c, k, 200 + i, TENANT_FLOWS)
+        for i, ((_, c), k) in enumerate(zip(worlds, per))]
+    mb, lane_tids = mixed(parts, [0] + tids, 16)
+
+    # The staged step_tenants card against CPU, before (b) and from fresh
+    # worlds: (b)'s first CROSS_LANES lanes, cold then warm, through this
+    # engine and a CPU engine given the same worlds; every StepResult
+    # field, every world's tables, dump_flows(), tenant_dump_flows() and
+    # tenant_stats() bitwise equal.  The card's worlds are fresh again
+    # after.
+    t0 = time.perf_counter()
+    p = TpuflowDatapath(world_copy(ps), services, device="cpu", **kw)
+    if [p.tenant_create(f"t{n}-{i % TENANTS_PER_RUNG}", world_copy(c.ps),
+                        **tq) for i, (n, c) in enumerate(worlds)] != tids:
+        raise SystemExit("staged tenants: tids differ card vs CPU")
+    fresh = [pl.clone_state(s) for s in world_states(eng, tids)]
+    xb = sub_batch(mb, np.arange(CROSS_LANES))
+    xtids = lane_tids[:CROSS_LANES]
+    xmiss = []
+    for now in (NOWS[0] - 2, NOWS[0] - 1):
+        rd = eng.step_tenants(xtids, xb, now)
+        rp = p.step_tenants(xtids, xb, now)
+        xmiss.append(rd.n_miss)
+        what = f"staged step_tenants card vs CPU @{now}"
+        same_result(rd, rp, what, fields)
+        same_worlds(eng, p, tids, now, what)
+        same_tenant_stats(eng, p, tids, what)
+    set_world_states(eng, tids, fresh)
+    del p, fresh
+    gc.collect()
+    rec["a_cross"] = dict(lanes=CROSS_LANES, n_miss=xmiss,
+                          seconds=time.perf_counter() - t0)
+    log(f"tenants (a): staged step_tenants on (b)'s first {CROSS_LANES} "
+        f"mixed lanes, cold then warm (n_miss {xmiss}), card vs CPU engine "
+        f"with the same {len(tids)} tenant worlds: every StepResult field, "
+        f"every world's tables, dump_flows(), tenant_dump_flows() and "
+        f"tenant_stats() bitwise equal ({rec['a_cross']['seconds']:.1f} s "
+        f"with the CPU engine's build)")
+
+    sigs, per_world, restore = recording_signatures(eng)
+    st0 = eng.serving_stats()
+    times, misses = [], []
+    reset_counts()
+    try:
+        for now in NOWS:
+            r, s, _ = timed(lambda: eng.step_tenants(lane_tids, mb, now))
+            times.append(s)
+            misses.append(r.n_miss)
+            if r.code.shape != (B,) or not np.isin(r.code, (0, 1, 2)).all():
+                raise SystemExit("step_tenants: bad verdict column")
+    finally:
+        restore()
+    launches["b"] = counts5()
+    in_tenants_b = tenant_launches(per_world)
+    st1 = eng.serving_stats()
+    n_disp = st1["dispatches"] - st0["dispatches"]
+    n_pad = st1["padded_lanes"] - st0["padded_lanes"]
+    n_flush = st1["flushed_lanes"] - st0["flushed_lanes"]
+    distinct = set(sigs)
+    bound = (len(rungs) + 1) * len(LADDER)
+    if not 0 < len(distinct) <= bound:
+        raise SystemExit(f"step_tenants: {len(distinct)} dispatch "
+                         f"signatures, over rungs x ladder = {bound}")
+    if in_tenants_b[0] == 0 or n_flush != B * len(NOWS):
+        raise SystemExit(f"step_tenants: B1 launches {launches['b']}, "
+                         f"{in_tenants_b[0]} in tenant worlds, {n_flush} "
+                         f"lanes flushed")
+    rb = step_stats(times)
+    rb.update(dispatches_per_step=n_disp / len(NOWS),
+              padded_share=n_pad / (n_flush + n_pad),
+              signatures=len(distinct), signature_bound=bound,
+              signature_lanes=sorted({n for _, n in distinct}),
+              n_miss=misses, launches=list(launches["b"]),
+              launches_in_tenant_worlds=list(in_tenants_b))
+    ptimes = []
+    for now in NOWS:
+        r, s, _ = timed(lambda: eng.step(tr, now + len(NOWS)))
+        ptimes.append(s)
+    rb["plain_step"] = step_stats(ptimes)
+    rec["b"] = rb
+    log(f"tenants (b): step_tenants on {B} mixed lanes (half the headline "
+        f"traffic, half over {len(tids)} tenants): cold "
+        f"{rb['cold_ms']:.1f} ms, warm {rb['warm_ms']:.1f} ms, steady "
+        f"median {rb['steady_ms']:.2f} ms (min {rb['steady_min_ms']:.2f}, "
+        f"max {rb['steady_max_ms']:.2f}), {rb['steady_pps'] / 1e6:.2f} M "
+        f"packets/s; {rb['dispatches_per_step']:.1f} dispatches a step, "
+        f"padded share {rb['padded_share']:.3f}, {len(distinct)} dispatch "
+        f"signatures (bound {bound}: {len(rungs)} tenant rungs and the "
+        f"default world's, x {len(LADDER)} sizes), lane counts "
+        f"{rb['signature_lanes']}; n_miss "
+        f"{misses}; (B1, B2, B3, B3h, S1) launches {launches['b']}, "
+        f"(B1, B2, B3) in tenant worlds {in_tenants_b}.  The same "
+        f"engine's plain step on {B} default-world lanes: first "
+        f"{rb['plain_step']['cold_ms']:.1f} ms, steady "
+        f"{rb['plain_step']['steady_ms']:.2f} ms, "
+        f"{rb['plain_step']['steady_pps'] / 1e6:.2f} M packets/s")
+
+    # B1 against its plain version on a 25,000-rule tenant's rung-padded
+    # staged tables, at that tenant's own fresh lanes' interval rows: 2048
+    # lanes, and MISS_CHUNK, the round the staged step launches it on.
+    big = TENANT_RULES.index(max(TENANT_RULES)) * TENANTS_PER_RUNG
+    wf = eng._tenants.world(tids[big]).fields
+    src, dst, proto, sport, dport = to_lanes(
+        tenant_traffic(worlds[big][1], 2048, 250, 2048), dev)
+    iv = interval_rows(wf["_drs"], src, dst, (proto << 16) | dport)
+    mm = wf["_meta"].match
+    for key, rows in (("b1", iv), ("b1_chunk", iv[:MISS_CHUNK])):
+        kern[key] = check_consumer(
+            tables(wf["_drs"]), rows, mm.svcref, mm.in_phases,
+            mm.out_phases, f"tenant world of {worlds[big][0]} rules, "
+            f"rung-padded, {rows.shape[0]} lanes", 5)
+    del iv, wf
+
+    # (e) Restart.  The never-restarted twin is the engine above, given the
+    # same two installs; the restarted one writes its persist dir first.
+    # Every commit rewrites the whole snapshot (the headline PolicySet is
+    # ~50 MB of JSON), so the tenants and the tenant's install come before
+    # the headline bundle: one large snapshot, not three.
+    eng.tenant_install_bundle(tids[0], world_copy(worlds[0][1].ps))
+    eng.install_bundle(ps=world_copy(ps))
+    picks = [r * TENANTS_PER_RUNG for r in range(len(TENANT_RULES))]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        e = TpuflowDatapath(None, services, device=dev, persist_dir=tmp,
+                            **kw)
+        etids = [e.tenant_create(f"t{worlds[k][0]}", world_copy(
+            worlds[k][1].ps), **tq) for k in picks]
+        tg, tinstall_s, _ = timed(lambda: e.tenant_install_bundle(
+            etids[0], world_copy(worlds[0][1].ps)))
+        g, install_s, _ = timed(lambda: e.install_bundle(ps=world_copy(ps)))
+        keys = ("name", "generation", "quota_slots", "queue_quota",
+                "rule_words")
+        specs = {t: {k: v[k] for k in keys}
+                 for t, v in e.tenant_stats().items()}
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+        rs, boot_s, _ = timed(lambda: TpuflowDatapath(
+            persist_dir=tmp, device=dev, **kw))
+        if rs.generation != g or g < 1 or tg != 1:
+            raise SystemExit(f"restart: generation {rs.generation}, before "
+                             f"the drop {g} (tenant {tg})")
+        if rs._conf_store.backend != "native":
+            raise SystemExit("restart: the round journal is not the native "
+                             "store")
+        got = {t: {k: v[k] for k in keys}
+               for t, v in rs.tenant_stats().items()}
+        if got != specs:
+            raise SystemExit(f"restart: tenant worlds {got}, not {specs}")
+        # (f), the headline world's part: TWIN_HEADLINE_LANES fresh flows
+        # through the scalar twin and through the restarted engine, whose
+        # cache the restart emptied.
+        fresh = sub_batch(pool_tr, np.arange(TWIN_HEADLINE_LANES))
+        twin, twin_build_s, _ = timed(lambda: make_datapath(
+            "oracle", world_copy(ps), services, flow_slots=FLOW_SLOTS,
+            canary_probes=0))
+        rt, twin_step_s, _ = timed(lambda: twin.step(fresh, 90))
+        rr, eng_step_s, _ = timed(lambda: rs.step(fresh, 90))
+        same_result(rr, rt, "twin, headline lanes", fields=fields)
+        del twin
+        now = NOWS[-1] + 2 * len(NOWS) + 1
+        for k in range(2):
+            r_rs = rs.step(tr, now + k)
+            r_tw = eng.step(tr, now + k)
+        same_result(r_rs, r_tw, "restart vs never restarted",
+                    fields=("code",))
+        for k, et in zip(picks, etids):
+            b = parts[1 + k]
+            for j in range(2):
+                r_rs = rs.tenant_step(et, b, now + j)
+                r_tw = eng.tenant_step(tids[k], b, now + j)
+            same_result(r_rs, r_tw, f"restart, tenant {et}",
+                        fields=("code",))
+        rec["e"] = dict(boot_s=boot_s, install_s=install_s,
+                        tenant_install_s=tinstall_s, generation=g,
+                        snapshot_bytes=os.path.getsize(os.path.join(
+                            tmp, "datapath_snapshot.json")))
+        rec["f_headline"] = dict(lanes=TWIN_HEADLINE_LANES,
+                                 twin_build_s=twin_build_s,
+                                 twin_ms=twin_step_s * 1e3,
+                                 engine_ms=eng_step_s * 1e3)
+        log(f"restart (e): headline bundle installed with its snapshot in "
+            f"{install_s:.1f} s ({rec['e']['snapshot_bytes'] / 1e6:.1f} MB "
+            f"of JSON), the tenant's in {tinstall_s:.1f} s; rebuilt from "
+            f"the dir in {boot_s:.1f} s: generation {rs.generation}, "
+            f"{len(got)} tenant worlds with their tids, specs and "
+            f"generations, native round journal; from the second step on, "
+            f"the headline batch's and each tenant's codes and rule ids "
+            f"equal the never-restarted engine's")
+        log(f"twin (f): {TWIN_HEADLINE_LANES} fresh headline lanes, every "
+            f"StepResult field equal to the restarted engine's; twin built "
+            f"in {twin_build_s:.1f} s, its step {twin_step_s * 1e3:.0f} ms, "
+            f"the engine's {eng_step_s * 1e3:.1f} ms")
+        del rs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del eng, parts, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c), (d): one-pass engines on the card and on the CPU, the headline
+    # world and one tenant per rule count.
+    okw = dict(kw, flow_slots=ONEPASS_SLOTS, prune_budget=PRUNE_K,
+               ct_timeout_s=3600)
+    sel = [worlds[k] for k in picks]
+    d, build_d, _ = timed(lambda: TpuflowDatapath(
+        world_copy(ps), services, device=dev, **okw))
+    p = TpuflowDatapath(world_copy(ps), services, device="cpu", **okw)
+    dt = [d.tenant_create(f"t{n}", world_copy(c.ps), **tq) for n, c in sel]
+    if [p.tenant_create(f"t{n}", world_copy(c.ps), **tq)
+            for n, c in sel] != dt:
+        raise SystemExit("one-pass tenants: tids differ card vs CPU")
+    half = CROSS_LANES // 2
+    per = [half // len(dt) + (1 if i < half % len(dt) else 0)
+           for i in range(len(dt))]
+    cparts = [sub_batch(tr, np.arange(half))] + [
+        tenant_traffic(c, k, 300 + i) for i, ((_, c), k) in
+        enumerate(zip(sel, per))]
+    cb, clanes = mixed(cparts, [0] + dt, 17)
+    # The launch counts are those of the card's step_tenants alone: set to
+    # 0 just before each and read just after, before the CPU engine's step
+    # and the unbatched replays.
+    launches["c"] = (0,) * 5
+    in_tenants_c = (0, 0, 0)
+    for now in (500, 501):
+        pre = [pl.clone_state(s) for s in world_states(d, dt)]
+        _, per_world, restore = recording_signatures(d)
+        reset_counts()
+        try:
+            rd = d.step_tenants(clanes, cb, now)
+        finally:
+            restore()
+        launches["c"] = add_counts(launches["c"], counts5())
+        in_tenants_c = add_counts(in_tenants_c, tenant_launches(per_world))
+        rp = p.step_tenants(clanes, cb, now)
+        same_result(rd, rp, f"step_tenants card vs CPU @{now}", fields)
+        same_worlds(d, p, dt, now, f"step_tenants card vs CPU @{now}")
+        # (The replay below steps the card's worlds once more, so the
+        # meters that count steps differ from the second round on.)
+        same_tenant_stats(d, p, dt, "step_tenants card vs CPU")
+        # Lane for lane against unbatched dispatch from the same states.
+        post = world_states(d, dt)
+        set_world_states(d, dt, pre)
+        n_miss = 0
+        for tid in [0] + dt:
+            idx = np.nonzero(clanes == tid)[0]
+            sub = _sub_batch(cb, idx)
+            u = (d.step(sub, now) if tid == 0
+                 else d.tenant_step(tid, sub, now))
+            n_miss += u.n_miss
+            same_result(u, types.SimpleNamespace(**{
+                f: (None if getattr(rd, f) is None or f == "n_miss"
+                    else np.asarray(getattr(rd, f))[idx]) for f in fields},
+                ingress_rule=[rd.ingress_rule[i] for i in idx],
+                egress_rule=[rd.egress_rule[i] for i in idx]),
+                f"step_tenants vs unbatched, world {tid} @{now}",
+                tuple(f for f in fields if f != "n_miss"))
+        if n_miss != rd.n_miss:
+            raise SystemExit(f"step_tenants n_miss {rd.n_miss}, unbatched "
+                             f"{n_miss}")
+        set_world_states(d, dt, post)
+    b3_tenants = in_tenants_c[2]
+    if launches["c"][2] == 0 or b3_tenants == 0:
+        raise SystemExit(f"one-pass tenants: B3 launches {launches['c']}, "
+                         f"{b3_tenants} inside tenant worlds")
+    padded_c = d.serving_stats()["padded_lanes"]
+    log(f"tenants (c): {CROSS_LANES} mixed lanes ({half} default, "
+        f"{per} over {len(dt)} tenants, one per rule count) cold then warm "
+        f"through step_tenants on the one-pass engine, card vs CPU: every "
+        f"StepResult field, every world's tables, dump_flows(), "
+        f"tenant_dump_flows() and tenant_stats() bitwise equal, and lane "
+        f"for lane equal to unbatched step/tenant_step from the same "
+        f"states; padded lanes {padded_c}; the card's step_tenants "
+        f"launched (B1, B2, B3, B3h, S1) {launches['c']}, (B1, B2, B3) "
+        f"{in_tenants_c} of them inside tenant worlds")
+    del p
+    gc.collect()
+
+    # B2 and B3 against their plain versions on the 25,000-rule tenant's
+    # rung-padded pruned tables (its aggregate rows and its own lanes).
+    wf = d._tenants.world(dt[-1]).fields
+    step_t = types.SimpleNamespace(meta=wf["_meta"])
+    tl = to_lanes(tenant_traffic(sel[-1][1], 2048, 350, 2048), dev)
+    x, otabs, ost, hit = onepass_inputs(step_t, wf["_state"], wf["_drs"],
+                                        d._dsvc, tl, 510)
+    iv, g_in, g_out = lane_probes(x, otabs, ost, hit)
+    mm = wf["_meta"].match
+    kern["b2"] = check_pruned(g_in, g_out, iv, otabs.inc, PRUNE_K,
+                              mm.svcref, mm.in_phases, mm.out_phases, 5)
+    del x, iv, g_in, g_out
+    kern["b3"] = check_onepass(step_t, wf["_state"], wf["_drs"], d._dsvc,
+                               tl, 510, f"tenant world of {sel[-1][0]} "
+                               f"rules, rung-padded")
+    del wf, tl
+
+    # (d) A tenant install through the canary (B2 on the pruned tables),
+    # then a forced canary veto on another tenant: only that world rolls
+    # back.
+    reset_counts()
+    if d.tenant_install_bundle(dt[0], world_copy(sel[0][1].ps)) != 1:
+        raise SystemExit("one-pass tenants: install did not commit")
+    launches["d_canary"] = counts5()
+    if launches["d_canary"][1] == 0:
+        raise SystemExit("one-pass tenants: the install's canary launched "
+                         "no B2")
+    victim = d._tenants.world(dt[1]).fields
+    kept = (victim["_state"], victim["_drs"])
+    plan = FaultPlan(seed=1)
+    plan.after("dp.canary", 0, "fail", times=1)
+    d.arm_commit_faults(plan, "dp")
+    try:
+        d.tenant_install_bundle(dt[1], world_copy(sel[1][1].ps))
+        raise SystemExit("one-pass tenants: the forced veto did not fire")
+    except CanaryMismatchError:
+        pass
+    st = d.tenant_stats()
+    victim = d._tenants.world(dt[1]).fields
+    if (st[dt[1]]["degraded"] != 1 or st[dt[1]]["generation"] != 0
+            or st[dt[0]]["generation"] != 1 or st[dt[0]]["degraded"]
+            or st[dt[2]]["degraded"] or d.degraded or d.generation != 0
+            or victim["_state"] is not kept[0]
+            or victim["_drs"] is not kept[1]):
+        raise SystemExit(f"one-pass tenants: the veto reached beyond its "
+                         f"world: {st}")
+    r = d.tenant_step(dt[1], cparts[2], 520)
+    if not np.isin(r.code, (0, 1, 2)).all():
+        raise SystemExit("one-pass tenants: the vetoed world does not serve")
+    rec["cd"] = dict(build_s=build_d, launches=list(launches["c"]),
+                     launches_in_tenant_worlds=list(in_tenants_c),
+                     canary_launches=list(launches["d_canary"]),
+                     padded_lanes=padded_c)
+    log(f"tenants (d): one-pass engine built in {build_d:.1f} s; a tenant "
+        f"install's canary launched (B1, B2, B3, B3h, S1) "
+        f"{launches['d_canary']}; a "
+        f"forced canary veto on tenant {dt[1]} rolled back and degraded "
+        f"that world alone (its tables kept by reference), which serves on")
+    del d, victim, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) The twin on the 8,000-rule tenant's PolicySet against the port's
+    # engine on the card, cold then warm.
+    n8, c8 = worlds[TENANTS_PER_RUNG]
+    e8 = TpuflowDatapath(world_copy(c8.ps), device=dev, miss_chunk=MISS_CHUNK,
+                         fused=True, canary_probes=0,
+                         flow_slots=TENANT_QUOTA, aff_slots=TENANT_AFF_QUOTA)
+    tw8 = make_datapath("oracle", world_copy(c8.ps), canary_probes=0,
+                        flow_slots=TENANT_QUOTA, aff_slots=TENANT_AFF_QUOTA)
+    b8 = tenant_traffic(c8, TWIN_LANES, 400, TWIN_LANES // 2)
+    f8 = {}
+    for now, what in ((600, "cold"), (601, "warm")):
+        rt, ts, _ = timed(lambda: tw8.step(b8, now))
+        re_, es, _ = timed(lambda: e8.step(b8, now))
+        same_result(re_, rt, f"twin, {n8}-rule world, {what}", fields)
+        f8[what] = dict(twin_ms=ts * 1e3, engine_ms=es * 1e3)
+    if sorted(map(str, e8.dump_flows(602))) != sorted(
+            map(str, tw8.dump_flows(602))):
+        raise SystemExit("twin: dump_flows() differs")
+    rec["f"] = f8
+    log(f"twin (f): make_datapath('oracle') on the {n8}-rule tenant's "
+        f"PolicySet against the engine on the card, {TWIN_LANES} lanes: "
+        f"every StepResult field and dump_flows() equal; cold twin "
+        f"{f8['cold']['twin_ms']:.0f} ms, engine "
+        f"{f8['cold']['engine_ms']:.1f} ms; warm twin "
+        f"{f8['warm']['twin_ms']:.0f} ms, engine "
+        f"{f8['warm']['engine_ms']:.1f} ms")
+    del e8, tw8
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["script_peak_bytes"] = max(peak_before, rec["peak_bytes"])
+    rec["seconds"] = time.perf_counter() - t16
+    log(f"phase 16 took {rec['seconds']:.1f} s; peak device memory in the "
+        f"phase {rec['peak_bytes'] / 2**30:.3f} GiB, in the script "
+        f"{rec['script_peak_bytes'] / 2**30:.3f} GiB")
+    return rec, kern, launches
+
+
 def main() -> int:
     import torch
 
@@ -2838,6 +3504,11 @@ def main() -> int:
     dual, b1_6, b2_6, b2_6_launches = drive_dual(ps, services, pod_ips, tr,
                                                  dev)
 
+    # 16. Tenant worlds and the serving batcher, restart from a persist
+    # dir, the scalar twin.
+    tenants, k16, l16 = drive_tenants(ps, services, pod_ips, tr, pool_tr,
+                                      dev)
+
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
         return {"name": name, "route": "cuda", "source": src,
@@ -2871,12 +3542,20 @@ def main() -> int:
             launches_flood_staged=flood["staged fused"]["launches"][0],
             launches_flood_onepass=flood["one-pass"]["launches"][0],
             launches_churn_staged=churn["staged fused"]["overlap on"][
-                "launches"][0]),
+                "launches"][0],
+            launches_step_tenants=l16["b"][0],
+            launches_step_tenants_in_tenant_worlds=tenants["b"][
+                "launches_in_tenant_worlds"][0],
+            launches_tenants_onepass=l16["c"][0],
+            tenant_rows=at(k16["b1"]),
+            tenant_rows_miss_chunk=at(k16["b1_chunk"])),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
             launches_engine_onepass=eng_op_launches[1],
-            launches_flood_onepass=flood["one-pass"]["launches"][1]),
+            launches_flood_onepass=flood["one-pass"]["launches"][1],
+            launches_tenant_canary=l16["d_canary"][1],
+            tenant_rows=at(k16["b2"])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, **{k: v for k, v in at(b3["cold"]).items()
@@ -2889,7 +3568,11 @@ def main() -> int:
             launches_engine_onepass=eng_op_launches[2],
             launches_flood_onepass=flood["one-pass"]["launches"][2],
             launches_churn_onepass=churn["one-pass"]["overlap off"][
-                "launches"][2]),
+                "launches"][2],
+            launches_tenants_onepass=l16["c"][2],
+            launches_in_tenant_worlds=tenants["cd"][
+                "launches_in_tenant_worlds"][2],
+            tenant_rows=at(k16["b3"])),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -2897,10 +3580,12 @@ def main() -> int:
                if k not in ("ms", "call_ms", "plain_ms", "bound_ms")},
             rule_shard0=at(b3h["shard0"]), rule_shard1=at(b3h["shard1"]),
             warm_mixed_bits=at(b3h["warm"]),
-            launches_mesh_1x2=mesh12["launches_b3h"]),
+            launches_mesh_1x2=mesh12["launches_b3h"],
+            launches_phase16=sum(v[3] for v in l16.values())),
         rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
             "bench_cold_study.py:129", s1_launches, s1[32768],
-            at_B256=at(s1[256]), study_case4_ms=study_s * 1e3),
+            at_B256=at(s1[256]), study_case4_ms=study_s * 1e3,
+            launches_phase16=sum(v[4] for v in l16.values())),
         # Phase 15: the same kernels on the dual-stack tables' v6 rows;
         # launches on the dual-stack walk (B1) and pruned classify (B2).
         rec("B1 consumer, dual-stack rows",
@@ -2923,7 +3608,7 @@ def main() -> int:
                     "engine": {"onepass": eng_one, "staged": eng_st},
                     "flood": flood, "churn": churn, "knobs": knobs14,
                     "profile": profiles, "knob_step_ms": knob_ms,
-                    "dual_stack": dual}))
+                    "dual_stack": dual, "tenants": tenants}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

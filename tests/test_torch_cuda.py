@@ -962,3 +962,190 @@ def test_dual_stack_engine_on_the_card_equals_cpu(cuda, dual_world):
     b = cs.delta_batch6(plan, pod_ips, 256, 5)
     both(b, 102, "delta step")
     assert eg.trace(b, 103) == ec.trace(b, 103)
+
+
+def _tenant_worlds():
+    """Three tenant worlds on three rungs, for the tenancy cases."""
+    from antrea_tpu_torch.simulator import gen_cluster
+
+    return [gen_cluster(n, n_nodes=4, pods_per_node=8, seed=40 + i)
+            for i, n in enumerate((20, 200, 900))]
+
+
+def _same_worlds(eg, ec, tids, what):
+    """Every world's flow and affinity tables, card against CPU, the dump
+    row excluded; tenant_stats() and each tenant's dump_flows()."""
+    states = [(eg._state, ec._state)] + [
+        (eg._tenants.world(t).fields["_state"],
+         ec._tenants.world(t).fields["_state"]) for t in tids]
+    for sg, sc in states:
+        for part in ("flow", "aff"):
+            for tg, tcpu in zip(getattr(sg, part), getattr(sc, part)):
+                assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), (what, part)
+    assert eg.tenant_stats() == ec.tenant_stats(), what
+    for t in tids:
+        assert eg.tenant_dump_flows(t, 200) == ec.tenant_dump_flows(t, 200)
+
+
+def _same_results(rg, rc, what):
+    import dataclasses
+
+    for f in dataclasses.fields(rc):
+        a, b = getattr(rg, f.name), getattr(rc, f.name)
+        if b is None:
+            assert a is None, (what, f.name)
+        elif isinstance(b, list):
+            assert a == b, (what, f.name)
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                          err_msg=f"{what}: {f.name}")
+
+
+@pytest.mark.parametrize("knobs", [dict(fused=True),
+                                   dict(fused=True, prune_budget=2)],
+                         ids=["staged", "onepass"])
+def test_tenant_worlds_on_the_card_equal_cpu(cuda, knobs):
+    """Tenant worlds on three rungs on the card against the same engine on
+    the CPU: tenant steps cold and warm, a tenant install, a forced canary
+    veto on one tenant; every StepResult field and every world's tables
+    equal, and B1 (staged) or B3 (one-pass) launched inside the tenant
+    worlds on their rung-padded tables."""
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.datapath.commit import CanaryMismatchError
+    from antrea_tpu_torch.dissemination import serde
+    from antrea_tpu_torch.dissemination.faults import FaultPlan
+    from antrea_tpu_torch.ops import onepass as op
+
+    cluster, services = _engine_world()
+    worlds = _tenant_worlds()
+    kw = dict(flow_slots=1 << 12, aff_slots=1 << 8, miss_chunk=64,
+              canary_probes=8, **knobs)
+
+    def ps(c):
+        return serde.decode_policy_set(serde.encode_policy_set(c.ps))
+
+    eg = TpuflowDatapath(ps(cluster), services, device=cuda, **kw)
+    ec = TpuflowDatapath(ps(cluster), services, device="cpu", **kw)
+    tids = [eg.tenant_create(f"t{i}", ps(c), quota=1 << 10)
+            for i, c in enumerate(worlds)]
+    assert [ec.tenant_create(f"t{i}", ps(c), quota=1 << 10)
+            for i, c in enumerate(worlds)] == tids
+    assert len(eg.tenant_rungs()) == 3
+    k0 = (consumer.launches, op.launches)
+    for now in (100, 101):
+        for tid, c in zip(tids, worlds):
+            b = _engine_batch(c, None, tid + now, n=256)
+            _same_results(eg.tenant_step(tid, b, now),
+                          ec.tenant_step(tid, b, now), f"tenant {tid}")
+    k1 = (consumer.launches, op.launches)
+    if knobs.get("prune_budget"):
+        assert k1[1] > k0[1]
+    else:
+        assert k1[0] > k0[0]
+    for dp in (eg, ec):
+        plan = FaultPlan(seed=1)
+        plan.after("dp.canary", 0, "fail", times=1)
+        dp.arm_commit_faults(plan, "dp")
+        with pytest.raises(CanaryMismatchError):
+            dp.tenant_install_bundle(tids[1], ps(worlds[0]))
+        assert dp.tenant_install_bundle(tids[2], ps(worlds[2])) == 1
+    st = eg.tenant_stats()
+    assert st[tids[1]]["degraded"] == 1 and st[tids[1]]["generation"] == 0
+    assert st[tids[2]]["generation"] == 1 and not eg.degraded
+    for tid, c in zip(tids, worlds):
+        b = _engine_batch(c, None, tid + 7, n=256)
+        _same_results(eg.tenant_step(tid, b, 102),
+                      ec.tenant_step(tid, b, 102), f"after veto {tid}")
+    _same_worlds(eg, ec, tids, "tenants")
+
+
+@pytest.mark.parametrize("knobs", [dict(fused=True),
+                                   dict(fused=True, prune_budget=2)],
+                         ids=["staged", "onepass"])
+def test_step_tenants_padded_lanes_on_the_card(cuda, knobs):
+    """Mixed-tenant batches through the serving batcher on the card: the
+    padding lanes ride `valid` through B1 (staged) or B3's mask column 0
+    (one-pass) and change no table; every lane equals the CPU engine's."""
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.dissemination import serde
+    from antrea_tpu_torch.ops import onepass as op
+    from antrea_tpu_torch.packet import PacketBatch
+
+    cluster, services = _engine_world()
+    worlds = _tenant_worlds()[:2]
+    kw = dict(flow_slots=1 << 12, aff_slots=1 << 8, miss_chunk=64,
+              canary_probes=0, serving_batcher=True,
+              canonical_sizes=(64, 256), **knobs)
+
+    def ps(c):
+        return serde.decode_policy_set(serde.encode_policy_set(c.ps))
+
+    eg = TpuflowDatapath(ps(cluster), services, device=cuda, **kw)
+    ec = TpuflowDatapath(ps(cluster), services, device="cpu", **kw)
+    tids = [eg.tenant_create(f"t{i}", ps(c), quota=1 << 10)
+            for i, c in enumerate(worlds)]
+    assert [ec.tenant_create(f"t{i}", ps(c), quota=1 << 10)
+            for i, c in enumerate(worlds)] == tids
+    parts = [_engine_batch(cluster, services, 5, n=150)] + [
+        _engine_batch(c, None, 6 + i, n=70) for i, c in enumerate(worlds)]
+    lane_tids = np.concatenate([np.full(p.size, t)
+                                for p, t in zip(parts, [0] + tids)])
+    b = PacketBatch(**{f: np.concatenate([getattr(p, f) for p in parts])
+                       for f in ("src_ip", "dst_ip", "proto", "src_port",
+                                 "dst_port")})
+    perm = np.random.default_rng(3).permutation(b.size)
+    b = PacketBatch(**{f: getattr(b, f)[perm] for f in
+                       ("src_ip", "dst_ip", "proto", "src_port",
+                        "dst_port")})
+    lane_tids = lane_tids[perm]
+    k0 = (consumer.launches, op.launches)
+    for now in (100, 101):
+        _same_results(eg.step_tenants(lane_tids, b, now),
+                      ec.step_tenants(lane_tids, b, now), f"@{now}")
+    k1 = (consumer.launches, op.launches)
+    assert (k1[1] > k0[1]) if knobs.get("prune_budget") else (k1[0] > k0[0])
+    st = eg.serving_stats()
+    assert st == ec.serving_stats() and st["padded_lanes"] > 0
+    _same_worlds(eg, ec, tids, "step_tenants")
+
+
+def test_persist_dir_restart_on_the_card(cuda, tmp_path):
+    """An engine on the card with a persist dir: a bundle, a tenant world
+    and its install, then the engine is dropped and rebuilt from the dir.
+    The generation is monotonic, the tenant's tid, spec and generation come
+    back, the store is the native one, and from the second step on the
+    codes and rule ids equal an engine that never restarted."""
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.dissemination import serde
+
+    cluster, services = _engine_world()
+    world = _tenant_worlds()[1]
+    kw = dict(flow_slots=1 << 12, aff_slots=1 << 8, miss_chunk=64,
+              canary_probes=8, fused=True, prune_budget=2)
+
+    def ps(c):
+        return serde.decode_policy_set(serde.encode_policy_set(c.ps))
+
+    dp = TpuflowDatapath(persist_dir=str(tmp_path), device=cuda, **kw)
+    g = dp.install_bundle(ps=ps(cluster), services=services)
+    tid = dp.tenant_create("t", ps(world), quota=1 << 10)
+    assert dp.tenant_install_bundle(tid, ps(world)) == 1
+    b = _engine_batch(cluster, services, 11)
+    dp.step(b, 100)
+    del dp
+    twin = TpuflowDatapath(ps(cluster), services, device=cuda, **kw)
+    twin.tenant_create("t", ps(world), quota=1 << 10)
+    dp = TpuflowDatapath(persist_dir=str(tmp_path), device=cuda, **kw)
+    assert dp._conf_store.backend == "native"
+    assert dp.generation == g
+    st = dp.tenant_stats()
+    assert list(st) == [tid] and st[tid]["generation"] == 1
+    assert st[tid]["name"] == "t" and st[tid]["quota_slots"] == 1 << 10
+    for now in (101, 102):
+        r, w = dp.step(b, now), twin.step(b, now)
+    np.testing.assert_array_equal(r.code, w.code)
+    assert r.ingress_rule == w.ingress_rule and r.egress_rule == w.egress_rule
+    bt = _engine_batch(world, None, 12, n=256)
+    for now in (103, 104):
+        r, w = dp.tenant_step(tid, bt, now), twin.tenant_step(1, bt, now)
+    np.testing.assert_array_equal(r.code, w.code)

@@ -433,15 +433,6 @@ def test_tensor_digest_equals_reference(world):
     assert tpl.tensor_digest(tpl.tree_leaves(flipped)) != d0
 
 
-@pytest.mark.parametrize("knob,item", [
-    ({"serving_batcher": True}, 6), ({"persist_dir": "unused"}, 8),
-])
-def test_refused_knobs_name_their_roadmap_item(knob, item):
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}\\)"):
-        td.TpuflowDatapath(device="cpu", flow_slots=16, aff_slots=16,
-                           **knob)
-
-
 @pytest.mark.parametrize("knob", [
     {"async_slowpath": True},
     {"async_slowpath": True, "autotune_drain": True},
@@ -450,19 +441,26 @@ def test_refused_knobs_name_their_roadmap_item(knob, item):
      "miss_source_burst": 16},
     {"second_chance": True}, {"telemetry": True},
     {"feature_gates": "FlowExporter"}, {"dual_stack": True},
+    {"serving_batcher": True, "canonical_sizes": (16, 64)},
+    {"persist_dir": "tmp"},
 ], ids=["async_slowpath", "autotune_drain", "overlap_commits",
         "miss_source_rate", "second_chance", "telemetry", "FlowExporter",
-        "dual_stack"])
-def test_formerly_refused_knobs_construct_and_step(world, knob):
-    """The knobs of queue A items 3, 4 and 5 (refused until they were
+        "dual_stack", "serving_batcher", "persist_dir"])
+def test_formerly_refused_knobs_construct_and_step(world, knob, tmp_path):
+    """The knobs of queue A items 3, 4, 5, 6 and 8 (refused until they were
     ported) build an engine on the CPU that steps, drains and ticks; the
     async ones admit the misses a step leaves pending; a dual-stack engine
     reports the wide views (tests/test_torch_dual_stack_engine.py holds it
-    to the JAX engine)."""
+    to the JAX engine); the serving batcher takes the same lanes through
+    step_tenants; a persist dir holds the snapshot a bundle wrote
+    (tests/test_torch_serving.py and tests/test_torch_persistence.py hold
+    both to the JAX engine)."""
     if knob.get("feature_gates"):
         from antrea_tpu_torch.features import FeatureGates
 
         knob = {"feature_gates": FeatureGates({"FlowExporter": True})}
+    if knob.get("persist_dir"):
+        knob = {"persist_dir": str(tmp_path)}
     cluster, services, _ = world
     t = td.TpuflowDatapath(port_ps(cluster.ps), port_svcs(services),
                            device="cpu", **{**KW, **knob})
@@ -483,21 +481,22 @@ def test_formerly_refused_knobs_construct_and_step(world, knob):
     if "feature_gates" in knob:
         assert sum(f["packets"] for f in t.dump_flows(13)) > 0
     assert (r2.dnat_key is not None) == bool(knob.get("dual_stack"))
+    if knob.get("serving_batcher"):
+        r3 = t.step_tenants(np.zeros(64, np.int64), b, 14)
+        np.testing.assert_array_equal(r3.code, r2.code)
+        assert t.serving_stats()["dispatches"] == 1
+    if knob.get("persist_dir"):
+        from antrea_tpu_torch.datapath import persist
+
+        assert t.install_bundle(services=port_svcs(services)) == 1
+        assert persist.load_snapshot(knob["persist_dir"])[2] == 1
+        assert t._conf_store is not None
 
 
 def test_refused_surfaces_name_their_roadmap_item(world):
     cluster, services, _ = world
     t = td.TpuflowDatapath(port_ps(cluster.ps), port_svcs(services),
                            device="cpu", **KW)
-    b = tb(batch(cluster, services, 16, 1))
-    for call, item in ((lambda: t.tenant_create("a", None), 6),
-                       (lambda: t.step_tenants(np.zeros(16), b, 1), 6),
-                       (lambda: t.serving_batcher(), 6),
-                       (lambda: td.make_datapath("oracle"), 9),
-                       (lambda: td.OracleDatapath(), 9)):
-        with pytest.raises(NotImplementedError,
-                           match=f"queue A item {item}\\)"):
-            call()
     from antrea_tpu_torch import parallel
 
     with pytest.raises(NotImplementedError, match="queue A item 7\\)"):
@@ -520,6 +519,10 @@ def test_engine_defaults_to_the_card(monkeypatch):
         td.TpuflowDatapath()
     with pytest.raises(RuntimeError, match="CUDA"):
         td.TpuflowDatapath(dual_stack=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        td.TpuflowDatapath(serving_batcher=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        td.TpuflowDatapath(persist_dir="never-written")
     with pytest.raises(RuntimeError, match="CUDA"):
         td.make_datapath("tpuflow")
     t = td.make_datapath("tpuflow", device="cpu", flow_slots=16,

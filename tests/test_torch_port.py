@@ -54,10 +54,16 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert "antrea_tpu_torch.models.profile" in res["modules"]
     for mod in ("consumer", "pruned_consumer", "onepass", "consumer2"):
         assert f"antrea_tpu_torch.ops.{mod}" in res["modules"]
-    for mod in _SLICE_MODULES + _ENGINE_MODULES:
+    for mod in _SLICE_MODULES + _ENGINE_MODULES + _SERVING_MODULES:
         assert mod in res["modules"]
     assert res["bad"] == []
 
+
+# Tenancy's serving plane, the native store and the scalar twin (with its
+# numpy hashes), each loaded alone and by the whole-package import.
+_SERVING_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
+    "serving", "serving.batcher", "native", "native.store",
+    "oracle.pipeline", "oracle.hashing", "datapath.oracle_dp"))
 
 _SLICE_MODULES = ("antrea_tpu_torch.parallel", "antrea_tpu_torch.parallel.mesh",
                   "antrea_tpu_torch.models.forwarding",
@@ -92,7 +98,7 @@ print(json.dumps(sorted(n for n in sys.modules
 """
 
 
-@pytest.mark.parametrize("module", _SLICE_MODULES)
+@pytest.mark.parametrize("module", _SLICE_MODULES + _SERVING_MODULES)
 def test_module_alone_loads_neither_jax_nor_the_jax_package(module):
     r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -109,8 +115,11 @@ def test_no_source_imports_jax_or_the_jax_package():
                                                           for f in files}
     rel = {str(f.relative_to(ROOT)) for f in files}
     for sub in ("datapath", "observability", "oracle", "controller",
-                "dissemination"):
+                "dissemination", "serving", "native"):
         assert any(r.startswith(f"antrea_tpu_torch/{sub}/") for r in rel), sub
+    for mod in _SERVING_MODULES:
+        path = mod.replace(".", "/")
+        assert f"{path}.py" in rel or f"{path}/__init__.py" in rel, mod
     seen = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -147,6 +156,17 @@ def test_entry_points_default_to_the_card(tiny, monkeypatch):
         tpl.init_state(16, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         tfw.fwd_to_device(ttopo.compile_topology(ttopo.Topology()))
+    # The engine's new entry points: the batcher and a persist dir (the
+    # device is resolved before the dir is touched).
+    from antrea_tpu_torch import datapath as td
+
+    for knob in ({"serving_batcher": True},
+                 {"persist_dir": str(ROOT / "never-written")}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            td.TpuflowDatapath(**knob)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            td.make_datapath("tpuflow", **knob)
+    assert not (ROOT / "never-written").exists()
     step, state, (drs, _) = tpl.make_pipeline(cps, svc, flow_slots=16,
                                               aff_slots=16, device="cpu")
     assert state.flow.keys.device.type == "cpu"
@@ -255,8 +275,12 @@ def test_make_datapath_builds_the_ports_engine_on_the_cpu():
     assert type(dp).__module__ == "antrea_tpu_torch.datapath.tpuflow"
     assert dp._drs.ingress.at.inc.device.type == "cpu"
     assert dp._meta.match.delta_slots == 128  # the engine's default
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        td.make_datapath(td.DatapathType.ORACLE)
+    # The scalar twin: host-only numpy, no device.
+    twin = td.make_datapath(td.DatapathType.ORACLE, flow_slots=16,
+                            aff_slots=16)
+    assert type(twin) is td.OracleDatapath
+    assert type(twin).__module__ == "antrea_tpu_torch.datapath.oracle_dp"
+    assert twin.datapath_type == td.DatapathType.ORACLE
 
 
 def test_onepass_needs_the_aggregate_layer(tiny):
