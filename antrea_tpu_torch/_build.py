@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# The mesh engine launches kernels from several threads (the rule shards of
+# a data row): loading a library and counting a launch take this lock.
+LOCK = threading.Lock()
 
 
 def sources() -> list[str]:
@@ -84,8 +88,9 @@ def build(names=None) -> dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+    with LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib

@@ -355,9 +355,20 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         """Remap the stored rule indices of cached entries old -> new by
         stable rule id (vanished rules lose attribution).  Writes a new
         flow-meta tensor: the commit plane's snapshot keeps the old one."""
+        remap = self._attribution_remap(old_in, old_out)
+        if remap is None:
+            return
+        self._state = self._state._replace(flow=self._state.flow._replace(
+            meta=self._remapped_meta(self._state.flow.meta, remap)))
+        self._state_mutations += 1
+
+    def _attribution_remap(self, old_in: list, old_out: list):
+        """The stored rule-index maps old -> new by stable rule id, as
+        (ingress, egress) tensors on the device, or None when the bundle
+        kept every id in place."""
         if (list(old_in) == list(self._cps.ingress.rule_ids)
                 and list(old_out) == list(self._cps.egress.rule_ids)):
-            return
+            return None
         new_in = {rid: i for i, rid in enumerate(self._cps.ingress.rule_ids)}
         new_out = {rid: i for i, rid in enumerate(self._cps.egress.rule_ids)}
 
@@ -369,18 +380,20 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                 arr[i + 1] = pos + 1 if pos >= 0 else 0
             return torch.from_numpy(arr).to(self._device)
 
-        r_in = remap_arr(old_in, new_in)
-        r_out = remap_arr(old_out, new_out)
-        meta = self._state.flow.meta.clone()
+        return remap_arr(old_in, new_in), remap_arr(old_out, new_out)
+
+    def _remapped_meta(self, meta: torch.Tensor, remap) -> torch.Tensor:
+        """A flow-meta tensor with its rule indices remapped (a new
+        tensor)."""
+        r_in, r_out = remap
+        meta = meta.clone()
         RC = pl._meta_cols(self._addr_cols)[2]
         rp = meta[:, RC]
         # int32 >> is arithmetic: the & 0xFFFF keeps the high half's bits.
         vi = (rp & 0xFFFF).long().clamp(0, r_in.shape[0] - 1)
         vo = ((rp >> 16) & 0xFFFF).long().clamp(0, r_out.shape[0] - 1)
         meta[:, RC] = pl._wrap32(r_in[vi] | (r_out[vo] << 16))
-        self._state = self._state._replace(
-            flow=self._state.flow._replace(meta=meta))
-        self._state_mutations += 1
+        return meta
 
     def _apply_group_delta_impl(self, group_name, added_ips, removed_ips) -> int:
         # Incremental compile stage of the commit plane (which snapshots the

@@ -45,7 +45,7 @@ from ..compiler.topology import (
     TC_REDIRECT,
     ForwardingTables,
 )
-from ..ops.match import _refuse, from_numpy, resolve_device
+from ..ops.match import from_numpy, resolve_device
 from . import pipeline as pl
 
 _I32 = torch.int32
@@ -268,9 +268,9 @@ def pipeline_step_full(
     they spoof-guard, forward (by their wide effective destination) and
     take their TC mark through the v6 sub-tables, an arp_op on a v6 lane is
     Neighbor Discovery (a request answers from the nd table), and the walk
-    adds peer_w, the wide tunnel peer.  prune_exclude (the mesh engine's
-    spill) is not ported."""
-    _refuse(prune_exclude=prune_exclude is not None)
+    adds peer_w, the wide tunnel peer.  prune_exclude ((B,) bool) marks the
+    lanes whose prune evidence and probe counters another dispatch owns
+    (the mesh engine's spill, parallel/meshpath.py)."""
     m6 = is6 = saddr_w = daddr_w = None
     if v6 is not None:
         src6w, dst6w, is6 = v6
@@ -307,7 +307,7 @@ def pipeline_step_full(
     state, out = pl.pipeline_step(
         state, drs, dsvc, src_f, dst_f, proto, sport, dport, now, gen,
         meta=meta, flags=flags, hit_combine=hit_combine, valid=valid_l,
-        no_commit=no_commit_l, lens=lens, v6=v6)
+        no_commit=no_commit_l, lens=lens, v6=v6, prune_exclude=prune_exclude)
     code = torch.where(spoof, ACT_DROP, out["code"]).to(_I32)
     # Forward toward the DNAT-resolved endpoint, except reply-direction
     # hits (their dnat fields carry the source un-rewrite): a reply

@@ -826,6 +826,7 @@ def pipeline_step(
     no_commit=None,
     v6=None,
     lens=None,
+    prune_exclude=None,
 ):
     """One step, synchronous at meta.phases == PH_ALL; see the module
     docstring and PH_*.
@@ -841,7 +842,10 @@ def pipeline_step(
     meta.telemetry adds the tel_* outputs: the probe split of the valid
     lanes (hit, stale: the key matched but the entry aged out, miss), the
     one-pass dispatch's TEL_HALF_BLOCK count, and the inserts second chance
-    suppressed.
+    suppressed.  prune_exclude ((B,) bool, None for none) marks lanes whose
+    prune evidence and probe counters another dispatch owns (the mesh
+    engine's spilled lanes, metered by their home-routed retry): they
+    classify and serve as usual but count in neither.
 
     v6 = (src6w_f (B, 4), dst6w_f (B, 4), is6 (B,)) are the v6 lanes of a
     dual-stack step (meta.key_words == 10; None: every lane v4), which then
@@ -896,6 +900,8 @@ def pipeline_step(
         # a key match whose entry aged out; generation-stale denials count
         # as misses.  Valid lanes only.
         tv = torch.ones_like(hit) if valid is None else valid
+        if prune_exclude is not None:
+            tv = tv & ~(prune_exclude != 0)
         kpg0 = kr0[:, A + 1]
         key_hit0 = ((kr0[:, :A] == addr).all(dim=1) & (kr0[:, A] == pp)
                     & ((kpg0 == pg_cur) | (kpg0 == pg_est)
@@ -1035,7 +1041,7 @@ def pipeline_step(
         fresh, n_evict, n_reclaim, prune, sc = _slow_onepass(
             state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h, slot,
             miss, mr, kr0, ts0, now, gen_w, meta, valid, no_commit,
-            hit_combine, lens)
+            hit_combine, lens, prune_exclude)
         img[:B] = torch.where(miss[:, None], fresh, img[:B])
         if sc is not None:
             n_chance = n_chance + sc
@@ -1096,12 +1102,14 @@ def pipeline_step(
                 rule_in = rule_out = torch.full_like(code, MISS)
             if prune_on and cls is not None:
                 # Valid lanes only: padding lanes classify a copy of lane
-                # B-1 and must not count.
+                # B-1 and must not count, nor lanes another dispatch owns.
+                pv = valid_m
+                if prune_exclude is not None:
+                    pv = pv & ~(prune_exclude[safe] != 0)
                 prune = (
-                    prune[0] + (cls["prune_skip"] & valid_m).sum(dtype=_I32),
-                    prune[1] + (cls["prune_fb"] & valid_m).sum(dtype=_I32),
-                    prune[2] + _prune_bucket_counts(cls["prune_cand"],
-                                                    valid_m))
+                    prune[0] + (cls["prune_skip"] & pv).sum(dtype=_I32),
+                    prune[1] + (cls["prune_fb"] & pv).sum(dtype=_I32),
+                    prune[2] + _prune_bucket_counts(cls["prune_cand"], pv))
             rows = _fused_pack_rows(
                 s_f, d_f, p_m, sp_m, dp_m, pp[safe], code, svc_idx, dnat_ip,
                 dnat_port, snat_m, dsr_m, rule_in, rule_out, valid_m,
@@ -1304,7 +1312,8 @@ def _fresh_code(drs, hits6, iso_in, iso_out, no_ep):
 
 def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
                   slot, miss, mr, kr0, ts0, now, gen_w, meta, valid=None,
-                  no_commit=None, hit_combine=None, lens=None):
+                  no_commit=None, hit_combine=None, lens=None,
+                  prune_exclude=None):
     """The one-pass slow path (pipeline.py:1638-2071).  Under PH_CLS: B3
     over the whole batch, the full-width re-walk of its fallback lanes
     (through B1) and the prune counters.  On one card B3 runs its resolve
@@ -1325,6 +1334,8 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, _dw, learn = lb
     nc = (torch.zeros_like(miss) if no_commit is None else no_commit)
     pv = torch.ones_like(miss) if valid is None else valid  # counted lanes
+    if prune_exclude is not None:
+        pv = pv & ~(prune_exclude != 0)
     zero = torch.zeros((), dtype=_I32, device=src_f.device)
     rows = None
     # Pending membership deltas (pipeline.py:1701-1728): every lane a slot
@@ -1445,7 +1456,7 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     if meta.phases & (PH_CLS | PH_CLS_SUM):
         prune = (((skip != 0) & pv).sum(dtype=_I32),
                  ((fbv != 0) & pv).sum(dtype=_I32),
-                 _prune_bucket_counts(cand, miss))
+                 _prune_bucket_counts(cand, miss & pv))
     else:
         prune = (zero, zero, torch.zeros(len(PRUNE_HIST_BOUNDS) + 2,
                                          dtype=_I32, device=zero.device))

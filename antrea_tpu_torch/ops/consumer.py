@@ -196,5 +196,6 @@ def fused_hits(tabs, iv: torch.Tensor, svcref: bool, in_phases, out_phases,
            [t.data_ptr() for t in (*tabs, iv, out)],
            [b, w_in, w_out, w0_in, w0_out, in_n0, in_nk, out_n0, out_nk,
             bool(svcref), *(t.shape[0] for t in tabs)], dev)
-    launches += 1
+    with _build.LOCK:
+        launches += 1
     return out

@@ -91,5 +91,6 @@ def and_hits(m_in, m_out, in_phases, out_phases) -> torch.Tensor:
                    w_in, w_out, in_n0, in_nk, out_n0, out_nk, stream)
     if rc != 0:
         raise RuntimeError(f"S1 consumer2 launch failed: cudaError {rc}")
-    launches += 1
+    with _build.LOCK:
+        launches += 1
     return out

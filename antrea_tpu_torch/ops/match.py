@@ -849,14 +849,6 @@ def shard_offsets(hit_combine=None) -> tuple[int, int]:
     return (0, 0) if hit_combine is None else tuple(hit_combine.w0)
 
 
-def _refuse(**knobs) -> None:
-    """Raise NotImplementedError naming the first knob set to a value this
-    port does not implement (a truthy value)."""
-    for name, on in knobs.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Incremental membership deltas (match.py:620-723)
 # ---------------------------------------------------------------------------

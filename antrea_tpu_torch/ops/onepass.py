@@ -370,8 +370,9 @@ def onepass(x: OnepassInputs, tabs: OnepassTables, now: int, gen_w: int,
     rc = _kernel()(c_ptrs, c_ints, stream)
     if rc != 0:
         raise RuntimeError(f"B3 one-pass launch failed: cudaError {rc}")
-    if resolve:
-        launches += 1
-    else:
-        launches_hits += 1
+    with _build.LOCK:
+        if resolve:
+            launches += 1
+        else:
+            launches_hits += 1
     return outs

@@ -170,5 +170,6 @@ def pruned_hits(g_in, g_out, iv, tabs, ke_in: int, ke_out: int,
            [t.data_ptr() for t in (g_in, g_out, iv, *tabs, out)],
            [b, s_in, s_out, ke_in, ke_out, w0_in, w0_out, in_n0, in_nk,
             out_n0, out_nk, bool(svcref), *(t.shape[0] for t in tabs)], dev)
-    launches += 1
+    with _build.LOCK:
+        launches += 1
     return out

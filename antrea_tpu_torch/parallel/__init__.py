@@ -1,8 +1,11 @@
-"""The (data x rule) sharded step on torch.distributed (mesh.py)."""
+"""The (data x rule) sharded step on torch.distributed (mesh.py) and the
+mesh engine over an in-process mesh (meshpath.py)."""
 
 from .mesh import (  # noqa: F401
+    LocalMesh,
     gather_outputs,
     gather_state,
+    local_mesh,
     make_mesh,
     make_sharded_classifier,
     make_sharded_pipeline,
@@ -12,12 +15,4 @@ from .mesh import (  # noqa: F401
     shard_state,
     spawn,
 )
-
-
-class MeshDatapath:
-    """The mesh engine (the JAX package's parallel/meshpath.MeshDatapath)
-    is not ported yet: constructing it raises NotImplementedError."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("MeshDatapath is not ported yet "
-                                  "(ROADMAP.md queue A item 7)")
+from .meshpath import MeshDatapath, MeshSlowPath  # noqa: F401

@@ -26,14 +26,24 @@ On the card a one-process world uses NCCL; several ranks that share one
 card use gloo, which all-reduces CUDA tensors through the host (NCCL
 refuses two ranks on one device).  The CPU tests use gloo.  spawn() starts
 a group with a file store in a temporary directory, never a fixed port.
+
+The mesh engine (parallel/meshpath.py) holds a whole mesh in one process
+on one device instead (LocalMesh): every data replica keeps its own copy of
+every rule shard (RuleGrid) and its own state, and the rule shards of a data
+row run in n_rule threads that meet at each combine (run_rule_group), which
+returns the same elementwise minimum as _pmin_rule.  Each rule shard steps
+its own copy of the row's state, so no two threads write one tensor; the
+copies stay equal because every shard computes the same writes from the
+same combined hits.
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
+import threading
 import traceback
-from functools import lru_cache, partial
+from functools import lru_cache, reduce
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -119,6 +129,43 @@ def shard_of_tuples(src_ip, dst_ip, proto, sport, dport, n_data: int,
     return owners[i]
 
 
+def _shard_placement(shard: np.ndarray, n_data: int):
+    """Batch lanes -> mesh slots under the shard-affinity hash
+    (meshpath.py:292).
+
+    Every packet whose home shard has free capacity (B / D lanes per
+    shard) lands in its home slice; hash-skew overflow packets SPILL into
+    other shards' free slots and are flagged (the caller classifies them
+    with no_commit, so a foreign shard never caches a stray flow).
+
+    -> (perm, inv, spill): perm maps slot -> packet index, inv maps
+    packet -> slot, spill flags slots holding an off-home packet."""
+    B = shard.size
+    C = B // n_data
+    order = np.argsort(shard, kind="stable")
+    counts = np.bincount(shard, minlength=n_data)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    perm = np.empty(B, np.int64)
+    spill = np.zeros(B, bool)
+    leftovers, free = [], []
+    for r in range(n_data):
+        seg = order[bounds[r]:bounds[r + 1]]
+        home = min(seg.size, C)
+        perm[r * C:r * C + home] = seg[:home]
+        if home < C:
+            free.append(np.arange(r * C + home, (r + 1) * C))
+        if seg.size > home:
+            leftovers.append(seg[home:])
+    if leftovers:
+        lv = np.concatenate(leftovers)
+        fs = np.concatenate(free)[:lv.size]  # conservation: |free| == |left|
+        perm[fs] = lv
+        spill[fs] = True
+    inv = np.empty(B, np.int64)
+    inv[perm] = np.arange(B)
+    return perm, inv, spill
+
+
 class Mesh(NamedTuple):
     """This rank's place in an n_data x n_rule mesh."""
 
@@ -179,6 +226,153 @@ def first_words(drs_np: m.DeviceRuleSet) -> tuple[int, int]:
     """(w0_in, w0_out): the global index of a (host) rule shard's first
     word per direction, word_idx[0]."""
     return (int(drs_np.ingress.word_idx[0]), int(drs_np.egress.word_idx[0]))
+
+
+# ---- the in-process mesh (the mesh engine) -------------------------------
+
+
+class LocalMesh(NamedTuple):
+    """An n_data x n_rule mesh held by one process: every shard's tensors
+    lie on `device`."""
+
+    n_data: int
+    n_rule: int
+    device: torch.device
+
+
+def local_mesh(n_data: int, n_rule: int, device=None) -> LocalMesh:
+    """The in-process mesh of n_data x n_rule shards on `device` (None: the
+    card; raises without CUDA)."""
+    if int(n_data) < 1 or int(n_rule) < 1:
+        raise ValueError(f"a mesh needs n_data, n_rule >= 1, got "
+                         f"({n_data}, {n_rule})")
+    return LocalMesh(int(n_data), int(n_rule), m.resolve_device(device))
+
+
+class IdentityCombine(NamedTuple):
+    """The hit_combine of a one-shard rule axis: the minimum over one shard
+    is its own hits.  Passing it (and not None) keeps the mesh step on the
+    rule shard's path, as the JAX mesh passes _pmin_rule at n_rule = 1: the
+    one-pass step then runs B3's hits-only variant."""
+
+    w0: tuple = (0, 0)
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        return h
+
+
+class _RuleGroup:
+    """Where the n_rule threads of one data row meet: each combine deposits
+    a shard's (B, n) hits, waits for the others, and takes the elementwise
+    minimum of all n; a second barrier keeps the slots until every shard
+    has read them.  Every shard of a row makes the same combines in the
+    same order (the module docstring's rule), so the calls pair up."""
+
+    def __init__(self, n: int):
+        self.slots: list = [None] * n
+        self.barrier = threading.Barrier(n)
+
+    def pmin(self, r: int, h: torch.Tensor) -> torch.Tensor:
+        self.slots[r] = h.contiguous()
+        self.barrier.wait()
+        out = reduce(torch.minimum, self.slots)
+        self.barrier.wait()
+        return out
+
+
+class LocalCombine(NamedTuple):
+    """The hit_combine of rule shard r of an in-process rule group, with
+    the shard's first words w0 (as RuleCombine)."""
+
+    group: _RuleGroup
+    r: int
+    w0: tuple
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        return self.group.pmin(self.r, h)
+
+
+def run_rule_group(w0s, fn) -> list:
+    """fn(r, combine) for each rule shard r of one data row -> the results,
+    by shard.  w0s[r] is shard r's first words.  One shard runs in this
+    thread with the identity combine; n > 1 shards run in n threads (shard
+    0 in this one) joined by a _RuleGroup.  A failing shard breaks the
+    group's barrier, so the others stop at their next combine; the first
+    failure is raised."""
+    n = len(w0s)
+    if n == 1:
+        return [fn(0, IdentityCombine(tuple(w0s[0])))]
+    group = _RuleGroup(n)
+    results: list = [None] * n
+    errors: list = []
+
+    def body(r):
+        try:
+            results[r] = fn(r, LocalCombine(group, r, tuple(w0s[r])))
+        except BaseException as e:  # raised below, after the join
+            errors.append(e)
+            group.barrier.abort()
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True)
+               for r in range(1, n)]
+    for t in threads:
+        t.start()
+    body(0)
+    for t in threads:
+        t.join()
+    if errors:
+        raise next((e for e in errors
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return results
+
+
+class RuleGrid(NamedTuple):
+    """The rule tables of an in-process mesh: rows[d][r] is data replica
+    d's own copy of rule shard r (a DeviceRuleSet), w0[r] the shard's first
+    words (first_words)."""
+
+    rows: tuple
+    w0: tuple
+
+
+def place_rule_grid(drs_np: m.DeviceRuleSet, mesh: LocalMesh) -> RuleGrid:
+    """A numpy rule set built with word_multiple = mesh.n_rule -> its
+    RuleGrid on mesh.device: each rule shard uploaded once, then copied on
+    the device for every further data replica."""
+    slices = [rule_slice(drs_np, mesh.n_rule, r) for r in range(mesh.n_rule)]
+    first = tuple(m.ruleset_from_numpy(sl, mesh.device) for sl in slices)
+    rows = (first,) + tuple(
+        tuple(m.tree_map(torch.clone, x) for x in first)
+        for _ in range(1, mesh.n_data))
+    return RuleGrid(rows, tuple(first_words(sl) for sl in slices))
+
+
+def rule_join(shards) -> m.DeviceRuleSet:
+    """One data replica's rule shards (rule order) -> the whole rule set:
+    rule_slice's inverse, the sharded tables concatenated on their trailing
+    axis, the replicated ones taken from shard 0."""
+    def cat(get):
+        return torch.cat([get(s) for s in shards], dim=-1)
+
+    def dim(name, d):
+        t = getattr(getattr(shards[0], d), name)
+        agg = None if t.agg is None else cat(
+            lambda s: getattr(getattr(s, d), name).agg)
+        return t._replace(inc=cat(lambda s: getattr(getattr(s, d), name).inc),
+                          agg=agg)
+
+    def direction(d):
+        return getattr(shards[0], d)._replace(
+            at=dim("at", d), peer=dim("peer", d), svc=dim("svc", d),
+            word_idx=cat(lambda s: getattr(s, d).word_idx))
+
+    dl = shards[0].ip_delta
+    return shards[0]._replace(
+        ingress=direction("ingress"), egress=direction("egress"),
+        ip_delta=dl._replace(**{f: cat(lambda s, f=f: getattr(s.ip_delta, f))
+                                for f in ("at_in", "peer_in", "at_out",
+                                          "peer_out")}))
 
 
 # ---- placement -----------------------------------------------------------

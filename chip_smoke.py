@@ -186,6 +186,26 @@ package is missing, or when any phase fails.  Phases, in order:
      the card, 512 lanes cold then warm: every field and dump_flows()
      equal.  Each sub-phase's seconds are printed.
 
+ 17. the mesh engine (parallel/meshpath.MeshDatapath, the whole mesh in
+     this process on the card) on the headline world with node-0's
+     topology, one engine at a time: (1, 1) and (1, 2) one-pass
+     (flow_slots=2**22 a replica) and (2, 1) staged fused (2**21 a replica,
+     the same global capacity); cold, warm and 8 steady steps of the
+     headline traffic each, ms/step and packets/s beside phase 13's
+     engine, with every launch count set to 0 just before the first step
+     and read just after the last (B3h on every rule shard of a one-pass
+     step, never B3; B1 in the staged rounds and the fallback re-walks),
+     and the peak device memory.  (1, 1) is held to phase 13's one-pass
+     engine on the same steps: every StepResult field, dump_flows() and
+     cache_stats() bitwise equal; (1, 2) to (1, 1): every field, and both
+     rule shards' state copies equal to (1, 1)'s state (dump rows
+     excluded); (2, 1)'s verdicts, DNAT and rule ids to (1, 1)'s, with its
+     spilled and retried lanes reported.  The kernel calls of each cold
+     step are recorded and held against their plain versions on those
+     inputs (B3h and B1 on each rule shard, w0 > 0 on (1, 2)'s second),
+     B2 on (1, 2)'s replica-resolved canary; then corrupt_replica(1) on
+     (2, 1) must make canary_scan report replica 1 and degrade the engine.
+
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
 of a 2-way word split (shard 1 at w0 = W / 2); in phase 5 on the warm
@@ -329,11 +349,12 @@ def distinct(iv, cols) -> int:
     return int(torch.unique(iv[:, list(cols)]).numel())
 
 
-def check_consumer(tabs, iv, svcref, in_phases, out_phases, what, inner):
+def check_consumer(tabs, iv, svcref, in_phases, out_phases, what, inner,
+                   w0=(0, 0)):
     """Phase 3 for B1 on the world's tables at the batch's interval rows
     -> record.  The rows-once bound counts each distinct (table, row) once,
     plus iv and the output; the per-lane bound every lane's 6 (7 with
-    svcref) rows."""
+    svcref) rows.  w0: a rule shard's first words (phase 17)."""
     from antrea_tpu_torch.ops import consumer
 
     b = iv.shape[0]
@@ -342,9 +363,9 @@ def check_consumer(tabs, iv, svcref, in_phases, out_phases, what, inner):
     io = b * 8 * 4 * 2
     once = sum(distinct(iv, c) * wt * 4 for c, wt in zip(cols, w)) + io
     per_lane = b * 4 * (sum(w) + (w[5] if svcref else 0)) + io
-    args = (tabs, iv, svcref, in_phases, out_phases)
+    args = (tabs, iv, svcref, in_phases, out_phases, *w0)
     rec = check_kernel(
-        f"B1 consumer ({what}, w_in={w[0]} w_out={w[3]})",
+        f"B1 consumer ({what}, w_in={w[0]} w_out={w[3]}, w0={tuple(w0)})",
         lambda: consumer.fused_hits(*args),
         lambda: consumer.fused_hits_plain(*args), b, once,
         b * 2 * (w[0] + w[3]), inner)
@@ -382,7 +403,7 @@ def check_consumer2(tabs, iv, in_phases, out_phases, inner):
 
 
 def check_pruned(g_in, g_out, iv, tabs, k, svcref, in_phases, out_phases,
-                 inner):
+                 inner, w0=(0, 0)):
     """Phase 3 for B2 at K = k on the world's tables with the lanes' own
     aggregate AND rows and interval rows -> record.  The bounds count this
     run's data: the two g rows, iv and the output of every lane, and per
@@ -412,9 +433,10 @@ def check_pruned(g_in, g_out, iv, tabs, k, svcref, in_phases, out_phases,
             once += int(torch.unique(
                 keys[torch.cat([valid, valid], dim=1)]).numel()) * 128
     args = (g_in, g_out, iv, tabs, ke[0], ke[1], svcref, in_phases,
-            out_phases)
+            out_phases, *w0)
     rec = check_kernel(
-        f"B2 pruned consumer (K={k})", lambda: pc.pruned_hits(*args),
+        f"B2 pruned consumer (K={k}, w0={tuple(w0)})",
+        lambda: pc.pruned_hits(*args),
         lambda: pc.pruned_hits_plain(*args), b, once + io, lane // 2, inner)
 
     def gather():
@@ -591,7 +613,7 @@ def prologue_time(rec, x, hit, drs, dsvc, meta):
         f"({pro_call_s * 1e3:.4f} ms per call)")
 
 
-def check_hits_only(x, tabs, st, now, w0, what):
+def check_hits_only(x, tabs, st, now, w0, what, gen_w=0):
     """B3h (onepass(resolve=False)) against its plain version on the same
     inputs, bit for bit, timed with CUDA events -> record, with both bounds
     of b3_work's hits-only accounting."""
@@ -602,17 +624,18 @@ def check_hits_only(x, tabs, st, now, w0, what):
     b = x.pkt.shape[0]
     # Which lanes miss: the resolve variant's hit column (held to its plain
     # version above) and the valid bit.
-    hit = op.onepass(x, tabs, now, 0, st, *w0)[0][:, 11] != 0
+    hit = op.onepass(x, tabs, now, gen_w, st, *w0)[0][:, 11] != 0
     miss = ~hit & (x.msk[:, 0] != 0)
-    iv = op.onepass(x, tabs, now, 0, st, *w0, resolve=False)[2]
+    iv = op.onepass(x, tabs, now, gen_w, st, *w0, resolve=False)[2]
     n_miss = int(miss.sum())
     once, per_lane, ops, blocks = b3_work(tabs, st, iv[miss], b,
                                         resolve=False)
     del iv
     rec = check_kernel(
         f"B3h hits-only ({what}, K={st.k}, w0={w0}, {n_miss} miss lanes)",
-        lambda: op.onepass(x, tabs, now, 0, st, *w0, resolve=False),
-        lambda: op.onepass_plain(x, tabs, now, 0, st, *w0, resolve=False),
+        lambda: op.onepass(x, tabs, now, gen_w, st, *w0, resolve=False),
+        lambda: op.onepass_plain(x, tabs, now, gen_w, st, *w0,
+                                 resolve=False),
         b, once, ops, 3)
     rec.update(miss_lanes=n_miss, candidate_blocks=blocks, w0=list(w0))
     with_lane_bound(rec, "B3h", per_lane)
@@ -1566,7 +1589,8 @@ def overlay_rows(eng, src, dst):
     return ov.lanes.numel(), rows, nbytes
 
 
-def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, **knobs):
+def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, keep=None,
+                 **knobs):
     """Phase 13 for one mode: the port's TpuflowDatapath on the card over
     the headline world with node-0's topology (built from the PolicySet:
     compile, tables, the commit plane), stepped on the headline traffic
@@ -1577,7 +1601,9 @@ def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, **knobs):
     delta step's verdicts and rule ids bitwise equal to a second engine
     built from the post-delta PolicySet (`ref`, built here when None), and
     CROSS_LANES more such flows bitwise equal to the port's engine on the
-    CPU after the same deltas.  -> (record, launches, ref)."""
+    CPU after the same deltas.  With keep (a dict) the headline steps'
+    results, and dump_flows() and cache_stats() after them, are kept there
+    (phase 17's reference).  -> (record, launches, ref)."""
     import gc
 
     import numpy as np
@@ -1606,7 +1632,12 @@ def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, **knobs):
         misses.append(r.n_miss)
         if r.code.shape != (B,) or not np.isin(r.code, (0, 1, 2)).all():
             raise SystemExit(f"engine {what}: bad verdict column")
+        if keep is not None:
+            keep.setdefault("results", []).append(r)
     rec = step_stats(times)
+    if keep is not None:
+        keep.update(dump=eng.dump_flows(NOWS[-1]), cache=eng.cache_stats(),
+                    rec=rec)
     plan = churn_plan(eng, ps)
     inc0 = eng._drs.ingress.at.inc
     lat = []
@@ -3274,6 +3305,259 @@ def drive_tenants(ps, services, pod_ips, tr, pool_tr, dev):
     return rec, kern, launches
 
 
+# ---- phase 17: the mesh engine (parallel/meshpath.MeshDatapath) ----------
+# The shapes: (n_data, n_rule), the mode, its knobs and the flow slots per
+# replica (the same global capacity, 2**22).
+MESH_SHAPES = (((1, 1), "one-pass", dict(fused=True, prune_budget=PRUNE_K),
+                FLOW_SLOTS),
+               ((1, 2), "one-pass", dict(fused=True, prune_budget=PRUNE_K),
+                FLOW_SLOTS),
+               ((2, 1), "staged fused", dict(fused=True), FLOW_SLOTS // 2))
+VERDICT_FIELDS = ("code", "svc_idx", "dnat_ip", "dnat_port")
+
+
+class KernelInputs:
+    """While active, records the arguments of the first call of each kernel
+    wrapper (B1 consumer.fused_hits, B2 pruned_consumer.pruned_hits, B3 and
+    B3h onepass.onepass) per rule shard, keyed (kernel, w0); the wrappers
+    run and count as usual.  The callers look the wrappers up on their
+    modules at each call, so the recording sees the step's own calls."""
+
+    SITES = (("consumer", "fused_hits", "B1"),
+             ("pruned_consumer", "pruned_hits", "B2"),
+             ("onepass", "onepass", "B3"))
+
+    def __init__(self):
+        self.seen = {}
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+        import inspect
+
+        for mod_name, fn_name, tag in self.SITES:
+            mod = importlib.import_module(f"antrea_tpu_torch.ops.{mod_name}")
+            real = getattr(mod, fn_name)
+            self._saved.append((mod, fn_name, real))
+            setattr(mod, fn_name, self._wrap(tag, real,
+                                             inspect.signature(real)))
+        return self
+
+    def _wrap(self, tag, real, sig):
+        def call(*a, **k):
+            got = sig.bind(*a, **k)
+            got.apply_defaults()
+            arg = got.arguments
+            if arg.get("resolve") is False:
+                tag_ = "B3h"
+            else:
+                tag_ = tag
+            self.seen.setdefault((tag_, (int(arg["w0_in"]),
+                                         int(arg["w0_out"]))), arg)
+            return real(*a, **k)
+
+        return call
+
+    def __exit__(self, *exc):
+        for mod, fn_name, real in self._saved:
+            setattr(mod, fn_name, real)
+        self._saved = []
+
+
+def rows_digest(state) -> int:
+    """The digest of a state's tables without their dump rows (the scratch
+    row masked lanes write, which any of them may win)."""
+    from antrea_tpu_torch.models import pipeline as pl
+
+    return pl.tensor_digest(t[:-1] for t in pl.tree_leaves(state))
+
+
+def check_recorded(seen, shape, inner):
+    """Each kernel call recorded in a mesh step (KernelInputs) held bitwise
+    against its plain version on the same inputs -> {name: record}."""
+    out = {}
+    for (tag, w0), a in sorted(seen.items()):
+        what = f"mesh {shape[0]}x{shape[1]}, rule shard at w0={w0}"
+        if tag == "B3h":
+            out[f"B3h w0={w0}"] = check_hits_only(
+                a["x"], a["tabs"], a["st"], a["now"], w0, what,
+                gen_w=a["gen_w"])
+        elif tag == "B1":
+            out[f"B1 w0={w0}"] = check_consumer(
+                a["tabs"], a["iv"], a["svcref"], a["in_phases"],
+                a["out_phases"], f"{what}, {a['iv'].shape[0]} lanes",
+                inner, w0=w0)
+        elif tag == "B2":
+            out[f"B2 w0={w0}"] = check_pruned(
+                a["g_in"], a["g_out"], a["iv"], a["tabs"],
+                max(a["ke_in"], a["ke_out"]), a["svcref"], a["in_phases"],
+                a["out_phases"], inner, w0=w0)
+        else:
+            raise SystemExit(f"mesh {shape}: B3's resolve variant ran in a "
+                             f"mesh step")
+    return out
+
+
+def drive_mesh_engine(ps, services, pod_ips, tr, dev, kept13):
+    """Phase 17: the mesh engine on the card at (1, 1) and (1, 2) one-pass
+    and (2, 1) staged fused, one engine at a time, each stepped on the
+    headline traffic (cold, warm, STEADY_STEPS steady) with every launch
+    count set to 0 just before the first step and read just after the last.
+    (1, 1) is held to phase 13's one-pass engine on the same steps (every
+    StepResult field, dump_flows(), cache_stats()), (1, 2) to (1, 1) (every
+    field, the state digest, its two rule shards' state copies), (2, 1)'s
+    verdicts to (1, 1)'s.  The kernels each cold step called are held
+    against their plain versions on the recorded inputs; B2 on the
+    replica-resolved canary of (1, 2); corrupt_replica(1) on (2, 1) must
+    make canary_scan report replica 1 and degrade the engine.
+    -> (records by shape, kernel records)."""
+    import gc
+
+    import torch
+
+    from antrea_tpu_torch.parallel import MeshDatapath
+
+    t17 = time.perf_counter()
+    hb = engine_batch(tr.src_ip, tr.dst_ip, tr.proto, tr.src_port,
+                      tr.dst_port, pod_ips)
+    recs, kernels = {}, {}
+    first = None
+    for shape, what, knobs, slots in MESH_SHAPES:
+        name = f"{shape[0]}x{shape[1]}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = MeshDatapath(world_copy(ps), services, device=dev,
+                           n_data=shape[0], n_rule=shape[1],
+                           flow_slots=slots, miss_chunk=MISS_CHUNK,
+                           canary_probes=ENGINE_PROBES,
+                           topology=node0_spec(pod_ips), **knobs)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        results, times = [], []
+        recorder = KernelInputs()
+        reset_counts()
+        for i, now in enumerate(NOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                with recorder:
+                    r = eng.step(hb, now)
+            else:
+                r = eng.step(hb, now)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            results.append(r)
+        launches = counts5()
+        rec = step_stats(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = eng.mesh_stats()
+        cache = eng.cache_stats()
+        rec.update(shape=list(shape), mode=what, flow_slots=slots,
+                   build_s=build_s, launches=list(launches),
+                   peak_gib=peak, n_miss=[x.n_miss for x in results],
+                   spill_lanes_total=ms["spill_lanes_total"],
+                   spill_retried_total=ms["spill_retried_total"],
+                   cache_slots=cache["slots"])
+        if launches[2] != 0:
+            raise SystemExit(f"mesh {name}: B3 (resolve) launched "
+                             f"{launches[2]} times in the mesh steps")
+        if what == "one-pass" and not launches[3]:
+            raise SystemExit(f"mesh {name}: B3h never launched")
+        if what != "one-pass" and not launches[0]:
+            raise SystemExit(f"mesh {name}: B1 never launched")
+        if cache["slots"] != FLOW_SLOTS:
+            raise SystemExit(f"mesh {name}: {cache['slots']} slots")
+        if shape == (1, 1):
+            for k, (a, b) in enumerate(zip(results, kept13["results"])):
+                same_result(a, b, f"mesh 1x1 vs phase 13, step {k}",
+                            fields=RESULT_FIELDS + ("punt", "mcast_idx",
+                                                    "l7_redirect",
+                                                    "dec_ttl"))
+                if a.n_miss != b.n_miss:
+                    raise SystemExit(f"mesh 1x1 vs phase 13: n_miss {k}")
+            dump = eng.dump_flows(NOWS[-1])
+            if dump != kept13["dump"] or cache != kept13["cache"]:
+                raise SystemExit("mesh 1x1 vs phase 13: dump_flows or "
+                                 "cache_stats differ")
+            first = dict(results=results, dump=dump, cache=cache,
+                         digest=rows_digest(eng._state[0][0]))
+            log(f"mesh engine 1x1: every StepResult field of the "
+                f"{len(NOWS)} steps, dump_flows ({len(dump)} entries) and "
+                f"cache_stats bitwise equal to phase 13's engine")
+        elif shape == (1, 2):
+            for k, (a, b) in enumerate(zip(results, first["results"])):
+                same_result(a, b, f"mesh 1x2 vs 1x1, step {k}",
+                            fields=RESULT_FIELDS + ("punt", "mcast_idx",
+                                                    "l7_redirect",
+                                                    "dec_ttl"))
+            copies = {rows_digest(c) for c in eng._state[0]}
+            if (copies != {first["digest"]}
+                    or eng.dump_flows(NOWS[-1]) != first["dump"]):
+                raise SystemExit("mesh 1x2: state differs from 1x1's, or "
+                                 "its rule shards' copies differ")
+            rec["w0"] = [list(w) for w in eng._drs.w0]
+            log(f"mesh engine 1x2: every StepResult field and the state "
+                f"bitwise equal to 1x1; rule shards at w0 {rec['w0']}, "
+                f"their state copies equal")
+        else:
+            for k, (a, b) in enumerate(zip(results, first["results"])):
+                same_result(a, b, f"mesh 2x1 vs 1x1, step {k}",
+                            fields=VERDICT_FIELDS)
+            est = sum(int((a.est != b.est).sum())
+                      for a, b in zip(results, first["results"]))
+            rec["est_lanes_differing_from_1x1"] = est
+            log(f"mesh engine 2x1: verdicts, DNAT and rule ids bitwise "
+                f"equal to 1x1 ({est} lane-steps differ in est: the "
+                f"replicas' private tables collide differently)")
+        log(f"mesh engine {name} ({what}): built in {build_s:.1f} s; cold "
+            f"{rec['cold_ms']:.1f} ms, warm {rec['warm_ms']:.2f} ms, "
+            f"steady median {rec['steady_ms']:.3f} ms/step (min "
+            f"{rec['steady_min_ms']:.3f}, max {rec['steady_max_ms']:.3f}), "
+            f"{rec['steady_pps'] / 1e6:.2f} M packets/s; (B1, B2, B3, B3h, "
+            f"S1) launches {launches}; spilled {ms['spill_lanes_total']} "
+            f"lanes, retried {ms['spill_retried_total']}; peak device "
+            f"memory {peak:.3f} GiB")
+        del results
+        kernels[name] = check_recorded(recorder.seen, shape, 2)
+        if shape == (1, 2):
+            # B2: the replica-resolved canary on the pruned rule shards.
+            recorder = KernelInputs()
+            reset_counts()
+            with recorder:
+                scan = eng.canary_scan(now=NOWS[-1], recover=False)
+            rec["canary_launches"] = list(counts5())
+            if scan["mismatches"] or scan["degraded"] or not counts()[1]:
+                raise SystemExit(f"mesh 1x2 canary: {scan}, launches "
+                                 f"{rec['canary_launches']}")
+            kernels["1x2 canary"] = check_recorded(
+                {k: v for k, v in recorder.seen.items() if k[0] == "B2"},
+                shape, 20)
+        if shape == (2, 1):
+            desc = eng.corrupt_replica(1)
+            scan = eng.canary_scan(now=NOWS[-1], recover=False)
+            mism = eng.commit_stats()["replica_mismatches"]
+            if not (scan["mismatches"] and scan["degraded"]
+                    and set(mism) == {1}):
+                raise SystemExit(f"mesh 2x1: corrupt_replica(1) not caught: "
+                                 f"{scan}, {mism}")
+            rec["replica_veto"] = {"scan": scan, "replica_mismatches": mism}
+            log(f"mesh engine 2x1: {desc}; canary_scan {scan}, replica "
+                f"mismatches {mism}")
+        recs[name] = rec
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    p13 = kept13["rec"]
+    log(f"phase 13's one-pass engine beside it: cold {p13['cold_ms']:.1f} "
+        f"ms, warm {p13['warm_ms']:.2f} ms, steady "
+        f"{p13['steady_ms']:.3f} ms/step; phase 17 took "
+        f"{time.perf_counter() - t17:.1f} s")
+    return recs, kernels
+
+
 def main() -> int:
     import torch
 
@@ -3470,8 +3754,9 @@ def main() -> int:
         f" GiB")
 
     # 13. The engine, one-pass then staged, one at a time.
+    kept13 = {}
     eng_one, eng_op_launches, ref = drive_engine(
-        ps, services, pod_ips, tr, dev, "one-pass", fused=True,
+        ps, services, pod_ips, tr, dev, "one-pass", keep=kept13, fused=True,
         prune_budget=PRUNE_K)
     eng_st, eng_st_launches, _ = drive_engine(
         ps, services, pod_ips, tr, dev, "staged fused", ref=ref, fused=True)
@@ -3508,6 +3793,15 @@ def main() -> int:
     # dir, the scalar twin.
     tenants, k16, l16 = drive_tenants(ps, services, pod_ips, tr, pool_tr,
                                       dev)
+
+    # 17. The mesh engine at (1, 1), (1, 2) and (2, 1).
+    mesh17, k17 = drive_mesh_engine(ps, services, pod_ips, tr, dev, kept13)
+    del kept13
+    l17 = {k: v["launches"] for k, v in mesh17.items()}
+
+    def p17(tag):
+        return {f"{shape} {name}": at(r) for shape, recs in k17.items()
+                for name, r in recs.items() if name.startswith(tag)}
 
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -3548,13 +3842,19 @@ def main() -> int:
                 "launches_in_tenant_worlds"][0],
             launches_tenants_onepass=l16["c"][0],
             tenant_rows=at(k16["b1"]),
-            tenant_rows_miss_chunk=at(k16["b1_chunk"])),
+            tenant_rows_miss_chunk=at(k16["b1_chunk"]),
+            launches_phase17=sum(v[0] for v in l17.values()),
+            launches_phase17_by_shape={k: v[0] for k, v in l17.items()},
+            phase17=p17("B1")),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
             launches_engine_onepass=eng_op_launches[1],
             launches_flood_onepass=flood["one-pass"]["launches"][1],
             launches_tenant_canary=l16["d_canary"][1],
+            launches_phase17=sum(v[1] for v in l17.values()),
+            launches_phase17_canary=mesh17["1x2"]["canary_launches"][1],
+            phase17=p17("B2"),
             tenant_rows=at(k16["b2"])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
@@ -3572,7 +3872,8 @@ def main() -> int:
             launches_tenants_onepass=l16["c"][2],
             launches_in_tenant_worlds=tenants["cd"][
                 "launches_in_tenant_worlds"][2],
-            tenant_rows=at(k16["b3"])),
+            tenant_rows=at(k16["b3"]),
+            launches_phase17=sum(v[2] for v in l17.values())),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -3581,11 +3882,15 @@ def main() -> int:
             rule_shard0=at(b3h["shard0"]), rule_shard1=at(b3h["shard1"]),
             warm_mixed_bits=at(b3h["warm"]),
             launches_mesh_1x2=mesh12["launches_b3h"],
-            launches_phase16=sum(v[3] for v in l16.values())),
+            launches_phase16=sum(v[3] for v in l16.values()),
+            launches_phase17=sum(v[3] for v in l17.values()),
+            launches_phase17_by_shape={k: v[3] for k, v in l17.items()},
+            phase17=p17("B3h")),
         rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
             "bench_cold_study.py:129", s1_launches, s1[32768],
             at_B256=at(s1[256]), study_case4_ms=study_s * 1e3,
-            launches_phase16=sum(v[4] for v in l16.values())),
+            launches_phase16=sum(v[4] for v in l16.values()),
+            launches_phase17=sum(v[4] for v in l17.values())),
         # Phase 15: the same kernels on the dual-stack tables' v6 rows;
         # launches on the dual-stack walk (B1) and pruned classify (B2).
         rec("B1 consumer, dual-stack rows",
@@ -3593,11 +3898,13 @@ def main() -> int:
             "antrea_tpu/ops/match.py:1422", dual["walk_launches"][0],
             b1_6[256], **rows_bounds(b1_6[256]), at_B32768=at(b1_6[32768]),
             launches_engine_dual_stack=dual["engine"]["launches"][0],
-            v6_rows_of_batch=dual["v6_rows"]),
+            v6_rows_of_batch=dual["v6_rows"],
+            launches_phase17=sum(v[0] for v in l17.values())),
         rec("B2 pruned consumer, dual-stack rows",
             "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", b2_6_launches[1], b2_6[256],
-            **rows_bounds(b2_6[256]), at_B32768=at(b2_6[32768])),
+            **rows_bounds(b2_6[256]), at_B32768=at(b2_6[32768]),
+            launches_phase17=sum(v[1] for v in l17.values())),
     ]
     log(json.dumps({"card": card, "staged": staged, "onepass": one,
                     "pruned_classify": pcls, "staged_pruned": spruned,
@@ -3608,7 +3915,8 @@ def main() -> int:
                     "engine": {"onepass": eng_one, "staged": eng_st},
                     "flood": flood, "churn": churn, "knobs": knobs14,
                     "profile": profiles, "knob_step_ms": knob_ms,
-                    "dual_stack": dual, "tenants": tenants}))
+                    "dual_stack": dual, "tenants": tenants,
+                    "mesh_engine": mesh17}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1149,3 +1149,54 @@ def test_persist_dir_restart_on_the_card(cuda, tmp_path):
     for now in (103, 104):
         r, w = dp.tenant_step(tid, bt, now), twin.tenant_step(1, bt, now)
     np.testing.assert_array_equal(r.code, w.code)
+
+
+@pytest.mark.parametrize("knobs", [dict(fused=True),
+                                   dict(fused=True, prune_budget=2)],
+                         ids=["staged", "onepass"])
+def test_mesh_engine_1x2_on_the_card_equals_cpu(cuda, knobs):
+    """The mesh engine at (1, 2) on the card (its two rule shards in two
+    threads on one device) against its CPU twin: steps, a group delta, the
+    canary's per-replica codes, dump_flows, the rule digests and every rule
+    shard's state copy (dump rows excluded) bitwise equal; one-pass
+    launches B3's hits-only variant (B3h) and never its resolve variant."""
+    import copy
+
+    from antrea_tpu_torch.ops import onepass as op
+    from antrea_tpu_torch.parallel import MeshDatapath
+
+    cluster, services = _engine_world()
+    kw = dict(n_data=1, n_rule=2, flow_slots=1 << 12, aff_slots=1 << 8,
+              miss_chunk=64, canary_probes=8, **knobs)
+    eg = MeshDatapath(copy.deepcopy(cluster.ps), services, device=cuda, **kw)
+    ec = MeshDatapath(copy.deepcopy(cluster.ps), services, device="cpu",
+                      **kw)
+    k0 = (op.launches, op.launches_hits)
+
+    def both(b, now, what):
+        rg, rc = eg.step(b, now), ec.step(b, now)
+        for f in ("code", "est", "svc_idx", "dnat_ip", "dnat_port",
+                  "committed", "fwd_kind", "out_port"):
+            np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f),
+                                          err_msg=f"{what}: {f}")
+        assert rg.ingress_rule == rc.ingress_rule, what
+        assert rg.egress_rule == rc.egress_rule, what
+        for r in range(2):
+            for part in ("flow", "aff"):
+                for tg, tcpu in zip(getattr(eg._state[0][r], part),
+                                    getattr(ec._state[0][r], part)):
+                    assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), (what, r)
+
+    for i in range(2):
+        both(_engine_batch(cluster, services, 3 + i), 100 + i, f"step {i}")
+    ag = sorted(cluster.ps.address_groups)[0]
+    for dp in (eg, ec):
+        dp.apply_group_delta(ag, ["10.9.9.9"], [])
+    b = _engine_batch(cluster, services, 9)
+    both(b, 110, "delta step")
+    assert eg.dump_flows(111) == ec.dump_flows(111)
+    np.testing.assert_array_equal(eg._canary_classify(b, 0),
+                                  ec._canary_classify(b, 0))
+    assert eg._audit_rule_digests() == ec._audit_rule_digests()
+    if knobs.get("prune_budget"):
+        assert op.launches == k0[0] and op.launches_hits > k0[1]

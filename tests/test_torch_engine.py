@@ -499,8 +499,13 @@ def test_refused_surfaces_name_their_roadmap_item(world):
                            device="cpu", **KW)
     from antrea_tpu_torch import parallel
 
-    with pytest.raises(NotImplementedError, match="queue A item 7\\)"):
-        parallel.MeshDatapath()
+    # The mesh engine is ported; what it still refuses names its item.
+    mdp = parallel.MeshDatapath(port_ps(cluster.ps), port_svcs(services),
+                                n_data=2, n_rule=1, device="cpu", **KW)
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        mdp.reshard_begin(4)
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        mdp.failover_readmit()
     # A v6 batch is refused like the JAX engine refuses it (v4-only).
     with pytest.raises(ValueError, match="v4-only"):
         t.step(tpk.PacketBatch(src_ip=np.zeros(1, np.uint32),

@@ -323,3 +323,56 @@ def test_pipeline_step_full_equals_reference(walk_world, knobs):
     assert int(o["n_miss"]) < int(cold["n_miss"])
     if "prune_budget" in knobs:
         assert int(cold["n_prune_fb"]) + int(cold["n_prune_skips"]) > 0
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(fused=True, prune_budget=2, onepass=False),
+    dict(fused=True, prune_budget=2),
+], ids=["staged_pruned", "onepass"])
+def test_pipeline_step_full_prune_exclude_equals_reference(walk_world, knobs):
+    """prune_exclude (the mesh engine's spill mask) through the full walk,
+    staged pruned and one-pass, with telemetry on: every output and the
+    tables bitwise equal to the JAX walk, and the excluded lanes carry no
+    prune evidence and no probe counters."""
+    w = walk_world
+    kw = dict(KW, telemetry=True, **knobs)
+    jstep, jstate, (jdrs, jdsvc) = jpl.make_pipeline(w["cps"], w["svc"],
+                                                     **kw)
+    jdft = jfw.fwd_to_device(w["ft"])
+    tstep, tstate, (tdrs, tdsvc) = tpl.make_pipeline(
+        w["tcps"], w["tsvc"], device="cpu", **kw)
+    assert tstep.meta.onepass == jstep.meta.onepass == (
+        knobs.get("onepass", True))
+    tdft = tfw.fwd_to_device(w["tft"], "cpu")
+    lanes = walk_lanes(w["cluster"].pod_ips, w["services"], seed=13)
+    rng = np.random.default_rng(8)
+    valid = rng.random(B) < 0.9
+    excl = rng.random(B) < 0.3
+    for t in range(2):
+        now = 1000 + t
+        jstate, jout = jfw.pipeline_step_full(
+            jstate, jdrs, jdsvc, jdft, *(jnp.asarray(lanes[c])
+                                         for c in _COLS),
+            now, 0, jnp.asarray(lanes["flags"]),
+            jnp.asarray(lanes["arp_op"]), meta=jstep.meta,
+            valid=jnp.asarray(valid), prune_exclude=jnp.asarray(excl))
+        tstate, tout = tfw.pipeline_step_full(
+            tstate, tdrs, tdsvc, tdft, *(_t(lanes[c]) for c in _COLS),
+            now, 0, _t(lanes["flags"]), _t(lanes["arp_op"]),
+            meta=tstep.meta, valid=torch.from_numpy(valid),
+            prune_exclude=torch.from_numpy(excl))
+        _compare(jstate, jout, tstate, tout, f"step {t}")
+        o = {k: v.numpy() for k, v in tout.items()}
+        # Every valid lane the walk keeps (no spoof, ARP or IGMP) is probed
+        # once; the excluded ones are counted in no probe counter, and
+        # their misses in no candidate histogram bucket.
+        probed = int(o["tel_probe_hit"] + o["tel_probe_stale"]
+                     + o["tel_probe_miss"])
+        kept = (valid & (o["spoofed"] == 0) & (o["punt"] == 0)
+                & (lanes["arp_op"] == 0))
+        assert probed == int((kept & ~excl).sum()), t
+        miss = o["miss"] != 0
+        assert int(o["prune_cand_hist"][:-1].sum()) == int(
+            (miss & ~excl).sum()), t
+        if t == 0:
+            assert (miss & excl).any() and (miss & ~excl).any()

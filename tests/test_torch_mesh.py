@@ -40,6 +40,7 @@ from antrea_tpu_torch.compiler import topology as ttopo
 from antrea_tpu_torch.compiler.compile import compile_policy_set as t_compile
 from antrea_tpu_torch.compiler.services import \
     compile_services as t_compile_services
+from antrea_tpu_torch.models import forwarding as tfw
 from antrea_tpu_torch.models import pipeline as tpl
 from antrea_tpu_torch.ops import hashing as thash
 from antrea_tpu_torch.ops import match as tm
@@ -332,7 +333,8 @@ _CASES = {
              ("full", _ONEPASS),
              ("full", dict(fused=True, prune_budget=K))],
     (2, 2): [("pipeline", _ONEPASS),
-             ("pipeline", dict(fused=True))],
+             ("pipeline", dict(fused=True)),
+             ("full", _ONEPASS)],
     (2, 1): [("full", _ONEPASS)],
 }
 
@@ -413,3 +415,47 @@ def test_state_carries_across(world):
     back = tmesh.gather_state(shards)
     for a, b in zip(jax.tree.leaves(st), jax.tree.leaves(tuple(back))):
         np.testing.assert_array_equal(b, a)
+
+
+def test_local_mesh_full_walk_2x2_equals_spawned_mesh(world, groups):
+    """The mesh engine's in-process step (parallel/meshpath._mesh_step_full_fn
+    over a LocalMesh: one process, the rule shards in threads meeting at
+    each combine) against the spawned gloo ranks of make_sharded_pipeline
+    _full, one-pass on (2, 2): every output of both steps and every rule
+    shard's copy of each data row's final state bitwise equal."""
+    from antrea_tpu_torch.parallel import meshpath as tmeshpath
+
+    port = world["port"]
+    i = 2
+    kind, knobs = _CASES[(2, 2)][i]
+    lm = tmesh.local_mesh(2, 2, "cpu")
+    host, mmeta = tmesh.host_rule_set(port["cps"], 2, K)
+    grid = tmesh.place_rule_grid(host, lm)
+    meta = tpl.PipelineMeta(match=mmeta, ct_timeout_s=3600, fused=True,
+                            onepass=True, **KW)
+    states = tuple(tuple(tpl.init_state(KW["flow_slots"], KW["aff_slots"],
+                                        device="cpu") for _ in range(2))
+                   for _ in range(2))
+    dsvc = tpl.svc_to_device(port["svc"], "cpu")
+    dft = tfw.fwd_to_device(port["ft"], "cpu")
+    step = tmeshpath._mesh_step_full_fn(lm, meta, True)
+    ones, zb = torch.ones(B, dtype=torch.bool), torch.zeros(B, dtype=torch.bool)
+    ranks = groups[(2, 2)]
+    for t, (*cols, now) in enumerate(_steps(world, kind)):
+        cols = [_t(c) for c in cols]
+        states, out = step(states, grid, dsvc, dft, *cols[:6], now, 0,
+                           cols[6], cols[7], ones, zb, None, zb)
+        want = tmesh.gather_outputs([ranks[d * 2][i][0][t] for d in (0, 1)])
+        assert set(out) == set(want), t
+        for k, v in want.items():
+            np.testing.assert_array_equal(out[k].numpy(), v,
+                                          err_msg=f"step {t}: out[{k}]")
+    assert int(out["n_miss"].sum()) < B
+    for d in (0, 1):
+        want = ranks[d * 2][i][1]
+        for r in (0, 1):
+            for a, b in zip(tmesh.gather_state([states[d][r]]), want):
+                for x, y in zip(a, b):
+                    np.testing.assert_array_equal(
+                        x[:, :-1], y[:, :-1],
+                        err_msg=f"row {d}, rule shard {r}'s state")

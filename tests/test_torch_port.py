@@ -66,6 +66,7 @@ _SERVING_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
     "oracle.pipeline", "oracle.hashing", "datapath.oracle_dp"))
 
 _SLICE_MODULES = ("antrea_tpu_torch.parallel", "antrea_tpu_torch.parallel.mesh",
+                  "antrea_tpu_torch.parallel.meshpath",
                   "antrea_tpu_torch.models.forwarding",
                   "antrea_tpu_torch.compiler.topology",
                   # The engine's package imports every plane it mixes in
@@ -110,6 +111,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "antrea_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
               ROOT / "chip_b3_variants.py", ROOT / "bench_cold_study_torch.py",
+              ROOT / "graft_entry_torch.py",
               ROOT / "tests" / "torch_mesh_ranks.py"]
     assert {"mesh.py", "forwarding.py", "topology.py"} <= {f.name
                                                           for f in files}
@@ -173,6 +175,32 @@ def test_entry_points_default_to_the_card(tiny, monkeypatch):
     assert drs.ingress.at.inc.device.type == "cpu"
 
 
+def test_mesh_engine_and_graft_entry_default_to_the_card(monkeypatch):
+    """The mesh engine, its in-process mesh and the driver entry script
+    resolve the card unless the caller passes device="cpu"; on the CPU the
+    entry step runs and the dry run steps a (2, 2) mesh engine."""
+    import graft_entry_torch as g
+    from antrea_tpu_torch import parallel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.MeshDatapath()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.MeshDatapath(n_data=1, n_rule=2, async_slowpath=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.local_mesh(2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        g.entry()
+    mdp = parallel.MeshDatapath(n_data=2, n_rule=2, device="cpu",
+                                flow_slots=16, aff_slots=16)
+    assert mdp._mesh == parallel.LocalMesh(2, 2, torch.device("cpu"))
+    assert mdp._state[1][1].flow.keys.device.type == "cpu"
+    fn, args = g.entry(device="cpu")
+    _state, out = fn(*args)
+    assert out["code"].shape == (256,) and int(out["n_miss"]) > 0
+    g.dryrun_multichip(4)
+
+
 @pytest.mark.parametrize("knob", [
     {"dual_stack": True}, {"dual_stack": True, "fused": True},
     {"dual_stack": True, "fused": True, "prune_budget": 2}])
@@ -228,21 +256,22 @@ def test_ported_pipeline_knobs_step(tiny, knob):
 @pytest.mark.parametrize("fn,knob", [
     ("pipeline_step_full", "prune_exclude")])
 def test_unported_step_arguments_raise(tiny, fn, knob):
-    """The mesh engine's spill mask is not ported (hit_combine, valid,
-    no_commit, lens and v6 are)."""
+    """Every step argument of the JAX walk is ported: the mesh engine's
+    spill mask, the last one refused, now steps (tests/test_torch_forwarding
+    .py holds it to the JAX walk), and a keyword the walk does not have
+    raises TypeError instead of being ignored."""
     cps, svc = tiny
     step, state, (drs, dsvc) = tpl.make_pipeline(
         cps, svc, flow_slots=16, aff_slots=16, device="cpu")
     lanes = [torch.zeros(4, dtype=torch.int32)] * 5
-    with pytest.raises(NotImplementedError, match=knob):
-        if fn == "pipeline_step":
-            tpl.pipeline_step(state, drs, dsvc, *lanes, 1, 0, meta=step.meta,
-                              **{knob: object()})
-        else:
-            dft = tfw.fwd_to_device(ttopo.compile_topology(ttopo.Topology()),
-                                    "cpu")
-            tfw.pipeline_step_full(state, drs, dsvc, dft, *lanes, lanes[0],
-                                   1, 0, meta=step.meta, **{knob: object()})
+    dft = tfw.fwd_to_device(ttopo.compile_topology(ttopo.Topology()), "cpu")
+    state, out = getattr(tfw, fn)(state, drs, dsvc, dft, *lanes, lanes[0],
+                                  1, 0, meta=step.meta,
+                                  **{knob: torch.ones(4, dtype=torch.bool)})
+    assert out["code"].shape == (4,)
+    with pytest.raises(TypeError, match=f"{knob}_typo"):
+        getattr(tfw, fn)(state, drs, dsvc, dft, *lanes, lanes[0], 1, 0,
+                         meta=step.meta, **{f"{knob}_typo": None})
 
 
 @pytest.mark.parametrize("knob", [{"delta_slots": 8},
