@@ -231,22 +231,56 @@ def first_words(drs_np: m.DeviceRuleSet) -> tuple[int, int]:
 # ---- the in-process mesh (the mesh engine) -------------------------------
 
 
+# The logical device pool of an in-process mesh: one card hosts this many
+# virtual devices, as the JAX package's make_mesh falls back to the virtual
+# CPU platform on a single-accelerator host (its tests force 8).  A shard's
+# device is a logical id in range(DEVICE_POOL); every id lies on the mesh's
+# one device.  Resharding names target devices by these ids, and a mesh
+# wider than the pool is refused as JAX refuses one wider than its devices.
+DEVICE_POOL = 8
+
+
 class LocalMesh(NamedTuple):
     """An n_data x n_rule mesh held by one process: every shard's tensors
-    lie on `device`."""
+    lie on `device`.  `devices` holds the shards' logical device ids, row
+    d the ids of data replica d's rule shards; None stands for the pool's
+    first n_data * n_rule ids in row-major order (mesh_devices)."""
 
     n_data: int
     n_rule: int
     device: torch.device
+    devices: Optional[tuple] = None
 
 
-def local_mesh(n_data: int, n_rule: int, device=None) -> LocalMesh:
+def mesh_devices(mesh: LocalMesh) -> np.ndarray:
+    """The mesh's logical device ids as an (n_data, n_rule) int array."""
+    if mesh.devices is None:
+        return np.arange(mesh.n_data * mesh.n_rule).reshape(mesh.n_data,
+                                                            mesh.n_rule)
+    return np.asarray(mesh.devices, np.int64).reshape(mesh.n_data,
+                                                      mesh.n_rule)
+
+
+def local_mesh(n_data: int, n_rule: int, device=None,
+               devices=None) -> LocalMesh:
     """The in-process mesh of n_data x n_rule shards on `device` (None: the
-    card; raises without CUDA)."""
+    card; raises without CUDA), on the first n_data * n_rule of `devices`
+    (logical ids; None: the pool, range(DEVICE_POOL)).  Raises the JAX
+    package's make_mesh ValueError when there are too few."""
     if int(n_data) < 1 or int(n_rule) < 1:
         raise ValueError(f"a mesh needs n_data, n_rule >= 1, got "
                          f"({n_data}, {n_rule})")
-    return LocalMesh(int(n_data), int(n_rule), m.resolve_device(device))
+    n_data, n_rule = int(n_data), int(n_rule)
+    need = n_data * n_rule
+    pool = (list(range(DEVICE_POOL)) if devices is None
+            else [int(x) for x in np.asarray(devices).reshape(-1)])
+    if len(pool) < need:
+        raise ValueError(f"need {need} devices, have {len(pool)}")
+    ids = tuple(tuple(pool[d * n_rule:(d + 1) * n_rule])
+                for d in range(n_data))
+    if pool[:need] == list(range(need)):
+        ids = None  # the canonical form of the pool's prefix
+    return LocalMesh(n_data, n_rule, m.resolve_device(device), ids)
 
 
 class IdentityCombine(NamedTuple):

@@ -37,14 +37,19 @@ bits:
                        g // D); the scrub digests fold the logical view
                        (rule shards joined on the word axis, the state's
                        replicas in order).
+  live resize          reshard_begin(n) resizes the data axis under
+                       traffic (parallel/reshard.py): budgeted migration
+                       to the target ring, a certified cutover (the
+                       canary redirected onto the target placement, a
+                       migrated-row audit), one epoch swap.
+  replica failover     failover=True adds the replica-health task
+                       (parallel/failover.py): probe, quarantine and mask,
+                       an evacuation shrink, a certified readmission.
 
 Everything else (the commit, audit and maintenance planes, deltas,
 persistence, tenancy, metrics) is inherited from the port's TpuflowDatapath.
-
-Left out, each refusing with its ROADMAP.md queue A item: resharding
-(reshard_begin and its family, item 2) and the replica-loss failover plane
-(failover=True, item 3).  The v4-only and single-card-knob refusals are the
-JAX engine's ConfigErrors, word for word.
+The v4-only and single-card-knob refusals are the JAX engine's
+ConfigErrors, word for word.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ import torch
 from ..compiler.topology import FWD_TUNNEL
 from ..config import ConfigError
 from ..datapath.interface import StepResult
+from ..datapath.maintenance import MaintenanceTask
 from ..datapath.slowpath import ADMIT_DROP, MissQueue, SlowPathEngine
 from ..datapath.tpuflow import TpuflowDatapath
 from ..models import forwarding as fw
@@ -65,8 +71,10 @@ from ..models import pipeline as pl
 from ..ops import match as m
 from ..ops.match import to_host
 from ..observability.telemetry import classify_regime
+from ..oracle import hashing
 from ..packet import PacketBatch
 from ..utils import ip as iputil
+from .failover import FailoverPlane
 from .mesh import (
     LocalMesh,
     _cols,
@@ -77,6 +85,7 @@ from .mesh import (
     run_rule_group,
     shard_of_tuples,
 )
+from .reshard import ReshardPlane, resync_world
 
 # Per-row scalar outputs: each data row's becomes one entry of a (D,)
 # vector (the candidate histogram (D, H)), as meshpath.py:171-176.
@@ -412,11 +421,6 @@ class MeshSlowPath(SlowPathEngine):
         return s
 
 
-def _not_ported(what: str, item: int, name: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               f"A item {item}: {name})")
-
-
 class MeshDatapath(TpuflowDatapath):
     """TpuflowDatapath served over a (data x rule) mesh held in one process.
 
@@ -451,8 +455,6 @@ class MeshDatapath(TpuflowDatapath):
             raise ConfigError(
                 f"reshard_budget must be positive (rows per maintenance "
                 f"tick), got {reshard_budget}")
-        if failover:
-            raise _not_ported("failover=True", 3, "failover")
         if mesh is None:
             mesh = local_mesh(n_data, n_rule, kw.get("device"))
         elif kw.get("device") is not None and (
@@ -466,12 +468,14 @@ class MeshDatapath(TpuflowDatapath):
         self._replica_audit_entries = [0] * self._n_data
         self._spill_lanes_total = 0
         self._spill_retried_total = 0
-        # The resharding plane's fields (ROADMAP.md queue A item 2): the
-        # affinity topology generation (0 = the boot dense map), the plane
-        # (never in flight here) and its cumulative meters.
+        # Elastic resharding plane (parallel/reshard.py): the affinity
+        # topology generation (0 = the boot dense map; every resized
+        # topology elects on the consistent ring), the in-flight plane,
+        # and the cumulative meters that outlive individual planes.
         self._reshard_budget = int(reshard_budget)
         self._topo_gen = 0
         self._reshard = None
+        self._reshard_canary = None  # (mesh, grid, match_meta, D) redirect
         self._reshard_cutovers = 0
         self._reshard_aborts = 0
         self._reshard_migrated_total = 0
@@ -481,11 +485,24 @@ class MeshDatapath(TpuflowDatapath):
         self._last_reshard_span = None
         self._reshard_tenant_rows_total = 0
         self._reshard_tenant_vetoes = 0
-        # The failover plane's per-world survivor-mask latch and the plane
-        # (item 3): always None here.
+        # Chaos hook (arm_reshard_faults): (FaultPlan, site prefix) for
+        # the per-tenant forced-canary-veto sites.
+        self._reshard_faults = None
+        # Per-world survivor-mask latch (failover.mask_shard's world
+        # branch): (dead old-topology index, survivor width, survivor
+        # generation).  A WORLD field (_world_ctx swaps it), always None
+        # on the default world (the fleet mask covers it).
         self._fo_mask = None
+        # Replica-loss failover plane (parallel/failover.py): None when
+        # disabled; every traffic-path touch is gated on the field.
         self._failover = None
         super().__init__(ps, services, **kw)
+        if failover:
+            self._failover = FailoverPlane(self, **(failover_knobs or {}))
+            self._maintenance.register(MaintenanceTask(
+                "replica-health", self._maint_replica_health,
+                budget=max(self._failover.probe_count * self._n_data, 1),
+                priority=4, shed_when_degraded=False))
 
     # -- placement hooks (the whole tensor estate lands on the mesh) ---------
 
@@ -497,20 +514,26 @@ class MeshDatapath(TpuflowDatapath):
                            for _ in range(self._n_rule))
                      for _ in range(self._n_data))
 
-    def _place_rules(self, cps):
+    def _place_rules_on(self, mesh: LocalMesh, cps):
         """Host build at the mesh's word multiple, tenant rung padding,
-        then every replica's copy of every rule shard (a RuleGrid)."""
+        then every replica's copy of every rule shard on `mesh` (a
+        RuleGrid).  _place_rules calls it at the serving mesh; the reshard
+        plane calls it at the TARGET mesh (parallel/reshard.py)."""
         host, meta = to_host(cps, word_multiple=self._n_rule,
                              delta_slots=self._delta_slots,
                              prune_budget=self._prune_budget)
         # The JAX meta's fused_interpret (the Pallas interpret switch of a
         # CPU mesh) has no counterpart: the wrappers pick by device.
-        return place_rule_grid(self._pad_tables(host), self._mesh), meta
+        return place_rule_grid(self._pad_tables(host), mesh), meta
 
-    def _place_delta(self, dt):
-        """The delta table for every cell of the grid -> cells[d][r]: the
-        per-slot rule masks split on the word axis like the incidence they
-        patch (each replica its own copy), the ranges replicated."""
+    def _place_rules(self, cps):
+        return self._place_rules_on(self._mesh, cps)
+
+    def _place_delta(self, dt, n_data: Optional[int] = None):
+        """The delta table for every cell of an n_data-row grid (None: the
+        serving mesh's) -> cells[d][r]: the per-slot rule masks split on
+        the word axis like the incidence they patch (each replica its own
+        copy), the ranges replicated."""
         n = self._n_rule
 
         def cell(r):
@@ -519,14 +542,19 @@ class MeshDatapath(TpuflowDatapath):
                 for f in ("at_in", "peer_in", "at_out", "peer_out")})
 
         return tuple(tuple(cell(r) for r in range(n))
-                     for _ in range(self._n_data))
+                     for _ in range(self._n_data if n_data is None
+                                    else int(n_data)))
 
-    def _upload_delta_table(self) -> None:
-        cells = self._place_delta(self._build_delta_table())
-        self._drs = self._drs._replace(rows=tuple(
+    def _grid_with_delta(self, grid, dt):
+        """A RuleGrid with the delta table dt on every cell."""
+        cells = self._place_delta(dt, n_data=len(grid.rows))
+        return grid._replace(rows=tuple(
             tuple(drs._replace(ip_delta=cells[d][r])
                   for r, drs in enumerate(row))
-            for d, row in enumerate(self._drs.rows)))
+            for d, row in enumerate(grid.rows)))
+
+    def _upload_delta_table(self) -> None:
+        self._drs = self._grid_with_delta(self._drs, self._build_delta_table())
         self._meta = self._meta._replace(delta_n=self._n_deltas)
         self._meta_step = self._meta_step._replace(delta_n=self._n_deltas)
 
@@ -591,9 +619,8 @@ class MeshDatapath(TpuflowDatapath):
         shard = shard_of_tuples(batch.src_ip, batch.dst_ip, batch.proto,
                                 batch.src_port, batch.dst_port, D,
                                 self._topo_gen, tenant=self._tenant_id())
-        # Replica-loss failover: lanes homed on a quarantined replica
-        # re-home host-side onto the survivor ring (the plane is ROADMAP.md
-        # queue A item 3; None here).
+        # Replica-loss failover (parallel/failover.py): lanes homed on a
+        # quarantined replica re-home host-side onto the survivor ring.
         fo = self._failover
         fo_masked = None
         if fo is not None:
@@ -655,8 +682,10 @@ class MeshDatapath(TpuflowDatapath):
             # The evacuation re-miss burst: dead-resident flows pay one
             # re-miss each on their survivor home (bounded, metered).
             fo.note_remiss(np.count_nonzero((o["miss"] != 0)[fo_masked]))
-        # Dirty-row tracking for an in-flight resize (ROADMAP.md queue A
-        # item 2; never in flight here).
+        # Dirty-row tracking for an in-flight resize (parallel/reshard.py):
+        # every lane's home (replica, slot) may be refreshed, committed or
+        # torn down by this step after its migration window; record it so
+        # the cutover catch-up sweeps the touched set, not every slot.
         if self._reshard is not None:
             self._note_reshard_touched(
                 shard, batch.src_ip, batch.dst_ip, batch.proto,
@@ -874,7 +903,7 @@ class MeshDatapath(TpuflowDatapath):
             self._telemetry.account(o)
             self._telemetry.observe_scoped(
                 "engine", "drain", time.perf_counter() - t0)
-        # Dirty-row tracking for an in-flight resize (queue A item 2).
+        # Dirty-row tracking for an in-flight resize.
         if self._reshard is not None:
             replica = (np.arange(Bd) // chunk).astype(np.int32)
             self._note_reshard_touched(
@@ -909,14 +938,23 @@ class MeshDatapath(TpuflowDatapath):
         """The attribution remap on every replica's state copies, each
         written as a new flow-meta tensor (the commit snapshot keeps the
         old ones)."""
+        # Same ids in the same order is the remap's no-op (services-only
+        # bundles, degraded-recovery recompiles): no cache row rewritten,
+        # so the bounded dirty set of an in-flight resize must survive.
+        changed = (list(old_in) != list(self._cps.ingress.rule_ids)
+                   or list(old_out) != list(self._cps.egress.rule_ids))
         remap = self._attribution_remap(old_in, old_out)
-        if remap is None:
-            return
-        self._state = tuple(
-            tuple(st._replace(flow=st.flow._replace(
-                meta=self._remapped_meta(st.flow.meta, remap)))
-                for st in row) for row in self._state)
-        self._state_mutations += 1
+        if remap is not None:
+            self._state = tuple(
+                tuple(st._replace(flow=st.flow._replace(
+                    meta=self._remapped_meta(st.flow.meta, remap)))
+                    for st in row) for row in self._state)
+            self._state_mutations += 1
+        # A mid-resize bundle that REALLY remapped attribution touched the
+        # whole cache: no bounded dirty set covers that, so the catch-up
+        # falls back to the full sweep (for the world that remapped).
+        if changed and self._reshard is not None:
+            self._reshard.note_all_dirty(tenant=self._tenant_id())
 
     def _canary_classify(self, batch: PacketBatch, now: int) -> np.ndarray:
         """REPLICA-RESOLVED fresh-walk verdicts: each data replica walks
@@ -925,8 +963,17 @@ class MeshDatapath(TpuflowDatapath):
         replica's mismatch vetoes the bundle for the whole mesh (the
         rollback restores every replica)."""
         del now  # probes are stateless fresh walks
-        fn = _mesh_canary_fn(self._mesh, self._meta.match, self._meta.fused)
-        got = fn(self._drs, self._flipped(batch.src_ip),
+        # A reshard plane certifying its TARGET topology redirects the probe
+        # walk onto the target placement (parallel/reshard.py sets
+        # _reshard_canary around the commit plane's _canary call): the
+        # same replica-resolved diff and veto then gate the cutover.
+        tgt = self._reshard_canary
+        if tgt is None:
+            mesh, grid, mm = self._mesh, self._drs, self._meta.match
+        else:
+            mesh, grid, mm, _n = tgt
+        fn = _mesh_canary_fn(mesh, mm, self._meta.fused)
+        got = fn(grid, self._flipped(batch.src_ip),
                  self._flipped(batch.dst_ip), self._lane(batch.proto),
                  self._lane(batch.dst_port), delta_n=self._meta.delta_n)
         return got.cpu().numpy()
@@ -1001,13 +1048,19 @@ class MeshDatapath(TpuflowDatapath):
         """pipeline_trace of a batch on one data replica -> numpy outputs
         (state untouched).  On the mesh the replica's index stands for the
         state: the walk reads that replica's state and rule copies, its
-        rule shards combined."""
-        d = int(state)
+        rule shards combined.  An explicit PipelineState (the reshard
+        plane's migrated tables) is walked against data replica 0's rule
+        copies, every rule shard reading it."""
+        if isinstance(state, pl.PipelineState):
+            d, states = 0, [state] * self._n_rule
+        else:
+            d = int(state)
+            states = self._state[d]
         cols = (self._flipped(batch.src_ip), self._flipped(batch.dst_ip),
                 self._lane(batch.proto), self._lane(batch.src_port),
                 self._lane(batch.dst_port))
         o = run_rule_group(self._drs.w0, lambda r, comb: pl.pipeline_trace(
-            self._state[d][r], self._drs.rows[d][r], self._dsvc, *cols,
+            states[r], self._drs.rows[d][r], self._dsvc, *cols,
             int(now), int(self._gen), meta=self._meta, hit_combine=comb))[0]
         return self._to_host(o)
 
@@ -1070,6 +1123,15 @@ class MeshDatapath(TpuflowDatapath):
         every copy from the host mirror.  The mutation counter is
         deliberately not bumped — silent corruption is the thing being
         modeled."""
+        self._drs = self._flip_replica_rules(self._drs, int(replica))
+        return (f"flipped rule-side device copies held by data replica "
+                f"{replica}")
+
+    @staticmethod
+    def _flip_replica_rules(grid, replica: int):
+        """A RuleGrid with bit 0 of the actions and isolation values of
+        data replica `replica`'s copies flipped (every rule shard), new
+        tensors; the other replicas' copies untouched."""
         def flip(drs):
             return drs._replace(
                 ingress=drs.ingress._replace(action=drs.ingress.action ^ 1),
@@ -1077,11 +1139,9 @@ class MeshDatapath(TpuflowDatapath):
                 iso_in=drs.iso_in._replace(val=drs.iso_in.val ^ 1),
                 iso_out=drs.iso_out._replace(val=drs.iso_out.val ^ 1))
 
-        self._drs = self._drs._replace(rows=tuple(
+        return grid._replace(rows=tuple(
             tuple(flip(c) for c in row) if d == replica else row
-            for d, row in enumerate(self._drs.rows)))
-        return (f"flipped rule-side device copies held by data replica "
-                f"{replica}")
+            for d, row in enumerate(grid.rows)))
 
     # -- host-side observability over the (D,) axis --------------------------
 
@@ -1202,77 +1262,226 @@ class MeshDatapath(TpuflowDatapath):
             "replica_audit_entries": list(self._replica_audit_entries),
         }
 
-    # -- elastic resharding (ROADMAP.md queue A item 2) ----------------------
+    # -- elastic resharding plane (parallel/reshard.py) ----------------------
 
-    def _note_reshard_touched(self, *args, **kwargs) -> None:
-        raise _not_ported("the reshard plane's dirty-row tracking", 2,
-                          "resharding")
+    def _note_reshard_touched(self, replica, src, dst, proto, sport, dport,
+                              committed=None, dnat_f=None,
+                              dnat_port=None) -> None:
+        """Record the home (replica, local slot) of every lane a live
+        dispatch may have refreshed/committed/torn down, plus — for
+        conntrack-committed lanes — the REPLY-direction entry's slot
+        (keyed on the post-DNAT swapped tuple, written in the same
+        replica's table).  Conservative: marking an untouched slot just
+        re-sweeps one row at catch-up; the one write class NOT derivable
+        host-side is the deferred partner-refresh ts stamp (its slot
+        comes from cached meta) — a missed ts refresh is the documented
+        verdict-safe staleness class, re-proved by the revalidator."""
+        plane = self._reshard
+        if plane is None:
+            return
+        tid = self._tenant_id()
+        if plane.dirty_all_for(tid):
+            return
+        N = self._meta.flow_slots
+        src = np.asarray(src).astype(np.uint32)
+        dst = np.asarray(dst).astype(np.uint32)
+        proto = np.asarray(proto).astype(np.int32)
+        sport = np.asarray(sport).astype(np.int32)
+        dport = np.asarray(dport).astype(np.int32)
+        h = hashing.flow_hash(src, dst, proto, sport, dport, xp=np)
+        plane.note_touched(np.asarray(replica),
+                           (h & np.uint32(N - 1)).astype(np.int64),
+                           tenant=tid)
+        if committed is None or dnat_f is None:
+            return
+        com = np.asarray(committed) != 0
+        if not com.any():
+            return
+        dnat = iputil.unflip_u32_array(np.asarray(dnat_f)[com])
+        dp = np.asarray(dnat_port)[com].astype(np.int32)
+        rh = hashing.flow_hash(dnat.astype(np.uint32), src[com], proto[com],
+                               dp, sport[com], xp=np)
+        plane.note_touched(np.asarray(replica)[com],
+                           (rh & np.uint32(N - 1)).astype(np.int64),
+                           tenant=tid)
 
     def reshard_begin(self, n_data: int, devices=None) -> dict:
-        raise _not_ported("reshard_begin", 2, "resharding")
+        """Begin a LIVE resize of the data axis to `n_data` replicas, on
+        the logical device ids `devices` (None: the pool's first ones).
+
+        Builds the target mesh and the next affinity-hash generation
+        (dual-topology serving: batches keep resolving against the old
+        topology), and registers the budgeted `reshard-migrate`
+        maintenance task that walks the flow-cache/conntrack tables and
+        re-commits rows to their target ring homes — live tenant worlds
+        included, each under its own `_world_ctx` with its own certified
+        per-world cutover.  The fleet flips only after the target passes
+        its replica-resolved canary and a migrated-row audit sweep; a
+        default-world veto aborts back to the old mesh with the
+        generation unchanged, while a tenant world's veto latches only
+        that world.  -> the plane's status dict."""
+        if self._reshard is not None:
+            raise RuntimeError(
+                "a reshard is already in flight; wait for its cutover or "
+                "abort it first (reshard_abort)")
+        if self.degraded:
+            raise RuntimeError(
+                "datapath is degraded (serving last-known-good): the "
+                "cutover gate could never certify a target topology — "
+                "recover before resizing")
+        plane = ReshardPlane(self, int(n_data), devices=devices)
+        self._install_reshard_plane(plane)
+        return plane.status()
+
+    def _install_reshard_plane(self, plane) -> None:
+        """Adopt a constructed ReshardPlane — the ordinary reshard_begin
+        above, or the failover plane's emergency evacuation / certified
+        readmission (which build their planes directly: the evacuation
+        must skip reshard_begin's degraded refusal by design) — and
+        register its budgeted migration task."""
+        self._reshard = plane
+        self._maintenance.register(MaintenanceTask(
+            "reshard-migrate", self._maint_reshard,
+            budget=self._reshard_budget, priority=4,
+            shed_when_degraded=True))
 
     def _maint_reshard(self, now: int, budget: int) -> int:
-        raise _not_ported("the reshard-migrate task", 2, "resharding")
+        """The reshard plane's maintenance-task runner: budgeted
+        migration windows while migrating, then the certified cutover
+        (true cost reported unclamped — the scheduler's overrun path
+        meters it)."""
+        plane = self._reshard
+        if plane is None:
+            return 0
+        return plane.advance(now, budget)
 
     def reshard_status(self):
-        raise _not_ported("reshard_status", 2, "resharding")
+        """The in-flight resize's progress (None when no resize is in
+        flight) — see ReshardPlane.status."""
+        return None if self._reshard is None else self._reshard.status()
 
     def reshard_abort(self, reason: str = "operator abort") -> None:
-        raise _not_ported("reshard_abort", 2, "resharding")
+        """Abandon the in-flight resize: the old mesh keeps serving, the
+        affinity generation never flips, target structures are dropped."""
+        if self._reshard is None:
+            raise RuntimeError("no reshard in flight")
+        self._reshard.abort(reason)
 
     def arm_reshard_faults(self, plan, name: str) -> None:
-        raise _not_ported("arm_reshard_faults", 2, "resharding")
+        """Chaos hook (tests): arm the per-tenant forced-canary-veto
+        sites f"{name}.tenant_canary.t{tid}" consulted by the per-world
+        cutover certification (ReshardPlane._certify_world) — a
+        deterministic single-world veto without corrupting state."""
+        self._reshard_faults = (plan, str(name))
+        plan.bind_recorder(getattr(self, "_flightrec", None))
 
     def tenant_reshard_resync(self, tid: int, now: int) -> dict:
-        raise _not_ported("tenant_reshard_resync", 2, "resharding")
+        """Re-home ONE latched tenant world onto the current fleet
+        topology (the readmission half of a per-world canary veto): the
+        full migrate + certify + flip walk for just that world, under
+        the same veto rules — a second veto re-latches, journaled.
+        Refused while a fleet resize is in flight (the plane's own
+        per-world migration would race this walk)."""
+        if self._reshard is not None:
+            raise RuntimeError(
+                "a reshard is in flight; the latched world re-certifies "
+                "at that plane's cutover — wait for it")
+        return resync_world(self, int(tid), int(now))
+
+    def _finish_reshard(self, plane) -> None:
+        """Plane lifecycle callback (cutover or abort): unregister the
+        migration task and fold the plane's meters into the engine's."""
+        if self._reshard is plane:
+            self._reshard = None
+            self._maintenance.unregister("reshard-migrate")
+        if self._failover is not None:
+            # Evacuation/readmission outcomes fold into the failover
+            # state machine; ordinary resizes pass through untouched.
+            self._failover.note_reshard_finished(plane)
 
     def reshard_stats(self) -> dict:
-        """Elastic-mesh observability with no plane in flight (the JAX
-        engine's schema, meshpath.py:1558): rendered as the reshard metric
+        """Elastic-mesh observability (schema-stable whether or not a
+        resize is in flight, the JAX engine's): the live affinity-topology
+        generation, migration progress/volume, resident target rows, and
+        cutover/abort counters — rendered as the reshard metric
         families."""
+        plane = self._reshard
+        st = plane.status() if plane is not None else None
+        migrated = self._reshard_migrated_total + (
+            plane.migrated_rows if plane is not None else 0)
         return {
             "topology_generation": self._topo_gen,
-            "active": 0,
-            "phase": None,
-            "target_n_data": None,
-            "progress_ratio": 0.0,
-            "migrated_rows_total": self._reshard_migrated_total,
-            "catchup_rows_total": self._reshard_catchup_total,
-            "resident_rows": self._reshard_resident_rows,
+            "active": int(plane is not None),
+            "phase": None if st is None else st["phase"],
+            "target_n_data": None if st is None else st["n_data_to"],
+            "progress_ratio": 0.0 if st is None else st["progress_ratio"],
+            "migrated_rows_total": migrated,
+            # Cutover catch-up volume: slots the dirty-row sweep walked
+            # (the full O(slots) fallback only after a whole-cache write).
+            "catchup_rows_total": self._reshard_catchup_total + (
+                plane.catchup_scanned if plane is not None else 0),
+            "resident_rows": (plane.resident_rows if plane is not None
+                              else self._reshard_resident_rows),
             "requeued_total": self._reshard_requeued_total,
             "cutovers_total": self._reshard_cutovers,
             "aborts_total": self._reshard_aborts,
             "last_span": self._last_reshard_span,
-            "tenant_rows_total": self._reshard_tenant_rows_total,
+            # Tenant-labeled resize observability: rows migrated into
+            # tenant worlds (folded at flip; the live plane's in-flight
+            # rows ride on top), per-world cutover vetoes, and the live
+            # plane's world count.
+            "tenant_rows_total": self._reshard_tenant_rows_total + (
+                plane.tenant_rows() if plane is not None else 0),
             "tenant_vetoes_total": self._reshard_tenant_vetoes,
-            "tenant_worlds_migrating": 0,
+            "tenant_worlds_migrating": (len(plane.worlds)
+                                        if plane is not None else 0),
         }
 
-    # -- replica-loss failover (ROADMAP.md queue A item 3) -------------------
+    # -- replica-loss failover plane (parallel/failover.py) ------------------
 
     def _maint_replica_health(self, now: int, budget: int) -> int:
-        raise _not_ported("the replica-health task", 3, "failover")
+        """The `replica-health` maintenance-task runner: one probe round
+        per grant, plus evacuation begin/retry and auto-readmission
+        (NOT shed when degraded — a degraded mesh is exactly when
+        replica loss must still be detected)."""
+        fo = self._failover
+        if fo is None:
+            return 0
+        return fo.advance(now, budget)
 
     def arm_failover_faults(self, plan, name: str) -> None:
-        """FlakyDatapath's hook: a no-op, as on the JAX engine with the
-        plane disabled (the plane is queue A item 3)."""
+        """FlakyDatapath hook: arm the f"{name}.replica_dead" /
+        f"{name}.replica_wedge" sites on the failover plane (no-op when
+        the plane is disabled)."""
+        if self._failover is not None:
+            self._failover.arm(plan, name)
 
     def failover_stats(self) -> dict:
-        """Replica-loss failover observability with the plane disabled
-        (the JAX engine's schema, meshpath.py:1639)."""
-        return {"enabled": 0, "n_shards": 0, "phase": "disabled",
-                "quarantined_shard": None, "mask_active": 0,
-                "probes_total": 0, "probe_failures_total": 0,
-                "slow_dispatches_total": 0, "quarantines_total": 0,
-                "evacuations_total": 0, "readmissions_total": 0,
-                "remiss_total": 0, "requeued_total": 0,
-                "fail_streaks": {}, "probe_rounds": 0,
-                "probe_history": [],
-                "tenants_pending_evacuation": []}
+        """Replica-loss failover observability (schema-stable whether or
+        not the plane is enabled, the JAX engine's; rendered as the
+        failover metric families in observability/metrics.py)."""
+        fo = self._failover
+        if fo is None:
+            return {"enabled": 0, "n_shards": 0, "phase": "disabled",
+                    "quarantined_shard": None, "mask_active": 0,
+                    "probes_total": 0, "probe_failures_total": 0,
+                    "slow_dispatches_total": 0, "quarantines_total": 0,
+                    "evacuations_total": 0, "readmissions_total": 0,
+                    "remiss_total": 0, "requeued_total": 0,
+                    "fail_streaks": {}, "probe_rounds": 0,
+                    "probe_history": [],
+                    "tenants_pending_evacuation": []}
+        return {"enabled": 1, "n_shards": fo._orig_n, **fo.status()}
 
     def failover_readmit(self) -> dict:
-        raise _not_ported("failover_readmit", 3, "failover")
-
+        """Operator re-admission: a pre-flip heal unmasks; an evacuated
+        replica rejoins via the ordinary certified grow-resize — never a
+        blind flip.  -> refreshed failover stats."""
+        if self._failover is None:
+            raise RuntimeError(
+                "the failover plane is not enabled (failover=True)")
+        st = self._failover.readmit(mode="operator")
+        return {"enabled": 1, "n_shards": self._failover._orig_n, **st}
 
 def _flip_first(t: torch.Tensor) -> torch.Tensor:
     """A copy of t with bit 0 of its first word flipped."""

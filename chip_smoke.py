@@ -206,6 +206,39 @@ package is missing, or when any phase fails.  Phases, in order:
      B2 on (1, 2)'s replica-resolved canary; then corrupt_replica(1) on
      (2, 1) must make canary_scan report replica 1 and degrade the engine.
 
+ 18. live resize and replica-loss failover on the mesh engine
+     (parallel/reshard.py, parallel/failover.py) on the headline world with
+     node-0's topology, reshard_budget=2**20 rows a tick, each step held
+     to a (1, 1) reference engine (2**22 slots) on the same batch: every
+     lane's service, DNAT on every lane of a service without session
+     affinity, code and rule ids on every lane whose DNAT is equal (each
+     replica keeps its own affinity table, as in the JAX engine, so a
+     fresh flow of a sticky client may pick another endpoint: on such a
+     lane each engine's endpoint must be one of the service's and its code
+     and rule ids the scalar Oracle's at that endpoint, and at most 32 such
+     lanes, MAX_STICKY_LANES, in the phase); (a) a staged fused (2, 1)
+     engine (2**21 slots a replica) grows to 4 replicas and shrinks back
+     to 2, each tick stepping the headline batch and a 4,096-lane churn
+     batch of fresh flows before its maintenance tick (2 canary probes,
+     RESIZE_PROBES); ms per migration tick and rows migrated per second,
+     the cutover's ms, steady ms/step before, during and after, the
+     established lanes served from the migrated cache after
+     each flip, reshard_stats() (2 cutovers, 0 aborts), the reshard-*
+     journal, peak device memory at 4 replicas; (b) a grow with
+     corrupt_target(1): the cutover aborts (begin -> replica-canary-veto ->
+     abort), the generation kept, the old topology serving the reference's
+     verdicts; (c) a one-pass (2, 1) engine with failover=True: a FaultPlan
+     kills replica 1, the probes quarantine and mask it, the evacuation
+     shrinks to 1 replica, and once the site is quiet the readmission grows
+     back to 2; ticks and seconds from the kill to each flip,
+     failover_stats().  Each part reads the launches of the engine under
+     test (every count set to 0 just before each of its calls and read just
+     after) and holds the kernels it recorded against their plain versions:
+     B1 from a mid-migration step and from the grow's and the vetoed
+     grow's target canaries, B3h from a mid-evacuation step, B2 from a
+     probe round and the evacuation's target canary (a part fails if one
+     of these was not recorded).
+
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
 of a 2-way word split (shard 1 at w0 = W / 2); in phase 5 on the warm
@@ -3558,6 +3591,573 @@ def drive_mesh_engine(ps, services, pod_ips, tr, dev, kept13):
     return recs, kernels
 
 
+
+# ---- phase 18: live resize and replica-loss failover on the mesh engine ----
+# A replica's flow slots (the (2, 1) engine's global capacity is 2**22, as
+# phase 17's), and the rows a maintenance tick migrates: the grow from
+# (2, 1) walks its 2**22 global slots in 4 ticks, the shrink from (4, 1)
+# its 2**23 in 8.
+RESIZE_SLOTS = FLOW_SLOTS // 2
+RESHARD_BUDGET = 1 << 20
+# The failover plane's knobs: quarantine on 2 failed probe rounds, readmit
+# after 2 quiet ones, retry a vetoed evacuation after 2 ticks.  Its
+# deadlines are far above any step or probe round of this script (a cold
+# staged step takes ~3 s), so only the FaultPlan kills the replica.
+FAILOVER_KNOBS = dict(probe_fails=2, readmit_passes=2, retry_ticks=2,
+                      probe_deadline_s=60.0, dispatch_deadline_s=120.0)
+# Steady steps timed before and after a resize.
+RESIZE_STEADY = 3
+# Fresh-flow lanes of the churn batch stepped before each tick of (a).
+RESIZE_CHURN = 4096
+# Canary probes of phase 18's engines: every maintenance tick's watchdog
+# canary walks its probes through the scalar Oracle at 100k rules, a tick's
+# main cost (phase 14: 1.7-3.3 s with 8), and a resize takes 5-12 ticks.
+# A corrupted target replica flips every probe's verdict (phase 17 found 8
+# of 8), so 2 still veto it.
+RESIZE_PROBES = 2
+# A resize or a failover arc that takes more maintenance ticks fails.
+MAX_TICKS = 40
+# Lanes of session-affinity services that may reach another endpoint than
+# the (1, 1) reference's in all of phase 18 (each held to the scalar Oracle
+# at its endpoint, StickyWitness); more fail the phase.
+MAX_STICKY_LANES = 32
+
+
+class PhaseLaunches:
+    """Launch counts of the engine under test, summed over its calls: each
+    call runs with every count set to 0 just before and read just after,
+    so the reference engine's steps and the plain-version checks between
+    them never count.  `witness` holds the lanes whose endpoint differs
+    from the reference's (StickyWitness)."""
+
+    def __init__(self, witness):
+        self.total = [0, 0, 0, 0, 0]
+        self.steps = 0  # steps held to the reference (pair_step)
+        self.sticky = 0  # their affinity lanes whose DNAT differed
+        self.witness = witness
+
+    def run(self, fn, *a, **k):
+        reset_counts()
+        out = fn(*a, **k)
+        self.total = [x + y for x, y in zip(self.total, counts5())]
+        return out
+
+
+class AdvanceLog:
+    """Times each run of the engine's reshard-migrate task (the plane's
+    advance: a migration window, or the certified cutover) with the card
+    synchronized around it: phase before, seconds, rows migrated (every
+    world's), target width and outcome; a cutover's stages (catch-up,
+    target canary and audit, flip) timed apart."""
+
+    STAGES = ("_catchup", "_certify", "_audit_target", "_flip")
+
+    def __init__(self, eng):
+        import torch
+
+        self.calls = []
+        real = eng._maint_reshard
+
+        def staged(plane, stages):
+            for name in self.STAGES:
+                fn = getattr(plane, name)
+
+                def timed(*a, _fn=fn, _name=name, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    try:
+                        return _fn(*a, **k)
+                    finally:
+                        torch.cuda.synchronize()
+                        stages[_name] = (stages.get(_name, 0.0)
+                                         + time.perf_counter() - t0)
+
+                setattr(plane, name, timed)
+
+        def run(now, budget):
+            plane = eng._reshard
+            if plane is None:
+                return real(now, budget)
+            phase = plane.status()["phase"]
+            before = plane.migrated_rows + plane.tenant_rows()
+            stages = {}
+            if phase == "ready":
+                staged(plane, stages)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spent = real(now, budget)
+            torch.cuda.synchronize()
+            self.calls.append(dict(
+                phase=phase, s=time.perf_counter() - t0, now=int(now),
+                rows=plane.migrated_rows + plane.tenant_rows() - before,
+                n_to=plane.dst_n, done=plane.done, aborted=plane.aborted,
+                stages_ms={k: v * 1e3 for k, v in stages.items()}))
+            return spent
+
+        # The task is registered with the bound attribute at each
+        # reshard_begin (and at the failover plane's own resizes).
+        eng._maint_reshard = run
+
+    def summary(self, since=0) -> dict:
+        calls = self.calls[since:]
+        mig = [c for c in calls if c["phase"] == "migrate"]
+        cut = [c for c in calls if c["phase"] == "ready"]
+        rows, secs = sum(c["rows"] for c in mig), sum(c["s"] for c in mig)
+        return dict(migrate_ticks=len(mig),
+                    migrate_ms=[c["s"] * 1e3 for c in mig],
+                    migrate_rows=rows,
+                    rows_per_s=rows / secs if secs else 0.0,
+                    cutover_ms=[c["s"] * 1e3 for c in cut],
+                    cutover_stages_ms=[c["stages_ms"] for c in cut],
+                    cutover_outcome=["flipped" if c["done"] else "aborted"
+                                     for c in cut])
+
+
+class TargetCanaryInputs:
+    """Records the kernel inputs of the first replica-resolved canary that
+    runs on a resize's TARGET placement (the plane sets the engine's
+    _reshard_canary redirect around it) -> KernelInputs.seen."""
+
+    def __init__(self, eng):
+        self.rec = KernelInputs()
+        self.done = False
+        real = eng._canary_classify
+
+        def call(batch, now):
+            if eng._reshard_canary is None or self.done:
+                return real(batch, now)
+            self.done = True
+            with self.rec:
+                return real(batch, now)
+
+        eng._canary_classify = call
+
+
+def resize_batches(tr, pool_tr, pod_ips):
+    """(the headline batch, churn(k): the k-th RESIZE_CHURN-lane slice of
+    the fresh-flow pool, wrapping)."""
+    hb = engine_batch(tr.src_ip, tr.dst_ip, tr.proto, tr.src_port,
+                      tr.dst_port, pod_ips)
+
+    def churn(k):
+        k %= POOL // RESIZE_CHURN
+        sl = slice(k * RESIZE_CHURN, (k + 1) * RESIZE_CHURN)
+        return engine_batch(pool_tr.src_ip[sl], pool_tr.dst_ip[sl],
+                            pool_tr.proto[sl], pool_tr.src_port[sl],
+                            pool_tr.dst_port[sl], pod_ips)
+
+    return hb, churn
+
+
+class StickyWitness:
+    """The second witness for a lane where the engine under test and the
+    (1, 1) reference reach different endpoints of a session-affinity
+    service.  Each data replica keeps its own affinity table, so a client's
+    sticky endpoint is found only on the replica its earlier flow homed on
+    (or lost to a collision another table shape does not have): a fresh
+    flow homed elsewhere picks its endpoint anew, and its verdict and rules
+    follow that endpoint.  The JAX package's MeshDatapath differs from its
+    (1, 1) engine the same way (tests/test_torch_mesh_affinity.py).  On
+    such a lane each engine's endpoint must be one of the service's, and
+    its code and rule ids those the scalar Oracle gives the packet at that
+    endpoint; at most `cap` such lanes in all."""
+
+    def __init__(self, ps, services, cap=MAX_STICKY_LANES):
+        self.ps, self.services, self.cap = ps, services, cap
+        self.lanes = 0
+        self._po = None
+
+    def check(self, batch, i, res, what):
+        from antrea_tpu_torch.oracle.pipeline import PipelineOracle
+        from antrea_tpu_torch.packet import Packet
+        from antrea_tpu_torch.utils import ip as iputil
+
+        if self._po is None:
+            self._po = PipelineOracle(self.ps, self.services)
+        prog = self._po.programs[int(res.svc_idx[i])]
+        ep = (int(res.dnat_ip[i]), int(res.dnat_port[i]))
+        if ep not in {(iputil.ip_to_key(e.ip), e.port)
+                      for e in prog.endpoints}:
+            raise SystemExit(f"{what}: lane {i} reached {ep}, not an "
+                             f"endpoint of its service")
+        p = batch.packet(int(i))
+        v = self._po.oracle.classify(
+            Packet(src_ip=p.src_ip, dst_ip=ep[0], proto=p.proto,
+                   src_port=p.src_port, dst_port=ep[1]), svc_ref=prog.ref)
+        got = (int(res.code[i]), res.ingress_rule[i], res.egress_rule[i])
+        want = (int(v.code), v.ingress.rule, v.egress.rule)
+        if got != want:
+            raise SystemExit(f"{what}: lane {i} at its endpoint {ep}: "
+                             f"(code, ingress rule, egress rule) {got}, the "
+                             f"Oracle's {want}")
+
+
+def same_verdicts(a, b, what, batch, witness, aff) -> int:
+    """Every lane's service equal; DNAT equal on every lane whose service
+    keeps no session affinity (`aff`: each service's affinity timeout);
+    code and rule ids equal on every lane whose DNAT is equal; on each lane
+    whose DNAT differs, both engines held to the witness (StickyWitness)
+    -> the number of such lanes."""
+    import numpy as np
+
+    if not np.array_equal(a.svc_idx, b.svc_idx):
+        raise SystemExit(f"engine {what}: svc_idx differs")
+    svc = np.asarray(a.svc_idx)
+    sticky = (svc >= 0) & (aff[np.clip(svc, 0, None)] > 0)
+    moved = ((np.asarray(a.dnat_ip) != np.asarray(b.dnat_ip))
+             | (np.asarray(a.dnat_port) != np.asarray(b.dnat_port)))
+    if (moved & ~sticky).any():
+        raise SystemExit(f"engine {what}: DNAT differs on "
+                         f"{int((moved & ~sticky).sum())} lanes of services "
+                         f"without session affinity")
+    keep = ~moved
+    if not np.array_equal(np.asarray(a.code)[keep], np.asarray(b.code)[keep]):
+        raise SystemExit(f"engine {what}: code differs")
+    for f in ("ingress_rule", "egress_rule"):
+        x, y = getattr(a, f), getattr(b, f)
+        if [r for r, k in zip(x, keep) if k] != [r for r, k in zip(y, keep)
+                                                  if k]:
+            raise SystemExit(f"engine {what}: rule attribution differs")
+    for i in np.nonzero(moved)[0]:
+        witness.check(batch, i, a, f"engine {what}")
+        witness.check(batch, i, b, f"reference {what}")
+    witness.lanes += int(moved.sum())
+    if witness.lanes > witness.cap:
+        raise SystemExit(f"engine {what}: {witness.lanes} lanes of affinity "
+                         f"services reached another endpoint than the "
+                         f"reference's, more than {witness.cap}")
+    return int(moved.sum())
+
+
+def pair_step(eng, ref, batch, now, what, acc, recorder=None):
+    """One step of the engine under test (its launches counted, the card
+    synchronized around it) and of the (1, 1) reference on the same batch,
+    their verdicts held equal (same_verdicts; acc counts the steps and the
+    affinity lanes whose DNAT differs, held to acc.witness) -> (result,
+    seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if recorder is not None:
+        with recorder:
+            r = acc.run(eng.step, batch, now)
+    else:
+        r = acc.run(eng.step, batch, now)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    acc.sticky += same_verdicts(r, ref.step(batch, now), what, batch,
+                                acc.witness,
+                                eng._dsvc.aff_timeout.cpu().numpy())
+    acc.steps += 1
+    return r, dt
+
+
+def copies_equal(eng) -> bool:
+    """Every rule shard's copy of each replica's state equal (dump rows
+    excluded)."""
+    return all(len({rows_digest(c) for c in row}) == 1 for row in eng._state)
+
+
+def need_kernels(got, tags, what):
+    """Raise unless check_recorded held each kernel of `tags` against its
+    plain version in `what` (got: its {name: record})."""
+    have = {name.split()[0] for name in got}
+    missing = [t for t in tags if t not in have]
+    if missing:
+        raise SystemExit(f"phase 18 {what}: {missing} not recorded and "
+                         f"held to the plain version (held: {sorted(got)})")
+    return got
+
+
+def drive_resize(ps, services, pod_ips, tr, pool_tr, dev):
+    """Phase 18: (a) a staged fused (2, 1) engine grows to 4 replicas and
+    shrinks back to 2 under the headline batch and a churn batch a tick;
+    (b) a grow vetoed by corrupt_target(1); (c) a one-pass (2, 1) engine
+    with failover=True: replica 1 killed (FaultPlan), quarantined, masked,
+    evacuated to 1 replica, readmitted to 2 once its site goes quiet.  Every
+    step's verdicts, DNAT and rule ids equal to a (1, 1) reference engine
+    on the same batches, or on a lane of a session-affinity service whose
+    endpoint differs, to the scalar Oracle at its endpoint (StickyWitness).
+    -> (record, kernel records, launches by part)."""
+    import gc
+
+    import torch
+
+    from antrea_tpu_torch.dissemination.faults import FaultPlan
+    from antrea_tpu_torch.parallel import MeshDatapath
+
+    t18 = time.perf_counter()
+    hb, churn = resize_batches(tr, pool_tr, pod_ips)
+    kw = dict(n_rule=1, miss_chunk=MISS_CHUNK, canary_probes=RESIZE_PROBES,
+              topology=node0_spec(pod_ips), reshard_budget=RESHARD_BUDGET)
+    rec, kern, launches = {}, {}, {}
+    witness = StickyWitness(ps, services)
+
+    def build(n_data, slots, **knobs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = MeshDatapath(world_copy(ps), services, device=dev, n_data=n_data,
+                         flow_slots=slots, **kw, **knobs)
+        torch.cuda.synchronize()
+        return e, time.perf_counter() - t0
+
+    def steady(eng, ref, t, what, acc):
+        """RESIZE_STEADY timed steps -> (next instant, {ms, spilled lanes a
+        step, replicas})."""
+        times = []
+        spill0 = eng.mesh_stats()["spill_lanes_total"]
+        for _ in range(RESIZE_STEADY):
+            _r, dt = pair_step(eng, ref, hb, t, what, acc)
+            times.append(dt * 1e3)
+            t += 1
+        spilled = eng.mesh_stats()["spill_lanes_total"] - spill0
+        return t, dict(ms=times, spilled_a_step=spilled / RESIZE_STEADY,
+                       replicas=eng._n_data, topology_generation=eng._topo_gen)
+
+    # (a) grow 2 -> 4 and shrink 4 -> 2 under traffic.
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, build_s = build(2, RESIZE_SLOTS, fused=True)
+    ref, ref_s = build(1, FLOW_SLOTS, fused=True)
+    adv = AdvanceLog(eng)
+    tcan = TargetCanaryInputs(eng)
+    acc = PhaseLaunches(witness)
+    a = dict(build_s=build_s, ref_build_s=ref_s)
+    t = 100
+    for _ in range(2):  # cold, warm
+        pair_step(eng, ref, hb, t, "resize (a) warm-up", acc)
+        t += 1
+    t, a["before"] = steady(eng, ref, t, "resize (a) before", acc)
+    a["est_before"] = int(pair_step(eng, ref, hb, t, "resize (a)",
+                                    acc)[0].est.sum())
+    t += 1
+    step_rec = KernelInputs()
+    k = 0
+    for n in (4, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        since = len(adv.calls)
+        t_begin = time.perf_counter()
+        acc.run(eng.reshard_begin, n)
+        ticks, during, tick_ms = 0, [], []
+        while eng.reshard_status() is not None:
+            st = eng.reshard_status()
+            rc = (step_rec if n == 4 and st["phase"] == "migrate"
+                  and st["progress_ratio"] > 0 and not step_rec.seen
+                  else None)
+            _r, dt = pair_step(eng, ref, hb, t, f"resize (a) to {n}", acc,
+                               recorder=rc)
+            during.append(dt * 1e3)
+            pair_step(eng, ref, churn(k), t, f"resize (a) to {n}, churn",
+                      acc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acc.run(eng.maintenance_tick, now=t)
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            t += 1
+            k += 1
+            ticks += 1
+            if ticks > MAX_TICKS:
+                raise SystemExit(f"resize (a) to {n}: no cutover in "
+                                 f"{MAX_TICKS} ticks: {eng.reshard_status()}")
+        if (eng._n_data, eng._topo_gen) != (n, 1 if n == 4 else 2):
+            raise SystemExit(f"resize (a) to {n}: ended at {eng._n_data} "
+                             f"replicas, generation {eng._topo_gen}")
+        r, dt = pair_step(eng, ref, hb, t, f"resize (a) after {n}", acc)
+        t += 1
+        torch.cuda.synchronize()
+        part = dict(ticks=ticks, seconds=time.perf_counter() - t_begin,
+                    tick_ms=tick_ms, during_ms=during,
+                    est_after_flip=int(r.est.sum()),
+                    **adv.summary(since))
+        if n == 4:
+            part["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        a[f"to{n}"] = part
+        log(f"resize (a) to {n}: {ticks} ticks, {part['seconds']:.1f} s; "
+            f"migration ticks {[round(x, 1) for x in part['migrate_ms']]} ms "
+            f"({part['migrate_rows']} rows, {part['rows_per_s']:.0f} rows/s),"
+            f" cutover {[round(x, 1) for x in part['cutover_ms']]} ms "
+            f"(stages {part['cutover_stages_ms']}); whole "
+            f"ticks {[round(x, 1) for x in tick_ms]} ms; steps during "
+            f"{[round(x, 1) for x in during]} ms; est lanes after the flip "
+            f"{part['est_after_flip']} (before the resize "
+            f"{a['est_before']})" + (f"; peak device memory at 4 replicas "
+                                    f"{part['peak_gib']:.3f} GiB"
+                                    if n == 4 else ""))
+    t, a["after"] = steady(eng, ref, t, "resize (a) after", acc)
+    rs = eng.reshard_stats()
+    kinds = [e["kind"] for e in eng.flightrecorder_events()
+             if e["kind"].startswith("reshard")]
+    if (rs["cutovers_total"], rs["aborts_total"]) != (2, 0) or kinds != [
+            "reshard-begin", "reshard-migrated", "reshard-cutover"] * 2:
+        raise SystemExit(f"resize (a): {rs}, {kinds}")
+    if not copies_equal(eng):
+        raise SystemExit("resize (a): rule-shard state copies differ")
+    a.update(reshard_stats={k2: v for k2, v in rs.items()
+                            if k2 != "last_span"},
+             last_span=rs["last_span"], reshard_kinds=kinds,
+             copies_equal=True, launches=list(acc.total),
+             compared_steps=acc.steps, sticky_dnat_lanes=acc.sticky)
+    launches["a"] = list(acc.total)
+    if not acc.total[0] or acc.total[2]:
+        raise SystemExit(f"resize (a): (B1, B2, B3, B3h, S1) launches "
+                         f"{acc.total}")
+    log(f"resize (a): steady before {a['before']}, after "
+        f"{a['after']}; reshard_stats {a['reshard_stats']}; kinds "
+        f"{kinds}; rule-shard copies equal; (B1, B2, B3, B3h, S1) launches "
+        f"{acc.total}; {acc.steps} steps held to the reference, "
+        f"{acc.sticky} affinity lanes with another endpoint")
+    kern["a step"] = need_kernels(check_recorded(step_rec.seen, (2, 1), 20),
+                                  ["B1"], "(a) mid-migration step")
+    kern["a target canary"] = need_kernels(
+        check_recorded(tcan.rec.seen, (4, 1), 20), ["B1"],
+        "(a) target canary")
+    rec["a"] = a
+
+    # (b) a grow vetoed by a corrupted target replica.
+    acc = PhaseLaunches(witness)
+    tcan = TargetCanaryInputs(eng)
+    since = len(adv.calls)
+    gen0 = (eng._n_data, eng._topo_gen)
+    acc.run(eng.reshard_begin, 4)
+    desc = eng._reshard.corrupt_target(1)
+    ticks = 0
+    while eng.reshard_status() is not None:
+        pair_step(eng, ref, hb, t, "resize (b)", acc)
+        acc.run(eng.maintenance_tick, now=t)
+        t += 1
+        ticks += 1
+        if ticks > MAX_TICKS:
+            raise SystemExit("resize (b): never ended")
+    rs = eng.reshard_stats()
+    chain = [e["kind"] for e in eng.flightrecorder_events()
+             if e["kind"] in ("reshard-begin", "replica-canary-veto",
+                              "reshard-abort")][-3:]
+    if ((eng._n_data, eng._topo_gen) != gen0 or rs["aborts_total"] != 1
+            or chain != ["reshard-begin", "replica-canary-veto",
+                         "reshard-abort"] or eng.degraded):
+        raise SystemExit(f"resize (b): {gen0} -> {eng._n_data, eng._topo_gen}"
+                         f", {rs}, {chain}, degraded {eng.degraded}")
+    t, after = steady(eng, ref, t, "resize (b) after the abort", acc)
+    b = dict(ticks=ticks, corrupt=desc, chain=chain, after=after,
+             launches=list(acc.total), compared_steps=acc.steps,
+             sticky_dnat_lanes=acc.sticky, **adv.summary(since))
+    launches["b"] = list(acc.total)
+    log(f"resize (b): {desc}; {ticks} ticks to {chain}; generation "
+        f"{gen0} kept, the old topology serving the reference's verdicts "
+        f"({after}); (B1, B2, B3, B3h, S1) launches {acc.total}")
+    kern["b target canary"] = need_kernels(
+        check_recorded(tcan.rec.seen, (4, 1), 20), ["B1"],
+        "(b) target canary")
+    rec["b"] = b
+    del eng, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) replica 1 killed: quarantine, evacuation, readmission.
+    one = dict(fused=True, prune_budget=PRUNE_K)
+    eng, build_s = build(2, RESIZE_SLOTS, failover=True,
+                         failover_knobs=FAILOVER_KNOBS, **one)
+    ref, ref_s = build(1, FLOW_SLOTS, **one)
+    adv = AdvanceLog(eng)
+    tcan = TargetCanaryInputs(eng)
+    probe_rec = KernelInputs()
+    fo = eng._failover
+    real_round = fo._probe_round
+
+    def probe_round(now):
+        if probe_rec.seen:
+            return real_round(now)
+        with probe_rec:
+            return real_round(now)
+
+    fo._probe_round = probe_round
+    acc = PhaseLaunches(witness)
+    c = dict(build_s=build_s, ref_build_s=ref_s)
+    t = 100
+    for _ in range(2):
+        pair_step(eng, ref, hb, t, "failover (c) warm-up", acc)
+        t += 1
+    t, c["before"] = steady(eng, ref, t, "failover (c) before", acc)
+    plan = FaultPlan(seed=5)
+    plan.every("n0.replica_dead", 1, "r1", times=-1)
+    eng.arm_failover_faults(plan, "n0")
+    step_rec = KernelInputs()
+    torch.cuda.synchronize()
+    t_kill = time.perf_counter()
+    ticks, phases, during = 0, [], []
+    for goal in ("evacuated", "healthy"):
+        while eng.failover_stats()["phase"] != goal:
+            st = eng.reshard_status()
+            rc = (step_rec if st is not None and st["progress_ratio"] > 0
+                  and not step_rec.seen else None)
+            _r, dt = pair_step(eng, ref, hb, t, f"failover (c) to {goal}",
+                               acc, recorder=rc)
+            during.append(dt * 1e3)
+            acc.run(eng.maintenance_tick, now=t)
+            phases.append(eng.failover_stats()["phase"])
+            t += 1
+            ticks += 1
+            if ticks > MAX_TICKS:
+                raise SystemExit(f"failover (c): stuck before {goal}: "
+                                 f"{eng.failover_stats()}")
+        torch.cuda.synchronize()
+        c[f"to_{goal}"] = dict(ticks=ticks,
+                               seconds=time.perf_counter() - t_kill,
+                               n_data=eng._n_data)
+        if goal == "evacuated":
+            if eng._n_data != 1:
+                raise SystemExit(f"failover (c): evacuated to "
+                                 f"{eng._n_data} replicas")
+            plan.quiesce()
+    t, c["after"] = steady(eng, ref, t, "failover (c) after", acc)
+    fs = eng.failover_stats()
+    if (fs["quarantines_total"], fs["evacuations_total"],
+            fs["readmissions_total"], eng._n_data) != (1, 1, 1, 2):
+        raise SystemExit(f"failover (c): {fs}, {eng._n_data} replicas")
+    c.update(failover_stats={k2: fs[k2] for k2 in (
+        "quarantines_total", "evacuations_total", "readmissions_total",
+        "remiss_total", "requeued_total", "probes_total",
+        "probe_failures_total", "slow_dispatches_total")},
+        phases=phases, during_ms=during, launches=list(acc.total),
+        compared_steps=acc.steps, sticky_dnat_lanes=acc.sticky,
+        kinds=[e["kind"] for e in eng.flightrecorder_events()
+               if e["kind"].startswith(("replica-", "reshard-"))],
+        **adv.summary())
+    launches["c"] = list(acc.total)
+    if not (acc.total[1] and acc.total[3]) or acc.total[2]:
+        raise SystemExit(f"failover (c): (B1, B2, B3, B3h, S1) launches "
+                         f"{acc.total}")
+    log(f"failover (c): kill -> evacuation flip {c['to_evacuated']['ticks']}"
+        f" ticks, {c['to_evacuated']['seconds']:.1f} s; -> readmission "
+        f"{c['to_healthy']['ticks']} ticks, {c['to_healthy']['seconds']:.1f} "
+        f"s; phases {phases}; failover_stats {c['failover_stats']}; "
+        f"migration ticks {[round(x, 1) for x in c['migrate_ms']]} ms, "
+        f"cutovers {[round(x, 1) for x in c['cutover_ms']]} ms "
+        f"{c['cutover_outcome']} (stages {c['cutover_stages_ms']}); steady "
+        f"before {c['before']}, after "
+        f"{c['after']}; (B1, B2, B3, B3h, S1) launches {acc.total}; "
+        f"{acc.steps} steps held to the reference, {acc.sticky} affinity "
+        f"lanes with another endpoint")
+    kern["c step"] = need_kernels(check_recorded(step_rec.seen, (2, 1), 20),
+                                  ["B3h"], "(c) mid-evacuation step")
+    kern["c probes"] = need_kernels(
+        check_recorded(probe_rec.seen, (2, 1), 20), ["B2"],
+        "(c) probe round")
+    kern["c target canary"] = need_kernels(
+        check_recorded(tcan.rec.seen, (1, 1), 20), ["B2"],
+        "(c) evacuation target canary")
+    rec["c"] = c
+    del eng, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t18
+    log(f"phase 18 took {rec['seconds']:.1f} s")
+    return rec, kern, launches
+
+
 def main() -> int:
     import torch
 
@@ -3799,9 +4399,18 @@ def main() -> int:
     del kept13
     l17 = {k: v["launches"] for k, v in mesh17.items()}
 
-    def p17(tag):
-        return {f"{shape} {name}": at(r) for shape, recs in k17.items()
+    # 18. Live resize and replica-loss failover on the mesh engine.
+    resize18, k18, l18 = drive_resize(ps, services, pod_ips, tr, pool_tr,
+                                      dev)
+
+    def p17(tag, k=k17):
+        return {f"{shape} {name}": at(r) for shape, recs in k.items()
                 for name, r in recs.items() if name.startswith(tag)}
+
+    def l18_of(i):
+        return dict(launches_phase18=sum(v[i] for v in l18.values()),
+                    launches_phase18_by_part={k: v[i]
+                                              for k, v in l18.items()})
 
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -3845,7 +4454,7 @@ def main() -> int:
             tenant_rows_miss_chunk=at(k16["b1_chunk"]),
             launches_phase17=sum(v[0] for v in l17.values()),
             launches_phase17_by_shape={k: v[0] for k, v in l17.items()},
-            phase17=p17("B1")),
+            phase17=p17("B1"), **l18_of(0), phase18=p17("B1", k18)),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
@@ -3854,7 +4463,7 @@ def main() -> int:
             launches_tenant_canary=l16["d_canary"][1],
             launches_phase17=sum(v[1] for v in l17.values()),
             launches_phase17_canary=mesh17["1x2"]["canary_launches"][1],
-            phase17=p17("B2"),
+            phase17=p17("B2"), **l18_of(1), phase18=p17("B2", k18),
             tenant_rows=at(k16["b2"])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
@@ -3873,7 +4482,7 @@ def main() -> int:
             launches_in_tenant_worlds=tenants["cd"][
                 "launches_in_tenant_worlds"][2],
             tenant_rows=at(k16["b3"]),
-            launches_phase17=sum(v[2] for v in l17.values())),
+            launches_phase17=sum(v[2] for v in l17.values()), **l18_of(2)),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -3885,12 +4494,12 @@ def main() -> int:
             launches_phase16=sum(v[3] for v in l16.values()),
             launches_phase17=sum(v[3] for v in l17.values()),
             launches_phase17_by_shape={k: v[3] for k, v in l17.items()},
-            phase17=p17("B3h")),
+            phase17=p17("B3h"), **l18_of(3), phase18=p17("B3h", k18)),
         rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
             "bench_cold_study.py:129", s1_launches, s1[32768],
             at_B256=at(s1[256]), study_case4_ms=study_s * 1e3,
             launches_phase16=sum(v[4] for v in l16.values()),
-            launches_phase17=sum(v[4] for v in l17.values())),
+            launches_phase17=sum(v[4] for v in l17.values()), **l18_of(4)),
         # Phase 15: the same kernels on the dual-stack tables' v6 rows;
         # launches on the dual-stack walk (B1) and pruned classify (B2).
         rec("B1 consumer, dual-stack rows",
@@ -3899,12 +4508,12 @@ def main() -> int:
             b1_6[256], **rows_bounds(b1_6[256]), at_B32768=at(b1_6[32768]),
             launches_engine_dual_stack=dual["engine"]["launches"][0],
             v6_rows_of_batch=dual["v6_rows"],
-            launches_phase17=sum(v[0] for v in l17.values())),
+            launches_phase17=sum(v[0] for v in l17.values()), **l18_of(0)),
         rec("B2 pruned consumer, dual-stack rows",
             "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", b2_6_launches[1], b2_6[256],
             **rows_bounds(b2_6[256]), at_B32768=at(b2_6[32768]),
-            launches_phase17=sum(v[1] for v in l17.values())),
+            launches_phase17=sum(v[1] for v in l17.values()), **l18_of(1)),
     ]
     log(json.dumps({"card": card, "staged": staged, "onepass": one,
                     "pruned_classify": pcls, "staged_pruned": spruned,
@@ -3916,7 +4525,7 @@ def main() -> int:
                     "flood": flood, "churn": churn, "knobs": knobs14,
                     "profile": profiles, "knob_step_ms": knob_ms,
                     "dual_stack": dual, "tenants": tenants,
-                    "mesh_engine": mesh17}))
+                    "mesh_engine": mesh17, "resize": resize18}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

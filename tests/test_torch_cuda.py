@@ -1200,3 +1200,120 @@ def test_mesh_engine_1x2_on_the_card_equals_cpu(cuda, knobs):
     assert eg._audit_rule_digests() == ec._audit_rule_digests()
     if knobs.get("prune_budget"):
         assert op.launches == k0[0] and op.launches_hits > k0[1]
+
+
+def _resize_pair(cuda, **knobs):
+    import copy
+
+    from antrea_tpu_torch.parallel import MeshDatapath
+
+    cluster, services = _engine_world()
+    kw = dict(n_data=2, n_rule=2, flow_slots=1 << 10, aff_slots=1 << 8,
+              miss_chunk=64, canary_probes=8, **knobs)
+    eg = MeshDatapath(copy.deepcopy(cluster.ps), services, device=cuda, **kw)
+    ec = MeshDatapath(copy.deepcopy(cluster.ps), services, device="cpu",
+                      **kw)
+    return cluster, services, eg, ec
+
+
+def _same_engines(eg, ec, rg, rc, now, what):
+    """Every StepResult field, dump_flows(), reshard_stats() (spans
+    aside), failover_stats() and every rule shard's state copy of the card
+    engine equal to the CPU engine's."""
+    for f in ("code", "est", "reply", "svc_idx", "dnat_ip", "dnat_port",
+              "committed", "fwd_kind", "out_port", "peer_ip"):
+        np.testing.assert_array_equal(getattr(rg, f), getattr(rc, f),
+                                      err_msg=f"{what}: {f}")
+    assert rg.ingress_rule == rc.ingress_rule, what
+    assert rg.egress_rule == rc.egress_rule, what
+    assert eg.dump_flows(now) == ec.dump_flows(now), what
+    sg, sc = eg.reshard_stats(), ec.reshard_stats()
+    sg.pop("last_span"), sc.pop("last_span")
+    assert sg == sc, what
+    fg, fc = eg.failover_stats(), ec.failover_stats()
+    assert fg == fc, what
+    assert (eg._n_data, eg._topo_gen) == (ec._n_data, ec._topo_gen), what
+    for d, (rowg, rowc) in enumerate(zip(eg._state, ec._state)):
+        for r, (sg_, sc_) in enumerate(zip(rowg, rowc)):
+            for tg, tcpu in zip((*sg_.flow, *sg_.aff), (*sc_.flow, *sc_.aff)):
+                assert torch.equal(tg[:-1].cpu(), tcpu[:-1]), (what, d, r)
+
+
+@pytest.mark.parametrize("knobs", [dict(fused=True),
+                                   dict(fused=True, prune_budget=2)],
+                         ids=["staged", "onepass"])
+def test_mesh_engine_grow_and_shrink_on_the_card_equals_cpu(cuda, knobs):
+    """A live grow (2, 2) -> (4, 2) and shrink back to 2 replicas on the
+    card, stepping a batch before every maintenance tick, against the same
+    engine on the CPU: each step, the journal, dump_flows(), the resize
+    meters and every replica's state copies bitwise equal; the target
+    canary and the migrated-row audit run the kernels (the card's
+    launches grow across the cutover ticks)."""
+    from antrea_tpu_torch.ops import consumer as c1
+    from antrea_tpu_torch.ops import pruned_consumer as c2
+
+    cluster, services, eg, ec = _resize_pair(cuda, **knobs)
+    b = _engine_batch(cluster, services, 3, n=256)
+    t = 100
+    for dp in (eg, ec):
+        dp.step(b, t)
+    t += 1
+    for n in (4, 2):
+        for dp in (eg, ec):
+            dp.reshard_begin(n)
+        while ec.reshard_status() is not None:
+            rg, rc = eg.step(b, t), ec.step(b, t)
+            _same_engines(eg, ec, rg, rc, t, f"to {n}, t={t}")
+            k0 = (c1.launches, c2.launches)
+            outs = [dp.maintenance_tick(now=t)["ran"] for dp in (eg, ec)]
+            assert outs[0] == outs[1], t
+            if ec.reshard_status() is None:  # the cutover tick
+                assert (c1.launches, c2.launches) > k0
+            t += 1
+            assert t < 150
+        assert eg.reshard_status() is None and eg._n_data == n
+        rg, rc = eg.step(b, t), ec.step(b, t)
+        _same_engines(eg, ec, rg, rc, t, f"after {n}")
+        assert int(rg.est.sum()) > 0
+        t += 1
+    kinds = [e["kind"] for e in eg.flightrecorder_events()]
+    assert kinds == [e["kind"] for e in ec.flightrecorder_events()]
+    assert eg.reshard_stats()["cutovers_total"] == 2
+
+
+def test_mesh_engine_failover_on_the_card_equals_cpu(cuda):
+    """A replica killed on the card (one-pass, failover=True, deadlines no
+    step reaches): quarantine, evacuation to one replica, readmission to
+    two, step for step equal to the same engine on the CPU."""
+    from antrea_tpu_torch.dissemination.faults import FaultPlan
+
+    knobs = dict(failover=True, failover_knobs=dict(
+        probe_fails=2, readmit_passes=2, retry_ticks=2,
+        probe_deadline_s=1e6, dispatch_deadline_s=1e6))
+    cluster, services, eg, ec = _resize_pair(cuda, fused=True,
+                                             prune_budget=2, **knobs)
+    b = _engine_batch(cluster, services, 5, n=256)
+    plans = []
+    for dp in (eg, ec):
+        dp.step(b, 100)
+        plan = FaultPlan(seed=5)
+        plan.every("n0.replica_dead", 1, "r1", times=-1)
+        dp.arm_failover_faults(plan, "n0")
+        plans.append(plan)
+    t = 101
+    for goal in ("evacuated", "healthy"):
+        while ec.failover_stats()["phase"] != goal:
+            rg, rc = eg.step(b, t), ec.step(b, t)
+            _same_engines(eg, ec, rg, rc, t, f"to {goal}, t={t}")
+            for dp in (eg, ec):
+                dp.maintenance_tick(now=t)
+            t += 1
+            assert t < 200, ec.failover_stats()
+        assert eg.failover_stats()["phase"] == goal
+        for plan in plans:
+            plan.quiesce()
+    st = eg.failover_stats()
+    assert (st["quarantines_total"], st["evacuations_total"],
+            st["readmissions_total"], eg._n_data) == (1, 1, 1, 2)
+    rg, rc = eg.step(b, t), ec.step(b, t)
+    _same_engines(eg, ec, rg, rc, t, "after the readmission")

@@ -499,13 +499,17 @@ def test_refused_surfaces_name_their_roadmap_item(world):
                            device="cpu", **KW)
     from antrea_tpu_torch import parallel
 
-    # The mesh engine is ported; what it still refuses names its item.
+    # The mesh engine and its resize and failover planes are ported; what
+    # they refuse is the JAX engine's refusals.
     mdp = parallel.MeshDatapath(port_ps(cluster.ps), port_svcs(services),
                                 n_data=2, n_rule=1, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        mdp.reshard_begin(4)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    with pytest.raises(RuntimeError, match="no reshard in flight"):
+        mdp.reshard_abort()
+    with pytest.raises(RuntimeError, match="failover plane is not enabled"):
         mdp.failover_readmit()
+    assert mdp.reshard_begin(4)["n_data_to"] == 4
+    with pytest.raises(RuntimeError, match="already in flight"):
+        mdp.reshard_begin(4)
     # A v6 batch is refused like the JAX engine refuses it (v4-only).
     with pytest.raises(ValueError, match="v4-only"):
         t.step(tpk.PacketBatch(src_ip=np.zeros(1, np.uint32),

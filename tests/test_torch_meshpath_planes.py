@@ -3,7 +3,8 @@ the CPU, plane by plane: the per-replica slow path and the mesh-wide epoch
 swap, the replica-resolved canary (its per-replica codes, the veto, the
 journal chain), the striped audit, the observability surfaces, tenant
 worlds and the refusals.  The world and knobs are
-tests/test_mesh_datapath.py's; every value compared is an int32 word or a
+tests/test_mesh_datapath.py's; tests/test_torch_reshard.py and
+tests/test_torch_failover.py hold the resize and failover planes; every value compared is an int32 word or a
 host count, so the tolerance is exact equality.  The helpers are
 tests/test_torch_meshpath.py's."""
 
@@ -278,8 +279,10 @@ def test_mesh_tenant_world_serves_on_every_replica(world, meshes, batch):
 
 def test_mesh_refusals(world, meshes):
     """The JAX ConfigErrors word for word, a batch that does not split
-    over the data axis, profile(), and the planes still to port, each
-    naming its ROADMAP.md queue A item."""
+    over the data axis, profile(), and the resize and failover refusals
+    of the JAX engine, word for word: no resize to abort, the plane not
+    enabled, a size equal to the current one, a pool too small, a second
+    resize in flight, a resize on a degraded engine."""
     cases = [dict(dual_stack=True),
              dict(async_slowpath=True, overlap_commits=True),
              dict(async_slowpath=True, autotune_drain=True),
@@ -298,15 +301,37 @@ def test_mesh_refusals(world, meshes):
         t.step(tb(gen_traffic(cluster.pod_ips, 7, n_flows=7, seed=2)), 100)
     with pytest.raises(NotImplementedError, match="single-chip surface"):
         t.profile(None)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        TMesh(None, None, n_data=2, device="cpu", failover=True, **KW)
-    for call in (lambda: t.reshard_begin(4), t.reshard_status,
-                 t.reshard_abort, lambda: t.tenant_reshard_resync(1, 0),
-                 lambda: t.arm_reshard_faults(None, "x"),
-                 lambda: t._maint_reshard(0, 1)):
-        with pytest.raises(NotImplementedError, match="queue A item 2"):
-            call()
-    for call in (t.failover_readmit, lambda: t._maint_replica_health(0, 1)):
-        with pytest.raises(NotImplementedError, match="queue A item 3"):
-            call()
     assert t.arm_failover_faults(None, "x") is None  # no plane: a no-op
+    assert t.reshard_status() is None and t._maint_reshard(0, 1) == 0
+    assert t._maint_replica_health(0, 1) == 0
+
+    def same_refusal(j, t, call, want):
+        with pytest.raises((RuntimeError, ValueError)) as ej:
+            call(j)
+        with pytest.raises(type(ej.value)) as et:
+            call(t)
+        assert str(et.value) == str(ej.value)
+        assert want in str(et.value)
+
+    j, t = engines(world, meshes)
+    same_refusal(j, t, lambda dp: dp.reshard_abort(), "no reshard in flight")
+    same_refusal(j, t, lambda dp: dp.failover_readmit(),
+                 "the failover plane is not enabled (failover=True)")
+    same_refusal(j, t, lambda dp: dp.reshard_begin(2), "equals the current")
+    same_refusal(j, t, lambda dp: dp.reshard_begin(64),
+                 "need 128 devices, have 8")
+    for dp in (j, t):
+        dp.reshard_begin(4)
+    same_refusal(j, t, lambda dp: dp.reshard_begin(4), "already in flight")
+    same_refusal(j, t, lambda dp: dp.tenant_reshard_resync(1, 0),
+                 "a reshard is in flight")
+    for dp in (j, t):
+        dp.reshard_abort("refusals pinned")
+        dp.corrupt_replica(1)
+    svcs2 = gen_services(8, cluster.pod_ips, seed=12)
+    with pytest.raises(JMismatch):
+        j.install_bundle(None, svcs2)
+    with pytest.raises(TMismatch):
+        t.install_bundle(None, port_svcs(svcs2))
+    assert j.degraded and t.degraded
+    same_refusal(j, t, lambda dp: dp.reshard_begin(4), "degraded")

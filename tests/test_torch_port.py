@@ -191,10 +191,26 @@ def test_mesh_engine_and_graft_entry_default_to_the_card(monkeypatch):
         parallel.local_mesh(2, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         g.entry()
+    # The resize and failover entry points: a failover engine, a target
+    # mesh on other logical devices.
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.MeshDatapath(failover=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parallel.local_mesh(2, 2, devices=[4, 5, 6, 7])
     mdp = parallel.MeshDatapath(n_data=2, n_rule=2, device="cpu",
                                 flow_slots=16, aff_slots=16)
     assert mdp._mesh == parallel.LocalMesh(2, 2, torch.device("cpu"))
     assert mdp._state[1][1].flow.keys.device.type == "cpu"
+    # A resize builds its target on the engine's device, never the card's
+    # default; the failover plane steps on it too.
+    mdp.reshard_begin(4, devices=list(range(8)))
+    assert mdp._reshard.t_mesh == parallel.LocalMesh(4, 2,
+                                                     torch.device("cpu"))
+    mdp.reshard_abort("pinned")
+    fo = parallel.MeshDatapath(n_data=2, device="cpu", flow_slots=16,
+                               aff_slots=16, failover=True)
+    assert fo.failover_stats()["enabled"] == 1
+    assert fo._mesh.device.type == "cpu"
     fn, args = g.entry(device="cpu")
     _state, out = fn(*args)
     assert out["code"].shape == (256,) and int(out["n_miss"]) > 0
