@@ -1574,14 +1574,16 @@ def copy_state_(dst: PipelineState, src: PipelineState) -> PipelineState:
 def cache_stats(state: PipelineState) -> dict:
     """Flow-cache census (full scan, not for the per-step path): occupied,
     committed (ETERNAL generation, reply legs included) and denial entries,
-    and the slot count; int32 scalars."""
+    and the slot count; int32 scalars.  The keys come in sorted order, as
+    the JAX package's jitted census returns them (a dict pytree flattens
+    sorted), so the engines' cache_stats() print alike."""
     kpg = state.flow.keys[:-1, -1]
     valid = kpg != 0
     est = valid & (((kpg >> 9) & GEN_ETERNAL) == GEN_ETERNAL)
     return {
-        "occupied": valid.sum(dtype=_I32),
         "committed": est.sum(dtype=_I32),
         "denials": (valid & ~est).sum(dtype=_I32),
+        "occupied": valid.sum(dtype=_I32),
         "slots": torch.tensor(kpg.shape[0], dtype=_I32),
     }
 

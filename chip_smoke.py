@@ -168,7 +168,7 @@ package is missing, or when any phase fails.  Phases, in order:
      seconds, the generation, the tenants' tids, specs and generations, the
      native round journal, and from the second step on the codes and rule
      ids of the headline batch and of each tenant equal to the engine that
-     never restarted; (f) 64 fresh headline lanes through
+     never restarted; (f) 16 fresh headline lanes through
      make_datapath("oracle") and through the restarted engine (its cache
      empty): every StepResult field equal; (c) a one-pass engine
      (fused=True, prune_budget=4) with one tenant per rule count on the
@@ -238,6 +238,47 @@ package is missing, or when any phase fails.  Phases, in order:
      grow's target canaries, B3h from a mid-evacuation step, B2 from a
      probe round and the evacuation's target canary (a part fails if one
      of these was not recorded).
+
+ 19. the agent that drives the engine (agent/controller.py, the
+     dissemination wire, the surfaces), on the headline world: (a) every
+     controlplane object of the PolicySet as an ADDED watch event spanning
+     node-0, each through the wire format, into a RamStore watched by an
+     AgentPolicyController that drives an engine on the card with phase
+     13's one-pass knobs; the sync, phase 13's headline steps (every
+     StepResult field, dump_flows() and cache_stats() bitwise equal to
+     phase 13's engine), phase 13's 4 churned groups as UPDATED events
+     with added / removed (each must reach apply_group_delta, never a
+     bundle) and its delta step (bitwise equal to phase 13's); the event
+     count and bytes, the publish and sync seconds, the ms from the delta
+     events' stamps to their realization (the agent's dissemination_hist)
+     and ms/step beside phase 13's; then the agent disconnects, the policy
+     phase 13's last step attributed most lanes to is deleted from the
+     store, and the re-list's window (the store's snapshot) retracts it;
+     (b) a DisseminationServer over the same store and a NetAgent in this
+     process with its own engine on the card, over mutual TLS (the TLS
+     route, cryptography or openssl, is printed; with neither, (b) is
+     reported as not run): the PKI, the handshake, the stream of the whole
+     world (the server's re-list, WIRE_CHUNK events a pump round), the
+     sync; its engine, fresh on the smaller set, and (a)'s after the
+     retraction step 2**17 fresh headline lanes, held to each other (lanes
+     of affinity services whose sticky endpoint differs counted, the
+     first STICKY_SAMPLE held to the scalar Oracle at each endpoint);
+     (d) the agent's API server over (a)'s engine, tapped by a
+     TraceflowController: /metrics, /commitplane, /audit, /agentinfo, 8
+     headline 5-tuples traced through /traceflow (held to trace() and to
+     the scalar Oracle) and as live traceflows completed by a step, antctl
+     get and traceflow --server, antctl check --device cuda, a support
+     bundle; (c) SubprocessAgent(datapath_type="tpuflow") whose child
+     agent_proc builds its engine on the card by default, on
+     gen_cluster(10_000) and 4,096-lane batches, against an in-process
+     agent's engine on the card fed the same store: cold, warm and a
+     membership delta, every reply field bitwise equal, no error reply and
+     nothing on the child's stderr.  After every sync each agent's
+     sync_failures_total must be 0, last_sync_error and permanent_failure
+     empty, and the generation the expected one.  The launch counts are
+     read (never written) around each part, and the first call of B1, B2
+     and B3 in (a) and of B2 and B3 in (b) is recorded and held to its
+     plain version (a part fails if one was not recorded).
 
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
@@ -1636,7 +1677,8 @@ def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, keep=None,
     CROSS_LANES more such flows bitwise equal to the port's engine on the
     CPU after the same deltas.  With keep (a dict) the headline steps'
     results, and dump_flows() and cache_stats() after them, are kept there
-    (phase 17's reference).  -> (record, launches, ref)."""
+    (phase 17's reference), and the churn plan, the slots it took and the
+    delta step's result (phase 19's).  -> (record, launches, ref)."""
     import gc
 
     import numpy as np
@@ -1697,6 +1739,8 @@ def drive_engine(ps, services, pod_ips, tr, dev, what, ref=None, keep=None,
     torch.cuda.synchronize()
     delta_s = time.perf_counter() - t0
     launches = counts()
+    if keep is not None:
+        keep.update(plan=plan, delta=r, n_deltas=n_deltas)
     if r.n_miss != B:
         raise SystemExit(f"engine {what}: delta step missed {r.n_miss} of "
                          f"{B} fresh lanes")
@@ -2741,7 +2785,10 @@ LADDER = (2048, 8192)
 TENANT_FLOWS = 2048
 ONEPASS_SLOTS = 1 << 16
 TWIN_LANES = 512
-TWIN_HEADLINE_LANES = 64
+# (f)'s headline lanes: the twin walks each through the scalar Oracle at
+# 100k rules, about a quarter second a lane (16 keep the phase's depth
+# for the agent's phase 19).
+TWIN_HEADLINE_LANES = 16
 
 
 def tenant_worlds():
@@ -4158,6 +4205,744 @@ def drive_resize(ps, services, pod_ips, tr, pool_tr, dev):
     return rec, kern, launches
 
 
+# ---- phase 19: the agent on the card ----------------------------------------
+# The agent's node (node-0's topology is the engines'); (b)'s server ships a
+# re-list in chunks of WIRE_CHUNK events a pump round (DisseminationServer's
+# resync_chunk), so that neither end's socket buffer fills while the one
+# thread that runs both ends handles the frames; (c)'s world, lanes and
+# slots (a JSON list a field over the pipe); (d)'s live traceflows.
+AGENT_NODE = "node-0"
+WIRE_CHUNK = 512
+PIPE_RULES = 10_000
+PIPE_B = 4096
+PIPE_SLOTS = 1 << 16
+TRACE_LANES = 8
+# Lanes of affinity services whose sticky endpoint differs between the
+# agent's engine and a fresh one, held to the scalar Oracle at each
+# endpoint (a quarter second a lane at 100k rules); the rest are counted.
+STICKY_SAMPLE = 32
+
+
+class SampledWitness:
+    """StickyWitness on the first `sample` lanes it is asked about, with no
+    cap on the lanes counted."""
+
+    def __init__(self, ps, services, sample):
+        self._w = StickyWitness(ps, services, cap=sample)
+        self.sample, self.asked, self.lanes, self.cap = sample, 0, 0, 1 << 62
+
+    def check(self, batch, i, res, what):
+        self.asked += 1
+        if self.asked <= 2 * self.sample:  # both engines of a lane
+            self._w.check(batch, i, res, what)
+
+
+def world_events(ps, node):
+    """The PolicySet's controlplane objects as ADDED watch events spanning
+    `node`, each through the wire format (one serde JSON line an event), in
+    the PolicySet's own order (address groups, appliedTo groups, policies):
+    -> (events, the lines' bytes, seconds)."""
+    from antrea_tpu_torch.controller.networkpolicy import WatchEvent
+    from antrea_tpu_torch.dissemination import serde
+
+    t0 = time.perf_counter()
+    out, nbytes = [], 0
+    for obj_type, items in (("AddressGroup", ps.address_groups.items()),
+                            ("AppliedToGroup", ps.applied_to_groups.items()),
+                            ("NetworkPolicy",
+                             ((p.uid, p) for p in ps.policies))):
+        for name, obj in items:
+            line = serde.event_to_wire(WatchEvent(
+                kind="ADDED", obj_type=obj_type, name=name, obj=obj,
+                span={node}))
+            nbytes += len(line)
+            out.append(serde.event_from_wire(line))
+    return out, nbytes, time.perf_counter() - t0
+
+
+def delta_events(ps, plan, node):
+    """Phase 13's churn plan as UPDATED address-group events (the group's
+    new member list, with added / removed), through the wire format."""
+    import dataclasses
+
+    from antrea_tpu_torch.apis import controlplane as cp
+    from antrea_tpu_torch.controller.networkpolicy import WatchEvent
+    from antrea_tpu_torch.dissemination import serde
+
+    out = []
+    for name, added, removed in plan:
+        g = ps.address_groups[name]
+        gone = [m for m in g.members if m.ip in removed]
+        new = [cp.GroupMember(ip=ip) for ip in added]
+        obj = dataclasses.replace(
+            g, members=[m for m in g.members if m.ip not in removed] + new)
+        out.append(serde.event_from_wire(serde.event_to_wire(WatchEvent(
+            kind="UPDATED", obj_type="AddressGroup", name=name, obj=obj,
+            span={node}, added=new, removed=gone))))
+    return out
+
+
+class EngineCalls:
+    """Counts an engine's install_bundle and apply_group_delta calls (the
+    agent's two ways of reaching it)."""
+
+    def __init__(self, eng):
+        self.n = {"install_bundle": 0, "apply_group_delta": 0}
+        for name in self.n:
+            real = getattr(eng, name)
+
+            def call(*a, _real=real, _name=name, **k):
+                self.n[_name] += 1
+                return _real(*a, **k)
+
+            setattr(eng, name, call)
+
+
+def clean_sync(agent, what, generation=None):
+    """An agent swallows its engine's failures by design (it counts them
+    and retries): after every sync its failure counters must be zero and
+    its engine's generation the expected one."""
+    import torch
+
+    torch.cuda.synchronize()
+    if (agent.sync_failures_total or agent.last_sync_error
+            or agent.permanent_failure):
+        raise SystemExit(
+            f"agent {what}: sync failed ({agent.sync_failures_total} "
+            f"failures): {agent.last_sync_error!r} "
+            f"{agent.permanent_failure!r}")
+    if generation is not None and agent.datapath.generation != generation:
+        raise SystemExit(f"agent {what}: generation "
+                         f"{agent.datapath.generation}, not {generation}")
+
+
+def timed_sync(agent, what, generation):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.sync()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    clean_sync(agent, what, generation)
+    return s
+
+
+def launched(before):
+    """(B1, B2, B3, B3h, S1) launches since `before` (counts5() then): the
+    counts are read, never written, in phase 19."""
+    return [b - a for a, b in zip(before, counts5())]
+
+
+def check_b3_recorded(a, what):
+    """B3 (the resolve variant) against its plain version on the inputs a
+    step passed it (KernelInputs) -> record, with b3_work's bounds."""
+    from antrea_tpu_torch.ops import onepass as op
+
+    x, tabs, st, now, gen_w = a["x"], a["tabs"], a["st"], a["now"], a["gen_w"]
+    b = x.pkt.shape[0]
+    got = op.onepass(x, tabs, now, gen_w, st)
+    miss = (got[0][:, 11] == 0) & (x.msk[:, 0] != 0)
+    n_miss = int(miss.sum())
+    once, per_lane, ops, blocks = b3_work(tabs, st, got[4][miss], b)
+    del got
+    rec = check_kernel(
+        f"B3 one-pass ({what}, K={st.k}, {n_miss} miss lanes)",
+        lambda: op.onepass(x, tabs, now, gen_w, st),
+        lambda: op.onepass_plain(x, tabs, now, gen_w, st), b, once, ops, 3)
+    rec.update(miss_lanes=n_miss, candidate_blocks=blocks)
+    return with_lane_bound(rec, "B3", per_lane)
+
+
+def check_phase19(seen, what, tags):
+    """Each kernel call recorded in a part of phase 19 held bitwise to its
+    plain version (B3 here, B1 and B2 through check_recorded); raises
+    unless each kernel of `tags` was recorded."""
+    b3 = {k: v for k, v in seen.items() if k[0] == "B3"}
+    out = check_recorded({k: v for k, v in seen.items() if k[0] != "B3"},
+                         (1, 1), 2)
+    for (_, w0), a in b3.items():
+        out[f"B3 w0={w0}"] = check_b3_recorded(a, what)
+    have = {name.split()[0] for name in out}
+    missing = [t for t in tags if t not in have]
+    if missing:
+        raise SystemExit(f"phase 19 {what}: {missing} not recorded and held "
+                         f"to the plain version (held: {sorted(out)})")
+    return out
+
+
+def tls_backend() -> str:
+    """Which of the two routes netwire's PKI takes here: the cryptography
+    package, or the openssl binary it falls back to ("" for neither)."""
+    import shutil
+
+    try:
+        import cryptography  # noqa: F401
+
+        return "cryptography"
+    except ImportError:
+        return "openssl" if shutil.which("openssl") else ""
+
+
+def drive_wire(store, services, kw, fresh, now, dev):
+    """Phase 19 (b): a DisseminationServer over (a)'s store (the world
+    after the deltas and the deletion) and a NetAgent in this process with
+    its own engine on the card, over mutual TLS: the PKI, the handshake,
+    the stream of the whole world (the server's re-list, WIRE_CHUNK events
+    a round), the sync, and the fresh batch's step -> (record, launches,
+    recorded kernel checks, the step's result)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.dissemination import netwire
+
+    backend = tls_backend()
+    log(f"phase 19 (b): TLS through {backend or 'NOTHING'} "
+        f"(netwire.make_ca / issue_cert)")
+    if not backend:
+        log("phase 19 (b) NOT RUN: neither the cryptography package nor the "
+            "openssl binary is on this machine")
+        return ({"run": False, "reason": "no cryptography, no openssl"},
+                [0] * 5, {}, None)
+    rec = {"run": True, "tls": backend}
+    with tempfile.TemporaryDirectory() as certdir:
+        t0 = time.perf_counter()
+        netwire.make_ca(certdir)
+        srv = netwire.DisseminationServer(store, certdir,
+                                          resync_chunk=WIRE_CHUNK)
+        rec["pki_s"] = time.perf_counter() - t0
+        try:
+            eng = TpuflowDatapath(None, services, device=dev, **kw)
+            calls = EngineCalls(eng)
+            before = counts5()
+            with KernelInputs() as ki:
+                t0 = time.perf_counter()
+                na = netwire.NetAgent(AGENT_NODE, srv.address, certdir, eng)
+                srv.wait_connected(1, timeout=30.0)
+                rec["handshake_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                shipped = rounds = 0
+                while na.resyncs_total < 1:
+                    shipped += srv.pump()
+                    na.pump(wait=0.5)
+                    rounds += 1
+                    if rounds > 100_000 or not na.connected:
+                        raise SystemExit(f"phase 19 (b): the stream stalled "
+                                         f"after {shipped} events")
+                rec.update(stream_s=time.perf_counter() - t0, events=shipped,
+                           rounds=rounds)
+                rec["sync_s"] = timed_sync(na.agent, "(b) install", 1)
+                if calls.n != {"install_bundle": 1, "apply_group_delta": 0}:
+                    raise SystemExit(f"phase 19 (b): engine calls {calls.n}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = eng.step(fresh, now)
+                torch.cuda.synchronize()
+                rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+            launches = launched(before)
+            if r.n_miss != fresh.size:
+                raise SystemExit(f"phase 19 (b): {r.n_miss} of "
+                                 f"{fresh.size} fresh lanes missed")
+            rec.update(resyncs_total=srv.dissemination_stats()[
+                "resyncs_total"], launches=launches)
+            na.sync_and_report()
+            na.close()
+        finally:
+            srv.close()
+    log(f"phase 19 (b): PKI {rec['pki_s']:.2f} s, handshake "
+        f"{rec['handshake_s']:.3f} s, the world's {rec['events']} events in "
+        f"{rec['rounds']} rounds, {rec['stream_s']:.1f} s; sync "
+        f"{rec['sync_s']:.1f} s; its cold step of the fresh batch "
+        f"{rec['step_ms']:.1f} ms; (B1, B2, B3, B3h, S1) launches "
+        f"{launches}")
+    del eng, na
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = check_phase19(ki.seen, "(b) the wire's engine", ("B2", "B3"))
+    return rec, launches, checks, r
+
+
+def pipe_world():
+    """(c)'s world: gen_cluster(PIPE_RULES) with the headline's node and pod
+    layout, PIPE_B lanes of its traffic, and one churnable address group's
+    delta."""
+    from antrea_tpu_torch.packet import PacketBatch
+    from antrea_tpu_torch.simulator import gen_cluster, gen_traffic
+
+    cluster = gen_cluster(PIPE_RULES, n_nodes=64, pods_per_node=32, seed=11)
+    tr = gen_traffic(cluster.pod_ips, PIPE_B, n_flows=PIPE_B // 2, seed=12)
+    batch = PacketBatch(src_ip=tr.src_ip, dst_ip=tr.dst_ip, proto=tr.proto,
+                        src_port=tr.src_port, dst_port=tr.dst_port)
+    return cluster, batch
+
+
+PIPE_FIELDS = ("code", "est", "reply", "reject_kind", "snat", "svc_idx",
+               "dnat_ip", "dnat_port")
+
+
+def same_reply(got, want, what):
+    """A child agent's step reply against a StepResult, field by field."""
+    for f in PIPE_FIELDS:
+        if got[f] != [int(x) for x in getattr(want, f)]:
+            raise SystemExit(f"phase 19 (c) {what}: {f} differs")
+    if (got["ingress_rule"] != want.ingress_rule
+            or got["egress_rule"] != want.egress_rule):
+        raise SystemExit(f"phase 19 (c) {what}: rule attribution differs")
+
+
+def drive_pipe(dev):
+    """Phase 19 (c): SubprocessAgent(datapath_type="tpuflow") with its child
+    agent_proc on the card (the default device: no device is passed on
+    the card, dev on the CPU) and an in-process agent
+    driving the same engine on the card, both watching one store: the
+    world's events pumped over the pipe, sync, the batch cold and warm, a
+    membership delta and the batch again; every reply field equal, no
+    error reply, nothing on the child's stderr -> record."""
+    import torch
+
+    from antrea_tpu_torch.agent import AgentPolicyController
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.dissemination import RamStore
+    from antrea_tpu_torch.dissemination.transport import SubprocessAgent
+
+    cluster, batch = pipe_world()
+    events, nbytes, _ = world_events(cluster.ps, AGENT_NODE)
+    store = RamStore()
+    rec = {"rules": PIPE_RULES, "lanes": PIPE_B, "events": len(events),
+           "event_bytes": nbytes}
+    local_dp = TpuflowDatapath(device=dev, miss_chunk=32,
+                               flow_slots=PIPE_SLOTS, aff_slots=1 << 8)
+    local = AgentPolicyController(AGENT_NODE, local_dp, store)
+    t0 = time.perf_counter()
+    sub = SubprocessAgent(AGENT_NODE, store, datapath_type="tpuflow",
+                          flow_slots=PIPE_SLOTS, aff_slots=1 << 8,
+                          device=None if dev.type == "cuda" else dev.type)
+    try:
+        argv = sub._proc.args
+        if argv[argv.index("--device") + 1] != dev.type or argv[2] != (
+                "antrea_tpu_torch.dissemination.agent_proc"):
+            raise SystemExit(f"phase 19 (c): the child is {argv}")
+        for ev in events:
+            store.apply(ev)
+        t1 = time.perf_counter()
+        rec["pumped"] = sub.pump()
+        rec["pump_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        reply = sub.sync()  # the child's first reply: it is up
+        rec["sync_s"] = time.perf_counter() - t1
+        rec["child_up_s"] = time.perf_counter() - t0
+        local.sync()
+        clean_sync(local, "(c) in-process install", 1)
+        if reply["generation"] != 1 or reply["realized"] != (
+                local.realized_generations()):
+            raise SystemExit(f"phase 19 (c): the child synced to "
+                             f"generation {reply['generation']}")
+        step_ms = []
+        for k, now in enumerate((10, 11, 12)):
+            if k == 2:
+                # A membership delta: a pod leaves the first group that
+                # has two members.
+                name = next(n for n, g in sorted(
+                    cluster.ps.address_groups.items()) if len(g.members) > 1)
+                (ev,) = delta_events(cluster.ps, [
+                    (name, [], [cluster.ps.address_groups[name]
+                                .members[0].ip])], AGENT_NODE)
+                store.apply(ev)
+                if not local._deltas:
+                    raise SystemExit("phase 19 (c): the delta was not a "
+                                     "membership delta")
+                sub.pump()
+                if sub.sync()["generation"] != 2:
+                    raise SystemExit("phase 19 (c): the child's delta did "
+                                     "not commit")
+                local.sync()
+                clean_sync(local, "(c) in-process delta", 2)
+            t1 = time.perf_counter()
+            got = sub.step(batch, now)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            same_reply(got, local_dp.step(batch, now), f"step at now={now}")
+        torch.cuda.synchronize()
+        tail = sub._stderr_tail()
+        if tail:
+            raise SystemExit(f"phase 19 (c): the child wrote to stderr: "
+                             f"{tail[-400:]}")
+        rec.update(step_ms=step_ms, n_deltas=local_dp._n_deltas)
+    finally:
+        sub.stop()
+    log(f"phase 19 (c): child agent_proc on {dev.type} up in "
+        f"{rec['child_up_s']:.1f} s; {rec['pumped']} events "
+        f"({nbytes / 1e6:.2f} MB) pumped in {rec['pump_s']:.2f} s, sync "
+        f"{rec['sync_s']:.2f} s; {PIPE_B}-lane steps over the pipe "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms, every reply field "
+        f"bitwise equal to the in-process agent's engine (a delta before "
+        f"the last)")
+    return rec
+
+
+def drive_surfaces(eng, agent, tr, svc_idx, dev):
+    """Phase 19 (d): the agent's API server over (a)'s engine, tapped by a
+    TraceflowController: /metrics, /commitplane, /audit, /agentinfo, the
+    probe traceflow of TRACE_LANES headline 5-tuples (each held to the
+    engine's trace() and to the scalar Oracle), the same 5-tuples as live
+    traceflows completed by a step of the tapped engine, antctl get and
+    traceflow --server, antctl check --device cuda, and a support bundle
+    -> record.  svc_idx: phase 13's Service column of the headline batch
+    (the traced flows reach no Service, so the Oracle classifies the
+    packet as sent)."""
+    import contextlib
+    import io
+    import tarfile
+    import tempfile
+    from urllib.request import urlopen
+
+    import numpy as np
+
+    from antrea_tpu_torch import antctl
+    from antrea_tpu_torch.agent.apiserver import AgentApiServer
+    from antrea_tpu_torch.controller.traceflow import (TraceflowController,
+                                                       TraceflowSpec)
+    from antrea_tpu_torch.observability.supportbundle import collect_bundle
+    from antrea_tpu_torch.oracle import Oracle
+    from antrea_tpu_torch.packet import Packet, PacketBatch
+    from antrea_tpu_torch.utils import ip as iputil
+
+    rec = {}
+    tfc = TraceflowController()
+    tapped = tfc.tap(AGENT_NODE, eng)
+    srv = AgentApiServer(tapped, node=AGENT_NODE, agent=agent,
+                         tf_controller=tfc).start()
+    url = srv.address
+
+    def get(path):
+        with urlopen(url + path, timeout=120) as r:
+            return r.read().decode()
+
+    def cli(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = antctl.main(argv)
+        return rc, out.getvalue()
+
+    try:
+        t0 = time.perf_counter()
+        metrics = get("/metrics")
+        for fam in ("antrea_tpu_flow_cache_entries",
+                    "antrea_tpu_default_verdict_packets_total"):
+            if fam not in metrics:
+                raise SystemExit(f"phase 19 (d): /metrics lacks {fam}")
+        commit = json.loads(get("/commitplane"))
+        if commit.get("degraded") or commit.get("generation") != (
+                eng.generation):
+            raise SystemExit(f"phase 19 (d): /commitplane {commit}")
+        audit = json.loads(get("/audit"))
+        info = json.loads(get("/agentinfo?now=1"))
+        if info["networkPolicies"] != len(agent.policy_set.policies):
+            raise SystemExit(f"phase 19 (d): /agentinfo {info}")
+        rec["routes_s"] = time.perf_counter() - t0
+        # TRACE_LANES headline TCP flows that reach no Service, at fresh
+        # source ports.
+        pick = np.nonzero((np.asarray(svc_idx) < 0)
+                          & (np.asarray(tr.proto) == 6))[0][:TRACE_LANES]
+        rows = [(iputil.u32_to_ip(int(tr.src_ip[i])),
+                 iputil.u32_to_ip(int(tr.dst_ip[i])), int(tr.proto[i]),
+                 50000 + k, int(tr.dst_port[i])) for k, i in enumerate(pick)]
+        oracle = Oracle(agent.policy_set)
+        batch = PacketBatch(
+            src_ip=np.array([iputil.ip_to_u32(r[0]) for r in rows],
+                            np.uint32),
+            dst_ip=np.array([iputil.ip_to_u32(r[1]) for r in rows],
+                            np.uint32),
+            proto=np.array([r[2] for r in rows], np.int32),
+            src_port=np.array([r[3] for r in rows], np.int32),
+            dst_port=np.array([r[4] for r in rows], np.int32))
+        now = NOWS[-1] + 10
+        trace = eng.trace(batch, now=now)
+        t0 = time.perf_counter()
+        for k, (src, dst, proto, sport, dport) in enumerate(rows):
+            obs = json.loads(get(f"/traceflow?src={src}&dst={dst}"
+                                 f"&proto={proto}&sport={sport}"
+                                 f"&dport={dport}&now={now}"))
+            want = int(oracle.classify(Packet(
+                src_ip=iputil.ip_to_u32(src), dst_ip=iputil.ip_to_u32(dst),
+                proto=proto, src_port=sport, dst_port=dport)).code)
+            if obs["code"] != trace[k]["code"] or obs["code"] != want:
+                raise SystemExit(f"phase 19 (d): traceflow {rows[k]}: "
+                                 f"{obs['code']}, trace() "
+                                 f"{trace[k]['code']}, Oracle {want}")
+        rec["traceflow_ms"] = (time.perf_counter() - t0) * 1e3 / len(rows)
+        # The same 5-tuples as live traceflows, completed by one step of
+        # the tapped engine.
+        for k, (src, dst, proto, sport, dport) in enumerate(rows):
+            tfc.start_live(TraceflowSpec(
+                name=f"live-{k}", src_ip=src, dst_ip=dst, proto=proto,
+                src_port=sport, dst_port=dport, live_traffic=True),
+                AGENT_NODE)
+        r = tapped.step(batch, now)
+        for k in range(len(rows)):
+            st = tfc.results[f"live-{k}"]
+            verdict = {0: "Allow", 1: "Drop", 2: "Reject"}[int(r.code[k])]
+            if st.phase != "Succeeded" or st.verdict != verdict or int(
+                    r.code[k]) != trace[k]["code"]:
+                raise SystemExit(f"phase 19 (d): live traceflow {rows[k]}: "
+                                 f"{st.phase} {st.verdict}, step {verdict}")
+        rec["traceflows"] = len(rows)
+        rec["verdicts"] = [int(x) for x in r.code]
+        for argv in (["get", "agentinfo"], ["get", "cache"],
+                     ["traceflow", "--src", rows[0][0], "--dst", rows[0][1],
+                      "--dport", str(rows[0][4])]):
+            rc, out = cli(argv + ["--server", url])
+            if rc != 0 or not out.strip():
+                raise SystemExit(f"phase 19 (d): antctl {argv}: rc {rc}")
+        t0 = time.perf_counter()
+        rc, out = cli(["check", "--device", dev.type])
+        rec["check_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit(f"phase 19 (d): antctl check:\n{out}")
+        rec["check"] = out.split()
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            path = f"{d}/bundle.tar.gz"
+            members = collect_bundle(eng, path, node=AGENT_NODE, now=now)
+            rec["bundle_s"] = time.perf_counter() - t0
+            with tarfile.open(path) as tar:
+                names = tar.getnames()
+        need = {"meta.json", "stats.json", "cache_stats.json", "flows.json",
+                "maintenance.json", "flightrecorder.json",
+                "realization.json", "metrics.prom"}
+        if not need <= set(members) or names != members:
+            raise SystemExit(f"phase 19 (d): bundle members {members}")
+        rec.update(bundle_members=members, audit_keys=sorted(audit))
+    finally:
+        srv.close()
+    log(f"phase 19 (d): /metrics, /commitplane, /audit, /agentinfo in "
+        f"{rec['routes_s']:.2f} s; {rec['traceflows']} traceflows "
+        f"({rec['traceflow_ms']:.1f} ms each) equal to trace() and the "
+        f"scalar Oracle, live traceflows completed by the step; antctl get "
+        f"/ traceflow --server; antctl check --device {dev.type} in "
+        f"{rec['check_s']:.1f} s ({' '.join(rec['check'])}); bundle of "
+        f"{len(members)} members in {rec['bundle_s']:.1f} s")
+    return rec
+
+
+def drive_agent(ps, services, pod_ips, tr, dev, kept13):
+    """Phase 19: (a) the world's controlplane objects, through the wire
+    format, into a RamStore that an AgentPolicyController watches, driving
+    an engine on the card with phase 13's one-pass knobs: the sync, phase
+    13's headline steps, its 4 churned groups as UPDATED events (each must
+    reach apply_group_delta) and its delta step, every step bitwise equal
+    to phase 13's engine; then the agent disconnects, the policy phase
+    13's last step attributed most lanes to is deleted from the store, and
+    the re-list's window retracts it; (b) the mTLS wire (drive_wire) on the
+    same store builds a fresh engine on the smaller set, which the
+    retraction's fresh lanes are held to; (d) the surfaces
+    (drive_surfaces); (c) the pipe transport (drive_pipe).  The kernels each part launched (counts read,
+    never written) and the calls recorded in (a) and (b), each held to its
+    plain version -> (record, {part: launches}, {name: kernel record})."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.agent import AgentPolicyController
+    from antrea_tpu_torch.controller.networkpolicy import WatchEvent
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.dissemination import RamStore, serde
+
+    t19 = time.perf_counter()
+    rec, parts = {}, {}
+    kw = dict(flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK,
+              canary_probes=ENGINE_PROBES, topology=node0_spec(pod_ips),
+              fused=True, prune_budget=PRUNE_K)
+    events, nbytes, wire_s = world_events(ps, AGENT_NODE)
+    store = RamStore()
+    eng = TpuflowDatapath(None, services, device=dev, **kw)
+    calls = EngineCalls(eng)
+    # The agent's watch, as its constructor takes it given the store (its
+    # handle lets the agent disconnect below).
+    agent = AgentPolicyController(AGENT_NODE, eng)
+    watch = store.watch(AGENT_NODE, agent.handle_event)
+    hb = engine_batch(tr.src_ip, tr.dst_ip, tr.proto, tr.src_port,
+                      tr.dst_port, pod_ips)
+    before = counts5()
+    with KernelInputs() as ki:
+        t0 = time.perf_counter()
+        for ev in events:
+            store.apply(ev)
+        publish_s = time.perf_counter() - t0
+        sync_s = timed_sync(agent, "(a) install", 1)
+        if calls.n != {"install_bundle": 1, "apply_group_delta": 0}:
+            raise SystemExit(f"phase 19 (a): engine calls {calls.n}")
+        times = []
+        for i, now in enumerate(NOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = eng.step(hb, now)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            same_result(r, kept13["results"][i],
+                        f"phase 19 (a) vs phase 13, step {i}")
+        if eng.dump_flows(NOWS[-1]) != kept13["dump"]:
+            raise SystemExit("phase 19 (a): dump_flows() differs from phase "
+                             "13's")
+        if eng.cache_stats() != kept13["cache"]:
+            raise SystemExit("phase 19 (a): cache_stats() differs from "
+                             "phase 13's")
+        steps = step_stats(times)
+        # Phase 13's pod churn as watch events: each a membership delta.
+        plan = kept13["plan"]
+        inc0 = eng._drs.ingress.at.inc
+        hist = agent.dissemination_hist
+        c0, s0 = hist.count, hist.sum
+        t0 = time.perf_counter()
+        for ev in delta_events(ps, plan, AGENT_NODE):
+            store.apply(ev)
+        if len(agent._deltas) != len(plan) or agent._rules_dirty:
+            raise SystemExit(f"phase 19 (a): the churn queued "
+                             f"{len(agent._deltas)} deltas, dirty "
+                             f"{agent._rules_dirty}")
+        agent.sync()
+        delta_sync_s = time.perf_counter() - t0
+        clean_sync(agent, "(a) deltas", 1 + len(plan))
+        if (calls.n != {"install_bundle": 1, "apply_group_delta": len(plan)}
+                or eng._drs.ingress.at.inc is not inc0
+                or eng._n_deltas != kept13["n_deltas"]):
+            raise SystemExit(f"phase 19 (a): the deltas took {calls.n}, "
+                             f"{eng._n_deltas} slots (phase 13: "
+                             f"{kept13['n_deltas']})")
+        realized_ms = (hist.sum - s0) / (hist.count - c0) * 1e3
+        cols = delta_batch(plan, pod_ips, B + CROSS_LANES, 31)
+        main = engine_batch(*(c[:B] for c in cols), pod_ips)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = eng.step(main, NOWS[-1] + 1)
+        torch.cuda.synchronize()
+        delta_step_ms = (time.perf_counter() - t0) * 1e3
+        same_result(r, kept13["delta"], "phase 19 (a) vs phase 13, the "
+                    "delta step")
+    parts["a"] = launched(before)
+    if dev.type == "cuda" and not all(parts["a"][:3]):
+        raise SystemExit(f"phase 19 (a): (B1, B2, B3, B3h, S1) launches "
+                         f"{parts['a']}: a kernel of the path never ran")
+    rec["a"] = dict(events=len(events), event_bytes=nbytes,
+                    wire_s=wire_s, publish_s=publish_s, sync_s=sync_s,
+                    **steps, phase13_steady_ms=kept13["rec"]["steady_ms"],
+                    deltas=len(plan), delta_sync_s=delta_sync_s,
+                    delta_realized_ms=realized_ms,
+                    delta_step_ms=delta_step_ms,
+                    sync_hist_count=agent.sync_hist.count,
+                    launches=parts["a"])
+    log(f"phase 19 (a): {len(events)} events ({nbytes / 1e6:.1f} MB on the "
+        f"wire, encoded and decoded in {wire_s:.1f} s) published to the "
+        f"agent in {publish_s:.1f} s; sync {sync_s:.1f} s; headline steps "
+        f"cold {steps['cold_ms']:.1f} ms, warm {steps['warm_ms']:.2f} ms, "
+        f"steady {steps['steady_ms']:.3f} ms (phase 13's engine "
+        f"{kept13['rec']['steady_ms']:.3f} ms), bitwise equal to phase 13 "
+        f"with dump_flows() and cache_stats(); {len(plan)} UPDATED events "
+        f"to {eng._n_deltas} delta slots (no bundle) in "
+        f"{delta_sync_s * 1e3:.1f} ms, realized {realized_ms:.1f} ms after "
+        f"their stamps (dissemination_hist); delta step "
+        f"{delta_step_ms:.1f} ms bitwise equal to phase 13's; (B1, B2, B3, "
+        f"B3h, S1) launches {parts['a']}")
+    checks = check_phase19(ki.seen, "(a) the agent's engine",
+                           ("B1", "B2", "B3"))
+    checks = {f"(a) {k}": v for k, v in checks.items()}
+    del ki, main, r
+
+    # The agent disconnects; the policy phase 13's last step attributed
+    # most lanes to is deleted meanwhile; the re-list's window (the
+    # store's snapshot, without it) retracts it at its end.
+    hits = {}
+    for rid in (*kept13["results"][-1].ingress_rule,
+                *kept13["results"][-1].egress_rule):
+        if rid is not None:
+            uid = rid.split("/", 1)[0]
+            hits[uid] = hits.get(uid, 0) + 1
+    drop = max(sorted(hits), key=hits.get)
+    watch.stop()
+    store.apply(serde.event_from_wire(serde.event_to_wire(WatchEvent(
+        kind="DELETED", obj_type="NetworkPolicy", name=drop))))
+    relist = store.watch_queue(AGENT_NODE, replay=False)
+    snap = store.resync(relist).take()
+    before = counts5()
+    t0 = time.perf_counter()
+    agent.begin_resync()
+    for ev in snap:
+        agent.handle_event(ev)
+    agent.end_resync()
+    relist_s = time.perf_counter() - t0
+    gen = eng.generation
+    resync_sync_s = timed_sync(agent, "(a) re-list", gen + 1)
+    if drop in {p.uid for p in agent.policy_set.policies}:
+        raise SystemExit(f"phase 19: the re-list kept {drop}")
+    fresh = engine_batch(tr.src_ip, tr.dst_ip, tr.proto,
+                         (1 + np.arange(B) % 1023).astype(np.int32),
+                         tr.dst_port, pod_ips)
+    now = NOWS[-1] + 5
+    got = eng.step(fresh, now)
+    parts["relist"] = launched(before)
+    moved = sum(1 for a, b in zip(got.ingress_rule + got.egress_rule,
+                                  kept13["results"][-1].ingress_rule
+                                  + kept13["results"][-1].egress_rule)
+                if b is not None and b.startswith(drop + "/") and a != b)
+    if moved == 0:
+        raise SystemExit(f"phase 19: dropping {drop} moved no lane's rule")
+    rec["relist"] = dict(dropped=drop, events=len(snap), relist_s=relist_s,
+                         sync_s=resync_sync_s, lanes_moved=moved,
+                         launches=parts["relist"])
+    log(f"phase 19: {drop} deleted while the agent was away; the re-list "
+        f"of {len(snap)} events handled in {relist_s:.1f} s, the "
+        f"retraction's sync {resync_sync_s:.1f} s; {moved} lanes no longer "
+        f"attributed to it")
+
+    # (b) The mTLS wire over the same store (the world after the deltas
+    # and the deletion): a fresh engine built on the smaller set, which the
+    # retraction is held to.  The agent's engine keeps its affinity table
+    # across the bundle, so a client's earlier flows pin its endpoint where
+    # the fresh engine picks anew: on such a lane both are held to the
+    # scalar Oracle at their endpoints (StickyWitness, a sample of them),
+    # on every other lane to each other.
+    rec["b"], parts["b"], kb, rb = drive_wire(store, services, kw, fresh,
+                                              now, dev)
+    checks.update({f"(b) {k}": v for k, v in kb.items()})
+    if rb is not None:
+        witness = SampledWitness(agent.policy_set, services,
+                                 STICKY_SAMPLE)
+        sticky = same_verdicts(got, rb, "phase 19: the retraction vs the "
+                               "wire's engine, built on the smaller set",
+                               fresh, witness,
+                               eng._dsvc.aff_timeout.cpu().numpy())
+        rec["relist"].update(sticky_lanes=sticky, sticky_checked=min(
+            sticky, STICKY_SAMPLE))
+        log(f"phase 19: the retraction's {B} fresh lanes bitwise equal to "
+            f"the wire's engine ({sticky} lanes of affinity services at "
+            f"other sticky endpoints, {min(sticky, STICKY_SAMPLE)} of them "
+            f"held to the scalar Oracle)")
+    relist.stop()
+    del rb, got, fresh
+
+    # (d) The surfaces on (a)'s engine.
+    before = counts5()
+    rec["d"] = drive_surfaces(eng, agent, tr, kept13["results"][-1].svc_idx,
+                              dev)
+    parts["d"] = launched(before)
+    del eng, agent, store, events, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) The pipe transport on its own world.
+    before = counts5()
+    rec["c"] = drive_pipe(dev)
+    parts["c"] = launched(before)
+    rec["seconds"] = time.perf_counter() - t19
+    log(f"phase 19 took {rec['seconds']:.1f} s; launches by part "
+        f"(B1, B2, B3, B3h, S1) {parts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return rec, parts, checks
+
+
 def main() -> int:
     import torch
 
@@ -4396,12 +5181,16 @@ def main() -> int:
 
     # 17. The mesh engine at (1, 1), (1, 2) and (2, 1).
     mesh17, k17 = drive_mesh_engine(ps, services, pod_ips, tr, dev, kept13)
-    del kept13
     l17 = {k: v["launches"] for k, v in mesh17.items()}
 
     # 18. Live resize and replica-loss failover on the mesh engine.
     resize18, k18, l18 = drive_resize(ps, services, pod_ips, tr, pool_tr,
                                       dev)
+
+    # 19. The agent on the card: the watch store, the mTLS wire, a re-list,
+    # the surfaces, the pipe transport.
+    agent19, l19, k19 = drive_agent(ps, services, pod_ips, tr, dev, kept13)
+    del kept13
 
     def p17(tag, k=k17):
         return {f"{shape} {name}": at(r) for shape, recs in k.items()
@@ -4410,7 +5199,14 @@ def main() -> int:
     def l18_of(i):
         return dict(launches_phase18=sum(v[i] for v in l18.values()),
                     launches_phase18_by_part={k: v[i]
-                                              for k, v in l18.items()})
+                                              for k, v in l18.items()},
+                    launches_phase19=sum(v[i] for v in l19.values()),
+                    launches_phase19_by_part={k: v[i]
+                                              for k, v in l19.items()})
+
+    def p19(tag):
+        return {name: at(r) for name, r in k19.items()
+                if name.split()[1] == tag}
 
     def rec(name, src, replaces, launches, r, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -4454,7 +5250,8 @@ def main() -> int:
             tenant_rows_miss_chunk=at(k16["b1_chunk"]),
             launches_phase17=sum(v[0] for v in l17.values()),
             launches_phase17_by_shape={k: v[0] for k, v in l17.items()},
-            phase17=p17("B1"), **l18_of(0), phase18=p17("B1", k18)),
+            phase17=p17("B1"), **l18_of(0), phase18=p17("B1", k18),
+            phase19=p19("B1")),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
@@ -4464,7 +5261,7 @@ def main() -> int:
             launches_phase17=sum(v[1] for v in l17.values()),
             launches_phase17_canary=mesh17["1x2"]["canary_launches"][1],
             phase17=p17("B2"), **l18_of(1), phase18=p17("B2", k18),
-            tenant_rows=at(k16["b2"])),
+            phase19=p19("B2"), tenant_rows=at(k16["b2"])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, **{k: v for k, v in at(b3["cold"]).items()
@@ -4482,7 +5279,8 @@ def main() -> int:
             launches_in_tenant_worlds=tenants["cd"][
                 "launches_in_tenant_worlds"][2],
             tenant_rows=at(k16["b3"]),
-            launches_phase17=sum(v[2] for v in l17.values()), **l18_of(2)),
+            launches_phase17=sum(v[2] for v in l17.values()), **l18_of(2),
+            phase19=p19("B3")),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -4525,7 +5323,8 @@ def main() -> int:
                     "flood": flood, "churn": churn, "knobs": knobs14,
                     "profile": profiles, "knob_step_ms": knob_ms,
                     "dual_stack": dual, "tenants": tenants,
-                    "mesh_engine": mesh17, "resize": resize18}))
+                    "mesh_engine": mesh17, "resize": resize18,
+                    "agent": agent19}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ from antrea_tpu_torch.dissemination.faults import FaultPlan as TFaultPlan
 from antrea_tpu_torch.models.pipeline import PH_ALL
 
 from test_torch_engine import _FIELDS, port_ps, port_svcs, same_state, tb
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 CLIENT, CLIENT2, SRV = "10.0.1.1", "10.0.1.2", "10.0.0.10"
 BLOCKED = "10.0.9.9"

@@ -1317,3 +1317,124 @@ def test_mesh_engine_failover_on_the_card_equals_cpu(cuda):
             st["readmissions_total"], eg._n_data) == (1, 1, 1, 2)
     rg, rc = eg.step(b, t), ec.step(b, t)
     _same_engines(eg, ec, rg, rc, t, "after the readmission")
+
+
+def _agent_world(ctl):
+    """Six pods on three nodes, a K8s ingress policy and an ACNP drop, all
+    spanning node n0 (whose agent is under test)."""
+    from antrea_tpu_torch.apis import controlplane as cp
+    from antrea_tpu_torch.apis import crd
+
+    sel = crd.LabelSelector.make
+    ctl.upsert_namespace(crd.Namespace("default", {}))
+    for i, (app, node) in enumerate((("web", "n0"), ("web", "n1"),
+                                     ("cli", "n1"), ("cli", "n2"),
+                                     ("db", "n2"), ("db", "n0"))):
+        ctl.upsert_pod(crd.Pod(namespace="default", name=f"p{i}",
+                               ip=f"10.0.{i}.{10 + i}", node=node,
+                               labels={"app": app}))
+    ctl.upsert_k8s_policy(crd.K8sNetworkPolicy(
+        uid="np-web", name="np-web", namespace="default",
+        pod_selector=sel({"app": "web"}),
+        ingress=[crd.K8sNPRule(
+            peers=[crd.K8sPeer(pod_selector=sel({"app": "cli"}))],
+            ports=[crd.PortSpec(protocol=6, port=80)])]))
+    ctl.upsert_antrea_policy(crd.AntreaNetworkPolicy(
+        uid="acnp-db", name="acnp-db", tier_priority=250, priority=1.0,
+        applied_to=[crd.AntreaAppliedTo(pod_selector=sel({"app": "db"}))],
+        rules=[crd.AntreaNPRule(
+            direction=cp.Direction.IN, action=cp.RuleAction.DROP,
+            peers=[crd.AntreaPeer(pod_selector=sel({"app": "web"}))])]))
+
+
+def _agent_batch(sport):
+    from antrea_tpu_torch.packet import PacketBatch
+    from antrea_tpu_torch.utils import ip as iputil
+
+    ips = [f"10.0.{i}.{10 + i}" for i in range(6)] + ["10.0.9.99"]
+    rows = [(s, d, p) for s in ips for d in ips if s != d for p in (80, 443)]
+    return PacketBatch(
+        src_ip=np.array([iputil.ip_to_u32(s) for s, _, _ in rows], np.uint32),
+        dst_ip=np.array([iputil.ip_to_u32(d) for _, d, _ in rows], np.uint32),
+        proto=np.full(len(rows), 6, np.int32),
+        src_port=np.arange(sport, sport + len(rows), dtype=np.int32),
+        dst_port=np.array([p for _, _, p in rows], np.int32))
+
+
+@pytest.mark.parametrize("knobs", [dict(fused=True),
+                                   dict(fused=True, prune_budget=2)],
+                         ids=["staged", "onepass"])
+def test_agent_on_the_card_equals_cpu(cuda, knobs):
+    """Two agents watching one store, one driving the port's engine on the
+    card and one the same engine on the CPU: install, a membership delta
+    (through apply_group_delta) and a policy deletion, each sync clean and
+    each step's every field, dump_flows() included, equal."""
+    from antrea_tpu_torch.agent import AgentPolicyController
+    from antrea_tpu_torch.apis import crd
+    from antrea_tpu_torch.controller import NetworkPolicyController
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.dissemination import RamStore
+
+    ctl = NetworkPolicyController()
+    store = RamStore()
+    ctl.subscribe(store.apply)
+    kw = dict(flow_slots=1 << 10, aff_slots=1 << 8, miss_chunk=32,
+              canary_probes=4, **knobs)
+    agents = [AgentPolicyController("n0", TpuflowDatapath(device=d, **kw),
+                                    store) for d in (cuda, "cpu")]
+    _agent_world(ctl)
+    steps = [("install", None),
+             ("delta", lambda: ctl.upsert_pod(crd.Pod(
+                 namespace="default", name="p9", ip="10.0.9.99", node="n2",
+                 labels={"app": "cli"}))),
+             ("delete", lambda: ctl.delete_policy("acnp-db"))]
+    for k, (what, change) in enumerate(steps):
+        if change is not None:
+            change()
+        if what == "delta":
+            assert agents[0]._deltas and agents[1]._deltas
+        for a in agents:
+            a.sync()
+            assert a.sync_failures_total == 0, a.last_sync_error
+            assert a.permanent_failure == "" and a.last_sync_error == ""
+        eg, ec = (a.datapath for a in agents)
+        assert eg.generation == ec.generation == k + 1
+        if what == "delta":
+            assert eg._n_deltas == ec._n_deltas > 0
+        b = _agent_batch(20000 + 1000 * k)
+        rg, rc = eg.step(b, 10 * (k + 1)), ec.step(b, 10 * (k + 1))
+        _same_results(rg, rc, what)
+        assert eg.dump_flows(10 * (k + 1)) == ec.dump_flows(10 * (k + 1))
+
+
+def test_subprocess_agent_on_the_card_by_default(cuda):
+    """SubprocessAgent(datapath_type="tpuflow") with no device: the child
+    agent_proc builds its engine on the card, and its replies equal an
+    in-process agent driving the same engine on the CPU."""
+    from antrea_tpu_torch.agent import AgentPolicyController
+    from antrea_tpu_torch.controller import NetworkPolicyController
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.dissemination import RamStore
+    from antrea_tpu_torch.dissemination.transport import SubprocessAgent
+
+    ctl = NetworkPolicyController()
+    store = RamStore()
+    ctl.subscribe(store.apply)
+    dp = TpuflowDatapath(device="cpu", miss_chunk=32, flow_slots=1 << 10,
+                         aff_slots=1 << 8)
+    local = AgentPolicyController("n0", dp, store)
+    with SubprocessAgent("n0", store, datapath_type="tpuflow",
+                         flow_slots=1 << 10, aff_slots=1 << 8) as sub:
+        argv = sub._proc.args
+        assert argv[argv.index("--device") + 1] == "cuda"
+        _agent_world(ctl)
+        sub.pump()
+        assert sub.sync()["generation"] == 1
+        local.sync()
+        b = _agent_batch(30000)
+        got, want = sub.step(b, 10), dp.step(b, 10)
+        for f in ("code", "est", "svc_idx", "dnat_ip", "dnat_port"):
+            assert got[f] == [int(x) for x in getattr(want, f)], f
+        assert got["ingress_rule"] == want.ingress_rule
+        assert got["egress_rule"] == want.egress_rule
+        assert sub._stderr_tail() == ""

@@ -21,6 +21,7 @@ from antrea_tpu_torch.ops import consumer as tc
 from antrea_tpu_torch.ops import match as tm
 
 from test_torch_engine import engine_scenario, engine_world
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 _KEYS = ("code", "egress_code", "egress_rule", "ingress_code",
          "ingress_rule")

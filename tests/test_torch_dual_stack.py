@@ -40,6 +40,7 @@ from antrea_tpu_torch.dissemination import serde as tserde
 from antrea_tpu_torch.models import pipeline as tpl
 from antrea_tpu_torch.ops import hashing as thash
 from antrea_tpu_torch.ops import match as tm
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 _KEYS = ("code", "egress_code", "egress_rule", "ingress_code", "ingress_rule")
 

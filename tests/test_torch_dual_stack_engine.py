@@ -44,6 +44,7 @@ from antrea_tpu_torch.compiler import topology as ttopo
 from antrea_tpu_torch.config import ConfigError as TConfigError
 from antrea_tpu_torch.dissemination import serde as tserde
 from antrea_tpu_torch.ops import match as tm
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 GW4, GW6 = "10.10.0.1", "fd00:10::1"
 POD_A4, POD_A6 = "10.10.0.5", "fd00:10::5"  # a local dual-stack pod, port 3

@@ -43,6 +43,7 @@ from antrea_tpu_torch.dissemination.faults import FaultPlan as TFaultPlan
 from antrea_tpu_torch.models import pipeline as tpl
 from antrea_tpu_torch.ops import consumer as tc
 from antrea_tpu_torch.ops import onepass as top
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 KW = dict(flow_slots=1 << 12, aff_slots=1 << 10, miss_chunk=64,
           delta_slots=6, canary_probes=0)

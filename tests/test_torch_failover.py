@@ -39,6 +39,7 @@ from test_torch_reshard import (KW, Recorder, copies_equal, jax_engine,
                                 jax_trace_bucketed, port_engine, port_twin,
                                 same_records, stats_rec, step_rec,
                                 verdict_parity)
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 ASYNC = dict(async_slowpath=True, miss_queue_slots=1 << 10, drain_batch=64)
 # Quarantine on 2 failed probes, readmit after 2 quiet rounds, retry a

@@ -33,6 +33,7 @@ from antrea_tpu_torch.models import forwarding as tfw
 from antrea_tpu_torch.models import pipeline as tpl
 from antrea_tpu_torch.simulator import gen_cluster as t_gen_cluster
 from antrea_tpu_torch.simulator import gen_services as t_gen_services
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 B = 128
 KW = dict(flow_slots=1 << 10, aff_slots=1 << 6, miss_chunk=32)

@@ -38,6 +38,7 @@ from antrea_tpu_torch.ops import onepass as top
 
 from test_torch_engine import port_ps, port_svcs, same_state, step_both, tb
 from test_torch_pipeline import _compare, _lanes, _t, world  # noqa: F401
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 MODES = {"staged": {"fused": True},
          "onepass": {"fused": True, "prune_budget": 2}}

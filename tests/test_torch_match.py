@@ -22,6 +22,7 @@ from antrea_tpu_torch.ops import consumer as tc
 from antrea_tpu_torch.ops import hashing as thash
 from antrea_tpu_torch.ops import match as tm
 from antrea_tpu_torch.simulator import gen_cluster as t_gen_cluster
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 _KEYS = ("code", "egress_code", "egress_rule", "ingress_code", "ingress_rule")
 

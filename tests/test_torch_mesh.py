@@ -52,6 +52,7 @@ from antrea_tpu_torch.simulator import gen_services as t_gen_services
 import torch_mesh_ranks
 from test_torch_forwarding import _node0, _topology, walk_lanes
 from test_torch_onepass import _np_probes
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 B = 128
 K = 1

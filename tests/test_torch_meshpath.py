@@ -40,6 +40,7 @@ from antrea_tpu_torch.parallel import MeshDatapath as TMesh
 from antrea_tpu_torch.parallel import mesh as tpm
 
 from test_torch_engine import port_ps, port_svcs, tb
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 KW = dict(flow_slots=1 << 10, aff_slots=1 << 8, canary_probes=16)
 MODES = {"staged": {}, "fused": {"fused": True},

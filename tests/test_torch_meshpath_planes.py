@@ -27,6 +27,7 @@ from test_torch_engine import port_ps, port_svcs, tb
 from test_torch_meshpath import (KW, batch, engines, meshes,  # noqa: F401
                                  same_result, same_slowpath_stats,
                                  same_state, same_surfaces, world)
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 ASYNC = dict(async_slowpath=True, miss_queue_slots=1 << 12, drain_batch=256)
 

@@ -35,6 +35,7 @@ from antrea_tpu_torch.ops import onepass as top
 from antrea_tpu_torch.ops import pruned_consumer as tpc
 from antrea_tpu_torch.simulator import gen_cluster as t_gen_cluster
 from antrea_tpu_torch.simulator import gen_services as t_gen_services
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 B = 120
 K = 1

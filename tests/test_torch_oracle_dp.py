@@ -39,6 +39,7 @@ from antrea_tpu_torch.oracle import pipeline as top
 
 from test_torch_engine import node0, port_ps, port_svcs, tb
 from test_torch_tenancy import same_result
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 KW = dict(flow_slots=1 << 12, aff_slots=1 << 10, canary_probes=8)
 MODES = {"staged": {}, "fused": {"fused": True},

@@ -38,6 +38,7 @@ from antrea_tpu_torch.native import store as tstore
 
 from test_torch_engine import node0, port_ps, port_svcs, tb
 from test_torch_tenancy import same_result
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 BACKENDS = ["python", "native"]
 KW = dict(flow_slots=1 << 12, aff_slots=1 << 8, canary_probes=8)

@@ -32,6 +32,7 @@ from antrea_tpu_torch.models import pipeline as tpl
 from antrea_tpu_torch.ops import match as tm
 from antrea_tpu_torch.simulator import gen_cluster as t_gen_cluster
 from antrea_tpu_torch.simulator import gen_services as t_gen_services
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 B = 120
 K = 2

@@ -4,6 +4,7 @@ ported refuses instead of taking another path."""
 
 import ast
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +24,7 @@ from antrea_tpu_torch.models import forwarding as tfw
 from antrea_tpu_torch.models import pipeline as tpl
 from antrea_tpu_torch.ops import match as tm
 from antrea_tpu_torch.simulator import gen_cluster, gen_services
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -54,7 +56,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert "antrea_tpu_torch.models.profile" in res["modules"]
     for mod in ("consumer", "pruned_consumer", "onepass", "consumer2"):
         assert f"antrea_tpu_torch.ops.{mod}" in res["modules"]
-    for mod in _SLICE_MODULES + _ENGINE_MODULES + _SERVING_MODULES:
+    for mod in (_SLICE_MODULES + _ENGINE_MODULES + _SERVING_MODULES
+                + _AGENT_MODULES):
         assert mod in res["modules"]
     assert res["bad"] == []
 
@@ -90,6 +93,15 @@ _ENGINE_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
     "controller.grouping", "dissemination", "dissemination.serde",
     "apis.crd", "config", "features"))
 
+# The agent slice's modules: the agent, the dissemination wire and the
+# live surfaces, each a copy of the JAX package's module of the same path.
+_AGENT_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
+    "dissemination.store", "dissemination.netwire", "dissemination.transport",
+    "dissemination.agent_proc", "agent", "agent.controller",
+    "agent.noderoute", "agent.fqdn", "agent.packetcapture",
+    "agent.apiserver", "controller.traceflow", "controller.endpoint_querier",
+    "observability.agentinfo", "observability.supportbundle", "antctl"))
+
 _IMPORT_ONE = """
 import importlib, json, sys
 importlib.import_module(sys.argv[1])
@@ -99,7 +111,11 @@ print(json.dumps(sorted(n for n in sys.modules
 """
 
 
-@pytest.mark.parametrize("module", _SLICE_MODULES + _SERVING_MODULES)
+@pytest.mark.parametrize("module", _SLICE_MODULES + _SERVING_MODULES + (
+    # The agent slice's entry points: the CLI, the child agent process and
+    # the package that holds the agent.
+    "antrea_tpu_torch.antctl", "antrea_tpu_torch.dissemination.agent_proc",
+    "antrea_tpu_torch.agent"))
 def test_module_alone_loads_neither_jax_nor_the_jax_package(module):
     r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -119,7 +135,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     for sub in ("datapath", "observability", "oracle", "controller",
                 "dissemination", "serving", "native"):
         assert any(r.startswith(f"antrea_tpu_torch/{sub}/") for r in rel), sub
-    for mod in _SERVING_MODULES:
+    for mod in _SERVING_MODULES + _AGENT_MODULES:
         path = mod.replace(".", "/")
         assert f"{path}.py" in rel or f"{path}/__init__.py" in rel, mod
     seen = []
@@ -486,3 +502,126 @@ def test_chip_scripts_unpack_the_smoke_world(monkeypatch):
             assert len(node.targets[0].elts) == k <= n_fields, script
             sites += 1
     assert sites == 2
+
+
+def test_no_source_names_a_module_of_the_jax_package():
+    """A string naming a module of the JAX package (a `-m` target, an
+    import by name) would start that package in a process of the port: no
+    literal in the port's sources does.  The pipe transport spawns the
+    port's own agent process."""
+    pat = re.compile(r"^antrea_tpu(\.|$)")
+    seen = []
+    for f in sorted((ROOT / "antrea_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and pat.match(node.value)):
+                seen.append((f.name, node.value))
+    assert seen == []
+    tree = ast.parse((ROOT / "antrea_tpu_torch" / "dissemination"
+                      / "transport.py").read_text())
+    lits = {n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)}
+    assert "antrea_tpu_torch.dissemination.agent_proc" in lits
+
+
+def test_agent_entry_points_default_to_the_card(monkeypatch):
+    """agent_proc's tpuflow engine, SubprocessAgent(datapath_type="tpuflow")
+    and antctl check resolve the card unless asked for the CPU: without
+    CUDA each raises (the transport before it spawns a child)."""
+    from antrea_tpu_torch import antctl
+    from antrea_tpu_torch.dissemination import agent_proc, transport
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spawned = []
+    monkeypatch.setattr(transport.subprocess, "Popen",
+                        lambda *a, **k: spawned.append(a))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transport.SubprocessAgent("n0", datapath_type="tpuflow")
+    assert spawned == []
+    # The scalar twin (the default) needs no device and passes none.
+    transport.SubprocessAgent("n0")
+    assert "--device" not in spawned[0][0]
+    transport.SubprocessAgent("n0", datapath_type="tpuflow", device="cpu")
+    argv = spawned[1][0]
+    assert argv[argv.index("--device") + 1] == "cpu"
+    assert argv[1:3] == ["-m", "antrea_tpu_torch.dissemination.agent_proc"]
+    monkeypatch.setattr(sys, "argv", ["agent_proc", "--node", "n0",
+                                      "--datapath", "tpuflow"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        agent_proc.main()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        antctl.main(["check"])
+
+
+# The agent slice's copies and the JAX modules they copy.  A copy differs
+# from its original in its imports and in the reference paths its
+# docstrings cite; where the port changes a copy, only the named
+# definitions (and the module docstring) differ or are added.
+_COPIES = {
+    "dissemination/store.py": (), "dissemination/netwire.py": (),
+    "agent/__init__.py": (),
+    # The policy list kept through a uid index (the same list, order
+    # included; tests/test_torch_agent.py holds it to the JAX agent).
+    "agent/controller.py": ("AgentPolicyController.__init__",
+                            "AgentPolicyController._handle_event",
+                            "AgentPolicyController._policy_index"),
+    "agent/noderoute.py": (), "agent/fqdn.py": (),
+    "agent/packetcapture.py": (), "agent/apiserver.py": (),
+    "controller/traceflow.py": (), "controller/endpoint_querier.py": (),
+    "observability/agentinfo.py": (), "observability/supportbundle.py": (),
+    # The port's child process: its own module, no JAX_PLATFORMS, a device.
+    "dissemination/transport.py": ("__doc__", "SubprocessAgent.__init__"),
+    "dissemination/agent_proc.py": ("main",),
+    # check's engines take --device.
+    "antctl.py": ("__doc__", "_cmd_check", "main"),
+    # It also names the modules the port holds (serde, faults).
+    "dissemination/__init__.py": ("__doc__",),
+}
+
+
+class _NoImports(ast.NodeTransformer):
+    def visit_Import(self, node):
+        return None
+
+    def visit_ImportFrom(self, node):
+        return None
+
+
+def _definitions(path: Path, reference: bool) -> list:
+    """[(name, AST dump)] of a module's top-level statements, imports set
+    aside, a class's methods listed one by one."""
+    src = path.read_text()
+    if reference:
+        # The JAX docstrings cite the reference source under a checkout
+        # prefix that the copies drop.
+        src = re.sub(r"/\w+/reference/", "", src)
+    tree = _NoImports().visit(ast.parse(src))
+    out = []
+    for k, node in enumerate(tree.body):
+        if (k == 0 and isinstance(node, ast.Expr)
+                and isinstance(node.value, ast.Constant)):
+            out.append(("__doc__", ast.dump(node)))
+        elif isinstance(node, ast.ClassDef):
+            body = []
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out.append((f"{node.name}.{sub.name}", ast.dump(sub)))
+                else:
+                    body.append(ast.dump(sub))
+            out.append((node.name, repr(([ast.dump(b) for b in node.bases],
+                                         body))))
+        else:
+            out.append((getattr(node, "name", f"<{k}>"), ast.dump(node)))
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(_COPIES))
+def test_copied_module_equals_its_original(rel):
+    port = _definitions(ROOT / "antrea_tpu_torch" / rel, False)
+    ref = _definitions(ROOT / "antrea_tpu" / rel, True)
+    allowed = set(_COPIES[rel])
+    assert [n for n, _ in port if n not in allowed] == [
+        n for n, _ in ref if n not in allowed]
+    port, ref = dict(port), dict(ref)
+    differ = {n for n in port.keys() | ref.keys()
+              if port.get(n) != ref.get(n)}
+    assert differ == allowed

@@ -28,6 +28,7 @@ from antrea_tpu_torch.simulator import gen_cluster as t_gen_cluster
 from antrea_tpu_torch.simulator import gen_services as t_gen_services
 from antrea_tpu_torch.simulator import gen_traffic as t_gen_traffic
 from antrea_tpu_torch.utils import ip as t_iputil
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 CHAINS = ("PHASE_CHAIN", "ASYNC_PHASE_CHAIN", "OVERLAP_PHASE_CHAIN",
           "MAINT_PHASE_CHAIN", "PRUNE_PHASE_CHAIN", "FUSED_PHASE_CHAIN")

@@ -57,6 +57,7 @@ from antrea_tpu_torch.parallel import reshard as treshard
 
 from test_torch_engine import port_ps, port_svcs, tb
 from test_torch_meshpath import FIELDS, jps
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 KW = dict(flow_slots=1 << 8, aff_slots=1 << 6, canary_probes=8)
 ASYNC = dict(async_slowpath=True, miss_queue_slots=1 << 10, drain_batch=64)

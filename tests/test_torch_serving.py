@@ -38,6 +38,7 @@ from antrea_tpu_torch.serving import ServingBatcher
 
 from test_torch_engine import port_ps, tb
 from test_torch_tenancy import same_result, same_tables
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 QUOTA = 1 << 8
 AFFQ = 1 << 6

@@ -11,6 +11,7 @@ world.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +29,7 @@ from antrea_tpu.simulator.genpolicy import gen_cluster
 from antrea_tpu.simulator.traffic import gen_traffic
 from antrea_tpu.utils import ip as iputil
 from antrea_tpu_torch.ops import consumer2
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -114,10 +116,12 @@ def _jax_rates(drs, meta, src, dst, proto, dport):
 
 def test_study_smoke_rates_equal_reference(tmp_path):
     out = tmp_path / "study.json"
+    # The child takes one torch thread, as this process does (torch_cpu).
     proc = subprocess.Popen(
         [sys.executable, str(ROOT / "bench_cold_study_torch.py"), "--smoke",
          "--device", "cpu", "--cases", "4,5,6", "--json", str(out)],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
     # The JAX side of the same smoke world while the port's run goes.
     B = 1 << 10
     cluster = gen_cluster(3_000, n_nodes=64, pods_per_node=32, seed=1)

@@ -37,6 +37,7 @@ from antrea_tpu_torch.datapath.tpuflow import _RuleIds
 from antrea_tpu_torch.dissemination.faults import FaultPlan as TFaultPlan
 
 from test_torch_engine import port_ps, tb
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 QUOTA = 1 << 8
 AFFQ = 1 << 6

@@ -33,6 +33,7 @@ from test_torch_meshpath import jps
 from test_torch_reshard import (Recorder, copies_equal, jax_engine,
                                 jax_trace_bucketed, port_engine,
                                 same_records, stats_rec, step_rec)
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 FO_KW = dict(probe_fails=2, readmit_passes=2, retry_ticks=2,
              probe_deadline_s=1e6, dispatch_deadline_s=1e6)

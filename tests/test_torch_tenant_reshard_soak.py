@@ -20,6 +20,7 @@ from test_torch_tenant_reshard import (  # noqa: F401
     FO_KW, N_WORLDS, _kill_plan, batch, oracles, parity,
     resize_under_traffic, step_worlds, tenant_batches, tenant_clusters,
     tenants, world)
+import torch_cpu  # noqa: F401  (one torch thread a worker)
 
 
 def test_grow_and_shrink_with_eight_live_tenant_worlds(
