@@ -279,11 +279,47 @@ package is missing, or when any phase fails.  Phases, in order:
      read (never written) around each part, and the first call of B1, B2
      and B3 in (a) and of B2 and B3 in (b) is recorded and held to its
      plain version (a part fails if one was not recorded).
+ 20. the controller's fan-out and status plane (simulator/fleet.py,
+     controller/status.py, controller/apiserver.py), at the reference
+     controller's scale test, xLargeScale (25,000 namespaces,
+     100,000 pods on 64 nodes, 75,000 NetworkPolicies, placed as
+     bench_controller.py's populate places them): (a) the port's
+     NetworkPolicyController feeding a RamStore, watched by 63 inproc fake
+     agents (node-1 .. node-63) and by node-0's AgentPolicyController,
+     whose engine is on the card with phase 13's one-pass knobs, all
+     reporting to one StatusAggregator: every fake agent holds its node's
+     span (fleet_converged), node-0's agent its span's policies and
+     groups, all 75,000 policies Realized on their whole span; node-0's
+     engine steps 2**17 seeded lanes toward its pods (cold, warm, 8
+     steady), code, est and DNAT bitwise equal to a second engine built
+     from the controller's span for node-0 (rule ids too while the two
+     hold the policies in the same order), 32 lanes held to the scalar
+     Oracle; (b) bench_controller.py's fleet_storm over mutual TLS on its
+     --small world (2,500 namespaces) plus one app=web pod a node: one
+     DisseminationServer (cap 64, resync chunk 256, 4 resyncs in flight,
+     drain 256, send budget 100,000 bytes) with a StatusAggregator, 63
+     NetFakeAgents (node-1's sockets reset by a FaultPlan) and node-0's
+     NetAgent with its own engine on the card, pumped and synced every
+     cycle; 3 rounds of run_churn_storm (churn 128, cap 64), each to
+     convergence with the queue bounds held, then 20 live rewrites (the
+     realization histograms' tail); node-0's engine on 4,096 lanes from
+     the storm's CIDRs bitwise equal to an engine built from the span;
+     antctl get policystatus against the port's ControllerApiServer lists
+     every storm policy Realized on all 64 nodes.  The launch counts are
+     read around each call of node-0's engines, the first call of each
+     kernel recorded and held to its plain version; B3 must have launched
+     in each part.
 
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
 of a 2-way word split (shard 1 at w0 = W / 2); in phase 5 on the warm
 cache with valid = 0, no_commit = 1 and fb_force = 1 lanes.
+
+Phases 16, 18 and 20 run in child processes of the script
+(chip_smoke.py --phase N OUT), started together after phase 15 beside
+phases 17 and 19, which run in this process (so their lines interleave
+and their times are taken with the others running); each child hands its
+record, kernel records and launch counts back as JSON.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -4354,10 +4390,10 @@ def check_b3_recorded(a, what):
     return with_lane_bound(rec, "B3", per_lane)
 
 
-def check_phase19(seen, what, tags):
-    """Each kernel call recorded in a part of phase 19 held bitwise to its
-    plain version (B3 here, B1 and B2 through check_recorded); raises
-    unless each kernel of `tags` was recorded."""
+def check_phase19(seen, what, tags, phase=19):
+    """Each kernel call recorded in a part of phase 19 (or 20) held bitwise
+    to its plain version (B3 here, B1 and B2 through check_recorded);
+    raises unless each kernel of `tags` was recorded."""
     b3 = {k: v for k, v in seen.items() if k[0] == "B3"}
     out = check_recorded({k: v for k, v in seen.items() if k[0] != "B3"},
                          (1, 1), 2)
@@ -4366,8 +4402,9 @@ def check_phase19(seen, what, tags):
     have = {name.split()[0] for name in out}
     missing = [t for t in tags if t not in have]
     if missing:
-        raise SystemExit(f"phase 19 {what}: {missing} not recorded and held "
-                         f"to the plain version (held: {sorted(out)})")
+        raise SystemExit(f"phase {phase} {what}: {missing} not recorded "
+                         f"and held to the plain version (held: "
+                         f"{sorted(out)})")
     return out
 
 
@@ -4943,6 +4980,741 @@ def drive_agent(ps, services, pod_ips, tr, dev, kept13):
     return rec, parts, checks
 
 
+# ---- phase 20: the controller's fan-out and status plane -------------------
+# The reference controller's own scale test, "xLargeScale"
+# (networkpolicy_controller_perf_test.go:46-52: 25,000 namespaces, 100,000
+# pods, 75,000 NetworkPolicies), its pods placed on FLEET_NODES nodes as
+# bench_controller.py's populate places them.  node-0 runs the port's agent,
+# whose engine is on the card; every other node runs a watch-only fake agent
+# (simulator/fleet.py, the antrea-agent-simulator model).  (b)'s storm takes
+# bench_controller.py's fleet_storm knobs, on its --small world.
+FLEET_NODES = 64
+FLEET_NS = 25_000
+FLEET_PODS_PER_NS = 4
+FLEET_NPS_PER_NS = 3
+FLEET_B = B
+FLEET_SLOTS = FLOW_SLOTS
+STORM_NS = 2_500
+STORM_ROUNDS = 3
+STORM_CHURN = 128
+STORM_CAP = 64
+STORM_LANES = 4096
+STORM_MAX_CYCLES = 2000
+STORM_TAIL = 20
+FLEET_FIELDS = ("code", "est", "reply", "svc_idx", "dnat_ip", "dnat_port",
+                "committed")
+
+
+def fleet_populate(ctl, n_ns, pods_per_ns, nps_per_ns) -> int:
+    """bench_controller.py's populate on the port's apis.crd: n_ns
+    namespaces, each of pods_per_ns pods (app-0 / app-1, on node
+    (i * pods_per_ns + j) % FLEET_NODES) and nps_per_ns K8s NetworkPolicies
+    (app-(k % 2) isolated, open to app-((k + 1) % 2) on TCP 80) -> the
+    events the controller emitted."""
+    from antrea_tpu_torch.apis.crd import (K8sNetworkPolicy, K8sNPRule,
+                                           K8sPeer, LabelSelector, Namespace,
+                                           Pod, PortSpec)
+
+    n_events = 0
+
+    def count(_ev):
+        nonlocal n_events
+        n_events += 1
+
+    ctl.subscribe(count)
+    for i in range(n_ns):
+        ns = f"ns-{i}"
+        ctl.upsert_namespace(Namespace(name=ns, labels={"team": f"t{i % 50}"}))
+        for j in range(pods_per_ns):
+            ctl.upsert_pod(Pod(
+                name=f"pod-{j}", namespace=ns,
+                labels={"app": f"app-{j % 2}"},
+                ip=f"10.{(i >> 8) & 255}.{i & 255}.{j + 1}",
+                node=f"node-{(i * pods_per_ns + j) % FLEET_NODES}",
+            ))
+        for k in range(nps_per_ns):
+            ctl.upsert_k8s_policy(K8sNetworkPolicy(
+                uid=f"np-{i}-{k}", name=f"np-{k}", namespace=ns,
+                pod_selector=LabelSelector.make({"app": f"app-{k % 2}"}),
+                ingress=[K8sNPRule(
+                    peers=[K8sPeer(pod_selector=LabelSelector.make(
+                        {"app": f"app-{(k + 1) % 2}"}))],
+                    ports=[PortSpec(protocol=6, port=80)],
+                )],
+            ))
+    return n_events
+
+
+def storm_pods(ctl, nodes):
+    """One app=web pod a node (bench_controller.py's storm world), in a
+    namespace of their own, at 10.200.0.<n + 1>: addresses populate never
+    gives (its 10.<i >> 8>.<i & 255>.1 would be pod-0 of namespace i)."""
+    from antrea_tpu_torch.apis.crd import Namespace, Pod
+
+    ctl.upsert_namespace(Namespace(name="storm", labels={"team": "storm"}))
+    for n, node in enumerate(nodes):
+        ctl.upsert_pod(Pod(name=f"web-{n}", namespace="storm",
+                           labels={"app": "web"}, ip=f"10.200.0.{n + 1}",
+                           node=node))
+
+
+def pod_u32(i, j):
+    """populate's address of pod j of namespace i, as a u32."""
+    return ((10 << 24) | (((i >> 8) & 255) << 16) | ((i & 255) << 8)
+            | (j + 1))
+
+
+def fleet_lanes(n_ns, pods_per_ns, n, seed):
+    """n seeded lanes toward node-0's pods: half from a pod of the other
+    app in the destination's namespace (the one peer its policies open, on
+    TCP 80 only), half from any pod of the world; destination port 80 on
+    half of them, any port on the rest; one lane in ten UDP."""
+    import numpy as np
+
+    from antrea_tpu_torch.packet import PacketBatch
+
+    rng = np.random.default_rng(seed)
+    i = np.repeat(np.arange(n_ns), pods_per_ns)
+    j = np.tile(np.arange(pods_per_ns), n_ns)
+    mine = (i * pods_per_ns + j) % FLEET_NODES == 0
+    pick = rng.integers(0, int(mine.sum()), n)
+    di, dj = i[mine][pick], j[mine][pick]
+    near = rng.random(n) < 0.5
+    # The other app's pods in the same namespace: j' = j + 1 + 2m (mod).
+    nj = (dj + 1 + 2 * rng.integers(0, max(1, pods_per_ns // 2), n)) \
+        % pods_per_ns
+    si = np.where(near, di, rng.integers(0, n_ns, n))
+    sj = np.where(near, nj, rng.integers(0, pods_per_ns, n))
+    dport = np.where(rng.random(n) < 0.5, 80,
+                     rng.integers(1, 65536, n)).astype(np.int32)
+    proto = np.where(rng.random(n) < 0.1, 17, 6).astype(np.int32)
+    return PacketBatch(
+        src_ip=pod_u32(si, sj).astype(np.uint32),
+        dst_ip=pod_u32(di, dj).astype(np.uint32), proto=proto,
+        src_port=rng.integers(1024, 65536, n).astype(np.int32),
+        dst_port=dport)
+
+
+def storm_lanes(n, web_ip, seed):
+    """n seeded TCP lanes toward node-0's web pod from the storm's CIDRs:
+    every round's 198.<r>.<k>.0/24 and storm-0's rewrites' 203.<0 or
+    1>.<j>.0/24 (the storm's, then the live tail's), so that the last
+    round's drops and the lifted ones both occur."""
+    import numpy as np
+
+    from antrea_tpu_torch.packet import PacketBatch
+    from antrea_tpu_torch.utils import ip as iputil
+
+    rng = np.random.default_rng(seed)
+    r = rng.integers(1, STORM_ROUNDS + 1, n)
+    k = rng.integers(0, STORM_CHURN, n)
+    rewrite = rng.random(n) < 0.25
+    a = np.where(rewrite, 203, 198)
+    b = np.where(rewrite, rng.integers(0, 2, n), r)
+    c = np.where(rewrite, rng.integers(0, STORM_TAIL, n), k)
+    src = (a << 24) | (b << 16) | (c << 8) | rng.integers(1, 255, n)
+    return PacketBatch(
+        src_ip=src.astype(np.uint32),
+        dst_ip=np.full(n, iputil.ip_to_u32(web_ip), np.uint32),
+        proto=np.full(n, 6, np.int32),
+        src_port=rng.integers(1024, 65536, n).astype(np.int32),
+        dst_port=np.full(n, 80, np.int32))
+
+
+class LaunchReader:
+    """Sums the (B1, B2, B3, B3h, S1) launches of the calls it runs, each
+    read before and after (the counts are read, never written), and records
+    the kernels' inputs while they run (KernelInputs)."""
+
+    def __init__(self):
+        self.total = [0, 0, 0, 0, 0]
+        self.ki = KernelInputs()
+
+    def run(self, fn, *a, **k):
+        before = counts5()
+        with self.ki:
+            out = fn(*a, **k)
+        self.total = [x + y for x, y in zip(self.total, launched(before))]
+        return out
+
+    def held(self, what, dev):
+        """The first recorded call of each kernel held bitwise to its plain
+        version.  B3 carries every step's misses, so it must have launched;
+        B1 (the one-pass fallback: a lane with more than PRUNE_K candidate
+        superblocks) and B2 (the canary's pruned classify, when a probe's
+        aggregate AND is not zero) run where the data needs them, and each
+        that launched must have been recorded."""
+        need = ["B3"] + [t for t, n in zip(("B1", "B2"), self.total) if n]
+        if dev.type == "cuda" and not self.total[2]:
+            raise SystemExit(f"phase 20 {what}: (B1, B2, B3, B3h, S1) "
+                             f"launches {self.total}: B3 never ran")
+        return check_phase19(self.ki.seen, what, need, phase=20)
+
+
+def same_policy_sets(got, want, what):
+    """The agent's PolicySet against the controller's span for its node:
+    policy uids with their generations, and the group names."""
+    g = {p.uid: p.generation for p in got.policies}
+    w = {p.uid: p.generation for p in want.policies}
+    if g != w:
+        raise SystemExit(f"{what}: {len(g)} policies, the span holds "
+                         f"{len(w)} ({len(g.keys() ^ w.keys())} uids differ)")
+    for part in ("address_groups", "applied_to_groups"):
+        if set(getattr(got, part)) != set(getattr(want, part)):
+            raise SystemExit(f"{what}: {part} differ from the span's")
+
+
+def same_lanes(a, b, what, rules):
+    """FLEET_FIELDS bitwise equal; the rule ids too when `rules`."""
+    import numpy as np
+
+    for f in FLEET_FIELDS:
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise SystemExit(f"{what}: {f} differs")
+    if a.n_miss != b.n_miss:
+        raise SystemExit(f"{what}: {a.n_miss} misses, {b.n_miss}")
+    if rules and (a.ingress_rule != b.ingress_rule
+                  or a.egress_rule != b.egress_rule):
+        raise SystemExit(f"{what}: rule attribution differs")
+
+
+def oracle_sample(ps, batch, res, what, n=STICKY_SAMPLE):
+    """The first n/2 allowed and n/2 dropped lanes of a step held to the
+    scalar Oracle on the same PolicySet: code and rule ids."""
+    import numpy as np
+
+    from antrea_tpu_torch.oracle import Oracle
+
+    code = np.asarray(res.code)
+    lanes = (list(np.flatnonzero(code == 0)[:n // 2])
+             + list(np.flatnonzero(code != 0)[:n // 2]))
+    if len(lanes) < n:
+        raise SystemExit(f"{what}: {int((code == 0).sum())} allowed and "
+                         f"{int((code != 0).sum())} dropped lanes; the "
+                         f"sample needs {n // 2} of each")
+    o = Oracle(ps)
+    for i in lanes:
+        v = o.classify(batch.packet(int(i)))
+        got = (int(code[i]), res.ingress_rule[i], res.egress_rule[i])
+        want = (int(v.code), v.ingress.rule, v.egress.rule)
+        if got != want:
+            raise SystemExit(f"{what}: lane {i} (code, ingress rule, egress "
+                             f"rule) {got}, the Oracle's {want}")
+    return len(lanes)
+
+
+def fleet_engine(ps, dev):
+    """node-0's engine: phase 13's one-pass knobs, no Services (the scale
+    test's world has none), no topology."""
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+
+    return TpuflowDatapath(ps, [], device=dev, flow_slots=FLEET_SLOTS,
+                           miss_chunk=MISS_CHUNK, canary_probes=ENGINE_PROBES,
+                           fused=True, prune_budget=PRUNE_K)
+
+
+def drive_fan_out(dev):
+    """Phase 20 (a): the port's NetworkPolicyController at xLargeScale
+    feeding a RamStore, watched by FLEET_NODES - 1 inproc fake agents and by
+    node-0's AgentPolicyController (a queued watch, drained into the agent
+    each pump), all reporting to one StatusAggregator; then node-0's
+    engine against a reference engine built from the controller's span for
+    node-0 -> (record, launches, recorded kernel checks)."""
+    import gc
+    import resource
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.agent import AgentPolicyController
+    from antrea_tpu_torch.controller import NetworkPolicyController
+    from antrea_tpu_torch.controller.status import (PHASE_REALIZED,
+                                                     StatusAggregator)
+    from antrea_tpu_torch.dissemination import RamStore
+    from antrea_tpu_torch.simulator.fleet import (FakeAgentFleet,
+                                                  fleet_converged)
+
+    rec = {}
+    nodes = [f"node-{i}" for i in range(FLEET_NODES)]
+    ctl = NetworkPolicyController()
+    store = RamStore()
+    ctl.subscribe(store.apply)
+    agg = StatusAggregator(ctl)
+    report = agg.make_agent_reporter()
+    fleet = FakeAgentFleet(store, nodes[1:], status_reporter=report)
+    eng = fleet_engine(None, dev)
+    agent = AgentPolicyController(AGENT_NODE, eng, status_reporter=report)
+    watch0 = store.watch_queue(AGENT_NODE)
+    lr = LaunchReader()
+
+    t0 = time.perf_counter()
+    emitted = fleet_populate(ctl, FLEET_NS, FLEET_PODS_PER_NS,
+                             FLEET_NPS_PER_NS)
+    rec["controller_s"] = time.perf_counter() - t0
+    counts_ = ctl.object_counts()
+    t0 = time.perf_counter()
+    fleet.pump()
+    seen0 = 0
+    for ev in watch0.drain():
+        agent.handle_event(ev)
+        seen0 += 1
+    rec["pump_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lr.run(agent.sync)
+    torch.cuda.synchronize()
+    rec["sync_s"] = time.perf_counter() - t0
+    clean_sync(agent, "phase 20 (a) node-0", 1)
+
+    t0 = time.perf_counter()
+    if not fleet_converged(ctl, fleet, nodes[1:]):
+        raise SystemExit("phase 20 (a): the fake agents do not hold their "
+                         "nodes' spans")
+    want0 = ctl.policy_set_for_node(AGENT_NODE)
+    same_policy_sets(agent.policy_set, want0, "phase 20 (a) node-0's agent")
+    rec["converged_check_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    statuses = agg.all_statuses()
+    rec["status_s"] = time.perf_counter() - t0
+    bad = [s for s in statuses if s.phase != PHASE_REALIZED
+           or s.current_nodes != s.desired_nodes]
+    if len(statuses) != counts_["networkPolicies"] or bad:
+        raise SystemExit(f"phase 20 (a): {len(statuses)} statuses for "
+                         f"{counts_['networkPolicies']} policies, "
+                         f"{len(bad)} not Realized on their whole span "
+                         f"(first: {bad[:1]})")
+    per_node = sorted([a.events_seen for a in fleet.agents.values()]
+                      + [seen0])
+    rec.update(namespaces=FLEET_NS, nodes=FLEET_NODES,
+               controller_events=emitted, **counts_,
+               events_delivered=sum(per_node),
+               events_per_node_min=per_node[0],
+               events_per_node_median=per_node[len(per_node) // 2],
+               events_per_node_max=per_node[-1], node0_events=seen0,
+               node0_policies=len(want0.policies),
+               node0_rules=sum(len(p.rules) for p in want0.policies),
+               node0_address_groups=len(want0.address_groups),
+               node0_applied_to_groups=len(want0.applied_to_groups),
+               statuses=len(statuses),
+               peak_rss_gib=resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 2**20)
+    log(f"phase 20 (a): the controller computed {FLEET_NS} namespaces, "
+        f"{FLEET_NS * FLEET_PODS_PER_NS} pods, {counts_['networkPolicies']} "
+        f"NetworkPolicies ({counts_['addressGroups']} address groups, "
+        f"{counts_['appliedToGroups']} appliedTo groups; {emitted} events, "
+        f"fanned out to {FLEET_NODES} watchers) in "
+        f"{rec['controller_s']:.1f} s; the pump delivered "
+        f"{rec['events_delivered']} events (a node: min {per_node[0]}, "
+        f"median {rec['events_per_node_median']}, max {per_node[-1]}; "
+        f"node-0 {seen0}) in {rec['pump_s']:.1f} s; node-0 holds "
+        f"{rec['node0_policies']} policies, {rec['node0_rules']} rules, "
+        f"synced in {rec['sync_s']:.1f} s; spans held in "
+        f"{rec['converged_check_s']:.1f} s; {len(statuses)} statuses "
+        f"Realized on their whole span, aggregated in "
+        f"{rec['status_s']:.1f} s; peak RSS {rec['peak_rss_gib']:.2f} GiB")
+    del fleet, statuses
+    watch0.stop()
+
+    # node-0's engine against one built from the controller's span.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = fleet_engine(want0, dev)
+    torch.cuda.synchronize()
+    rec["reference_build_s"] = time.perf_counter() - t0
+    order = ([p.uid for p in agent.policy_set.policies]
+             == [p.uid for p in want0.policies])
+    batch = fleet_lanes(FLEET_NS, FLEET_PODS_PER_NS, FLEET_B, 20)
+    times, first = [], None
+    for k, now in enumerate(NOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = lr.run(eng.step, batch, now)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        want = ref.step(batch, now)
+        same_lanes(r, want, f"phase 20 (a) step {k}: node-0's engine vs "
+                   f"the span's", order)
+        if first is None:
+            first = r
+    steps = step_stats(times)
+    code = np.asarray(first.code)
+    n_oracle = oracle_sample(agent.policy_set, batch, first,
+                             "phase 20 (a) node-0's engine")
+    rec.update(**steps, lanes=FLEET_B, allowed=int((code == 0).sum()),
+               dropped=int((code != 0).sum()),
+               est_last=int(np.asarray(r.est).sum()),
+               rule_ids_held=order, oracle_lanes=n_oracle,
+               launches=lr.total)
+    held = ("too (both in the controller's order)" if order else
+            "NOT held (the agent holds the policies in another order)")
+    log(f"phase 20 (a): node-0's engine on {FLEET_B} lanes toward its pods "
+        f"({rec['allowed']} allowed, {rec['dropped']} dropped by the K8s "
+        f"isolation): cold {steps['cold_ms']:.1f} ms, warm "
+        f"{steps['warm_ms']:.2f} ms, steady {steps['steady_ms']:.3f} ms "
+        f"({steps['steady_pps'] / 1e6:.2f} M packets/s); code, est and "
+        f"DNAT bitwise equal to the span's engine (built in "
+        f"{rec['reference_build_s']:.1f} s) on all {len(NOWS)} steps, rule "
+        f"ids {held}; {n_oracle} lanes held to the scalar Oracle; (B1, B2, "
+        f"B3, B3h, S1) launches {lr.total}")
+    del eng, ref, agent, ctl, store, agg, first, r, want, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, lr.total, lr.held("(a) node-0's engine", dev)
+
+
+class AgentView:
+    """An AgentPolicyController's objects as fleet_converged reads a fake
+    agent's tables."""
+
+    def __init__(self, agent):
+        self._agent = agent
+
+    @property
+    def policies(self):
+        return {p.uid: p for p in self._agent.policy_set.policies}
+
+    @property
+    def address_groups(self):
+        return self._agent.policy_set.address_groups
+
+    @property
+    def applied_to_groups(self):
+        return self._agent.policy_set.applied_to_groups
+
+
+class FleetAndAgent:
+    """run_churn_storm's fleet: the netwire fake fleet, and node-0's
+    NetAgent pumped and synced (its realization reported) every cycle, its
+    engine's calls counted and recorded by `lr`."""
+
+    def __init__(self, fleet, na, lr):
+        self.fleet, self.na, self.lr = fleet, na, lr
+        self.agents = dict(fleet.agents)
+        self.agents[na.node] = AgentView(na.agent)
+
+    def pump(self) -> int:
+        n = self.fleet.pump() + self.na.pump(wait=0.05)
+        self.lr.run(self.na.sync_and_report)
+        clean_sync(self.na.agent, "phase 20 (b) node-0")
+        return n
+
+    def queue_stats(self):
+        return self.fleet.queue_stats()
+
+    def resyncs_seen_total(self):
+        return self.fleet.resyncs_seen_total() + self.na.resyncs_total
+
+    def total_events(self):
+        return self.fleet.total_events()
+
+    def realization_p99_s(self):
+        return self.fleet.realization_p99_s()
+
+    def realization_unstamped_total(self):
+        return self.fleet.realization_unstamped_total()
+
+
+def drive_storm(dev):
+    """Phase 20 (b): one DisseminationServer with a StatusAggregator and
+    bench_controller.py's fleet_storm knobs over a STORM_NS world, 63
+    NetFakeAgents and node-0's NetAgent over mutual TLS (one fake agent's
+    sockets reset by a FaultPlan), STORM_ROUNDS rounds of run_churn_storm;
+    node-0's engine against one built from the controller's span; antctl
+    get policystatus against the port's ControllerApiServer -> (record,
+    launches, recorded kernel checks)."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from antrea_tpu_torch.controller import NetworkPolicyController
+    from antrea_tpu_torch.controller.apiserver import ControllerApiServer
+    from antrea_tpu_torch.controller.status import (PHASE_REALIZED,
+                                                     StatusAggregator)
+    from antrea_tpu_torch.dissemination import FaultPlan, RamStore
+    from antrea_tpu_torch.dissemination.netwire import (Backoff,
+                                                         DisseminationServer,
+                                                         NetAgent, make_ca)
+    from antrea_tpu_torch.simulator.fleet import (FakeAgentFleet,
+                                                  _storm_policy,
+                                                  fleet_converged,
+                                                  run_churn_storm)
+
+    backend = tls_backend()
+    if not backend:
+        raise SystemExit("phase 20 (b): neither the cryptography package nor "
+                         "the openssl binary is on this machine")
+    rec = {"tls": backend, "namespaces": STORM_NS}
+    nodes = [f"node-{i}" for i in range(FLEET_NODES)]
+    ctl = NetworkPolicyController()
+    store = RamStore()
+    ctl.subscribe(store.apply)
+    t0 = time.perf_counter()
+    fleet_populate(ctl, STORM_NS, FLEET_PODS_PER_NS, FLEET_NPS_PER_NS)
+    storm_pods(ctl, nodes)
+    rec["controller_s"] = time.perf_counter() - t0
+    plan = FaultPlan(seed=7)
+    plan.prob(f"{nodes[1]}.send", 0.05, "reset", times=2)
+    plan.prob(f"{nodes[1]}.recv", 0.05, "reset", times=2)
+    concurrency = max(4, FLEET_NODES // 32)
+    lr = LaunchReader()
+    agg = StatusAggregator(ctl)
+    with tempfile.TemporaryDirectory() as certdir:
+        t0 = time.perf_counter()
+        make_ca(certdir)
+        srv = DisseminationServer(
+            store, certdir, status_aggregator=agg,
+            watcher_max_pending=STORM_CAP, resync_chunk=256,
+            resync_concurrency=concurrency, drain_max=256,
+            send_budget=100_000)
+        fleet = na = api = None
+        try:
+            fleet = FakeAgentFleet(
+                None, nodes[1:], transport="netwire", server=srv,
+                certdir=certdir, fault_plan=plan,
+                backoff_factory=lambda n: Backoff(base=0.01, cap=0.1,
+                                                  node=n))
+            eng = fleet_engine(None, dev)
+            na = NetAgent(AGENT_NODE, srv.address, certdir, eng)
+            srv.wait_connected(FLEET_NODES, timeout=30.0)
+            rec["bring_up_s"] = time.perf_counter() - t0
+            both = FleetAndAgent(fleet, na, lr)
+            t0 = time.perf_counter()
+            cycles = 0
+            while True:
+                both.pump()
+                cycles += 1
+                if (srv.dissemination_stats()["resyncs_inflight"] == 0
+                        and fleet_converged(ctl, both, nodes)):
+                    break
+                if cycles >= STORM_MAX_CYCLES:
+                    raise SystemExit("phase 20 (b): the fleet's first "
+                                     "re-list did not converge")
+            rec.update(relist_s=time.perf_counter() - t0,
+                       relist_cycles=cycles)
+            t0 = time.perf_counter()
+            try:
+                meters = run_churn_storm(
+                    ctl, both, nodes, rounds=STORM_ROUNDS,
+                    churn=STORM_CHURN, cap=STORM_CAP,
+                    resync_concurrency=concurrency,
+                    max_cycles=STORM_MAX_CYCLES)
+            except AssertionError as e:
+                raise SystemExit(f"phase 20 (b): {e}") from None
+            rec["storm_s"] = time.perf_counter() - t0
+            # The live tail (bench_controller.py's): the storm injects every
+            # change before it pumps, so its deliveries are re-list replays,
+            # unstamped; same-key rewrites against the converged fleet, one
+            # pump a commit, are what the realization histograms measure.
+            t0 = time.perf_counter()
+            for j in range(STORM_TAIL):
+                ctl.upsert_antrea_policy(_storm_policy(
+                    "storm-0", f"203.1.{j}.0/24"))
+                both.pump()
+            both.pump()
+            rec["tail_s"] = time.perf_counter() - t0
+            meters["realization_p99_s"] = fleet.realization_p99_s()
+            meters["realization_measured"] = fleet.realization_hist().count
+            # The statuses of the last cycle's syncs arrive with the next
+            # server pump.
+            storm = {f"storm-{k}" for k in range(STORM_CHURN)}
+            for _ in range(20):
+                both.pump()
+                st = {s.uid: s for s in agg.all_statuses() if s.uid in storm}
+                if len(st) == STORM_CHURN and all(
+                        s.phase == PHASE_REALIZED
+                        and s.current_nodes == s.desired_nodes == FLEET_NODES
+                        for s in st.values()):
+                    break
+            else:
+                seen = sorted((s.phase, s.current_nodes) for s in st.values())
+                raise SystemExit(f"phase 20 (b): storm statuses {seen[:4]}")
+            api = ControllerApiServer(ctl, store=store, status=agg).start()
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "antrea_tpu_torch.antctl", "get",
+                 "policystatus", "--server",
+                 f"http://127.0.0.1:{api.address[1]}"],
+                capture_output=True, text=True, timeout=300, check=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                env={**os.environ, "OMP_NUM_THREADS": "1"})
+            rec["antctl_s"] = time.perf_counter() - t0
+            rows = {r["uid"]: r for r in json.loads(out.stdout)["items"]}
+            if not all(rows.get(u, {}).get("phase") == PHASE_REALIZED
+                       and rows[u]["currentNodesRealized"] == FLEET_NODES
+                       for u in storm):
+                raise SystemExit("phase 20 (b): antctl get policystatus does "
+                                 "not list every storm policy Realized on "
+                                 "every node")
+            hist = na.agent.dissemination_hist
+            rec.update(meters, policystatus_rows=len(rows),
+                       faults_injected=plan.count(),
+                       node0_resyncs=na.resyncs_total,
+                       node0_syncs=na.agent.sync_hist.count,
+                       node0_dissemination_count=hist.count,
+                       node0_dissemination_mean_ms=(
+                           hist.sum / hist.count * 1e3 if hist.count else 0),
+                       node0_dissemination_p99_s=hist.quantile(0.99))
+            # node-0's engine against one built from the span.
+            want0 = ctl.policy_set_for_node(AGENT_NODE)
+            same_policy_sets(na.agent.policy_set, want0,
+                             "phase 20 (b) node-0's agent")
+            ref = fleet_engine(want0, dev)
+            order = ([p.uid for p in na.agent.policy_set.policies]
+                     == [p.uid for p in want0.policies])
+            batch = storm_lanes(STORM_LANES, "10.200.0.1", 21)
+            for k, now in enumerate((100, 101)):
+                r = lr.run(eng.step, batch, now)
+                same_lanes(r, ref.step(batch, now),
+                           f"phase 20 (b) step {k}: node-0's engine vs the "
+                           f"span's", True)
+            code = np.asarray(r.code)
+            n_oracle = oracle_sample(na.agent.policy_set, batch, r,
+                                     "phase 20 (b) node-0's engine")
+            rec.update(lanes=STORM_LANES, dropped=int((code != 0).sum()),
+                       node0_policies=len(want0.policies), same_order=order,
+                       oracle_lanes=n_oracle, launches=lr.total)
+        finally:
+            if api is not None:
+                api.stop()
+            if na is not None:
+                na.close()
+            if fleet is not None:
+                fleet.stop()
+            srv.close()
+    log(f"phase 20 (b): {STORM_NS} namespaces over mutual TLS "
+        f"({backend}): the controller {rec['controller_s']:.1f} s, PKI and "
+        f"{FLEET_NODES} handshakes {rec['bring_up_s']:.1f} s, the first "
+        f"re-list converged in {rec['relist_cycles']} cycles, "
+        f"{rec['relist_s']:.1f} s; the storm ({STORM_ROUNDS} rounds of "
+        f"{STORM_CHURN} upserts and {meters['rewrites']} rewrites, cap "
+        f"{STORM_CAP}) {rec['storm_s']:.1f} s, its live tail of "
+        f"{STORM_TAIL} rewrites {rec['tail_s']:.1f} s: {json.dumps(meters)}; "
+        f"{plan.count()} faults injected; node-0: {na.resyncs_total} "
+        f"re-lists, {rec['node0_syncs']} syncs, dissemination_hist count "
+        f"{hist.count}, mean {rec['node0_dissemination_mean_ms']:.1f} ms, "
+        f"p99 {rec['node0_dissemination_p99_s']:.3f} s; its engine's "
+        f"{STORM_LANES} storm lanes ({rec['dropped']} dropped) bitwise "
+        f"equal to the span's engine, rule ids included (policy order "
+        f"{'the same' if order else 'another'}); {n_oracle} lanes held to "
+        f"the scalar Oracle; antctl get policystatus listed {len(rows)} "
+        f"policies in {rec['antctl_s']:.1f} s, the {STORM_CHURN} storm "
+        f"policies Realized on all {FLEET_NODES} nodes; (B1, B2, B3, B3h, "
+        f"S1) launches {lr.total}")
+    del eng, ref, na, fleet, ctl, store, agg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, lr.total, lr.held("(b) node-0's engine", dev)
+
+
+def drive_fleet(dev):
+    """Phase 20: (a) drive_fan_out, (b) drive_storm -> (record, {part:
+    launches}, {name: kernel record})."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("phase 20 needs CUDA")
+    t20 = time.perf_counter()
+    rec, parts, checks = {}, {}, {}
+    rec["a"], parts["a"], ka = drive_fan_out(dev)
+    rec["b"], parts["b"], kb = drive_storm(dev)
+    for part, k in (("a", ka), ("b", kb)):
+        checks.update({f"({part}) {n}": v for n, v in k.items()})
+    rec["seconds"] = time.perf_counter() - t20
+    log(f"phase 20 took {rec['seconds']:.1f} s; launches by part (B1, B2, "
+        f"B3, B3h, S1) {parts} (B3h and S1 are not on this path)")
+    return rec, parts, checks
+
+
+# The phases run by child processes of the script, each by phase_main.
+PHASE_CHILDREN = (16, 18, 20)
+# A child's torch intra-op threads: several processes share the host's
+# cores, and idle OpenMP threads spin on the cores their neighbours need.
+CHILD_THREADS = 2
+
+
+def jsonable(o):
+    """A phase's results as JSON keeps them: str keys, lists for tuples
+    and sets, Python numbers for numpy's and torch's."""
+    if isinstance(o, dict):
+        return {str(k): jsonable(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [jsonable(v) for v in o]
+    if isinstance(o, (set, frozenset)):
+        return sorted(jsonable(v) for v in o)
+    if hasattr(o, "tolist"):
+        return o.tolist()
+    return o
+
+
+def phase_main(phase, out) -> int:
+    """`chip_smoke.py --phase N OUT`: phase 16, 18 or 20 in a process of its
+    own (the kernels are built from the checkout's sources, or loaded
+    where this checkout built them already; phases 16 and 18 build the
+    seeded world anew); its record, kernel records and launches as JSON
+    in OUT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"chip_smoke --phase {phase}: torch.cuda.is_available() is "
+              f"false", file=sys.stderr)
+        return 2
+    from antrea_tpu_torch import _build
+
+    torch.set_num_threads(CHILD_THREADS)
+    _build.build()
+    dev = torch.device("cuda")
+    if phase == 20:
+        rec, launches, kern = drive_fleet(dev)
+    else:
+        _, _, tr, pool_tr, pod_ips, ps, services = build_world()
+        drive = {16: drive_tenants, 18: drive_resize}[phase]
+        rec, kern, launches = drive(ps, services, pod_ips, tr, pool_tr, dev)
+    with open(out, "w") as f:
+        json.dump(jsonable({"rec": rec, "kernels": kern,
+                            "launches": launches}), f, default=str)
+    return 0
+
+
+class PhaseChild:
+    """A phase run by a child process of this script (phase_main), started
+    here and joined with join(); stop() ends it if it still runs."""
+
+    TIMEOUT_S = 900
+
+    def __init__(self, phase):
+        import os
+        import tempfile
+
+        self.phase = phase
+        self._dir = tempfile.mkdtemp(prefix=f"chip-smoke-phase{phase}-")
+        self._out = os.path.join(self._dir, f"phase{phase}.json")
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), "--phase",
+             str(phase), self._out], cwd=here)
+
+    def join(self):
+        """-> (record, kernel records, launches)."""
+        rc = self.proc.wait(timeout=self.TIMEOUT_S)
+        if rc != 0:
+            raise SystemExit(f"phase {self.phase}: its process exited with "
+                             f"{rc}")
+        with open(self._out) as f:
+            got = json.load(f)
+        return got["rec"], got["kernels"], got["launches"]
+
+    def stop(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5174,23 +5946,34 @@ def main() -> int:
     dual, b1_6, b2_6, b2_6_launches = drive_dual(ps, services, pod_ips, tr,
                                                  dev)
 
-    # 16. Tenant worlds and the serving batcher, restart from a persist
-    # dir, the scalar twin.
-    tenants, k16, l16 = drive_tenants(ps, services, pod_ips, tr, pool_tr,
-                                      dev)
+    # 16, 18 and 20 run in child processes of this script (phase_main),
+    # started together beside phases 17 and 19 here: each builds what it
+    # needs from the seeded world, and most of their time and of 17's and
+    # 19's is host-bound Python, each process on its own cores.  One after
+    # the other they do not fit the script's time limit.
+    children = {n: PhaseChild(n) for n in PHASE_CHILDREN}
+    try:
+        # 17. The mesh engine at (1, 1), (1, 2) and (2, 1).
+        mesh17, k17 = drive_mesh_engine(ps, services, pod_ips, tr, dev,
+                                        kept13)
+        l17 = {k: v["launches"] for k, v in mesh17.items()}
 
-    # 17. The mesh engine at (1, 1), (1, 2) and (2, 1).
-    mesh17, k17 = drive_mesh_engine(ps, services, pod_ips, tr, dev, kept13)
-    l17 = {k: v["launches"] for k, v in mesh17.items()}
+        # 19. The agent on the card: the watch store, the mTLS wire, a
+        # re-list, the surfaces, the pipe transport.
+        agent19, l19, k19 = drive_agent(ps, services, pod_ips, tr, dev,
+                                        kept13)
+        del kept13
 
-    # 18. Live resize and replica-loss failover on the mesh engine.
-    resize18, k18, l18 = drive_resize(ps, services, pod_ips, tr, pool_tr,
-                                      dev)
-
-    # 19. The agent on the card: the watch store, the mTLS wire, a re-list,
-    # the surfaces, the pipe transport.
-    agent19, l19, k19 = drive_agent(ps, services, pod_ips, tr, dev, kept13)
-    del kept13
+        # 16. Tenant worlds and the serving batcher, restart from a persist
+        # dir, the scalar twin; 18. live resize and replica-loss failover
+        # on the mesh engine; 20. the controller's fan-out and status
+        # plane around node-0's agent.
+        tenants, k16, l16 = children[16].join()
+        resize18, k18, l18 = children[18].join()
+        fleet20, k20, l20 = children[20].join()
+    finally:
+        for child in children.values():
+            child.stop()
 
     def p17(tag, k=k17):
         return {f"{shape} {name}": at(r) for shape, recs in k.items()
@@ -5202,10 +5985,13 @@ def main() -> int:
                                               for k, v in l18.items()},
                     launches_phase19=sum(v[i] for v in l19.values()),
                     launches_phase19_by_part={k: v[i]
-                                              for k, v in l19.items()})
+                                              for k, v in l19.items()},
+                    launches_phase20=sum(v[i] for v in l20.values()),
+                    launches_phase20_by_part={k: v[i]
+                                              for k, v in l20.items()})
 
-    def p19(tag):
-        return {name: at(r) for name, r in k19.items()
+    def p19(tag, k=k19):
+        return {name: at(r) for name, r in k.items()
                 if name.split()[1] == tag}
 
     def rec(name, src, replaces, launches, r, **extra):
@@ -5251,7 +6037,7 @@ def main() -> int:
             launches_phase17=sum(v[0] for v in l17.values()),
             launches_phase17_by_shape={k: v[0] for k, v in l17.items()},
             phase17=p17("B1"), **l18_of(0), phase18=p17("B1", k18),
-            phase19=p19("B1")),
+            phase19=p19("B1"), phase20=p19("B1", k20)),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
@@ -5261,7 +6047,8 @@ def main() -> int:
             launches_phase17=sum(v[1] for v in l17.values()),
             launches_phase17_canary=mesh17["1x2"]["canary_launches"][1],
             phase17=p17("B2"), **l18_of(1), phase18=p17("B2", k18),
-            phase19=p19("B2"), tenant_rows=at(k16["b2"])),
+            phase19=p19("B2"), phase20=p19("B2", k20),
+            tenant_rows=at(k16["b2"])),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, **{k: v for k, v in at(b3["cold"]).items()
@@ -5280,7 +6067,7 @@ def main() -> int:
                 "launches_in_tenant_worlds"][2],
             tenant_rows=at(k16["b3"]),
             launches_phase17=sum(v[2] for v in l17.values()), **l18_of(2),
-            phase19=p19("B3")),
+            phase19=p19("B3"), phase20=p19("B3", k20)),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -5324,7 +6111,7 @@ def main() -> int:
                     "profile": profiles, "knob_step_ms": knob_ms,
                     "dual_stack": dual, "tenants": tenants,
                     "mesh_engine": mesh17, "resize": resize18,
-                    "agent": agent19}))
+                    "agent": agent19, "fleet": fleet20}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5333,4 +6120,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(phase_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

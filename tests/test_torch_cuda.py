@@ -1438,3 +1438,18 @@ def test_subprocess_agent_on_the_card_by_default(cuda):
         assert got["ingress_rule"] == want.ingress_rule
         assert got["egress_rule"] == want.egress_rule
         assert sub._stderr_tail() == ""
+
+
+def test_fleet_agent_on_the_card_equals_cpu(cuda, tmp_path):
+    """tests/test_torch_fleet.py's mTLS fleet (fake agents on node-1 ..
+    node-8, node-0's NetAgent driving the port's engine, statuses to one
+    StatusAggregator) twice: node-0's engine on the card, then on the CPU.
+    Through the install and a policy's deletion, every field of each step
+    of node-0's engine equal."""
+    import torch_fleet_world as tfw
+
+    got = tfw.walk(str(tmp_path / "card"), cuda)
+    want = tfw.walk(str(tmp_path / "cpu"), "cpu")
+    assert len(got) == len(want) == 4
+    for k, (rg, rc) in enumerate(zip(got, want)):
+        _same_results(rg, rc, f"step {k}")

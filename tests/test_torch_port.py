@@ -57,7 +57,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     for mod in ("consumer", "pruned_consumer", "onepass", "consumer2"):
         assert f"antrea_tpu_torch.ops.{mod}" in res["modules"]
     for mod in (_SLICE_MODULES + _ENGINE_MODULES + _SERVING_MODULES
-                + _AGENT_MODULES):
+                + _AGENT_MODULES + _FLEET_MODULES):
         assert mod in res["modules"]
     assert res["bad"] == []
 
@@ -102,6 +102,21 @@ _AGENT_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
     "agent.apiserver", "controller.traceflow", "controller.endpoint_querier",
     "observability.agentinfo", "observability.supportbundle", "antctl"))
 
+# The fleet slice's modules: the fleet simulator, the controller's status
+# plane and API, the node agent's host programs, multi-cluster, each a copy
+# of the JAX package's module of the same path.
+_FLEET_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
+    "simulator.fleet", "controller.status", "controller.apiserver",
+    "controller.certificates", "controller.egress",
+    "controller.externalippool", "controller.externalnode",
+    "controller.serviceexternalip", "controller.stats",
+    "observability.audit", "agent.packetin", "agent.multicast",
+    "agent.nodeportlocal", "agent.cni", "agent.secondarynetwork",
+    "agent.memberlist", "agent.bgp", "agent.bgp_wire", "agent.gossip",
+    "agent.ipassigner", "agent.ipsec", "agent.monitortool", "agent.route",
+    "agent.wireguard", "multicluster", "multicluster.core",
+    "multicluster.gateway", "clusteridentity"))
+
 _IMPORT_ONE = """
 import importlib, json, sys
 importlib.import_module(sys.argv[1])
@@ -115,7 +130,7 @@ print(json.dumps(sorted(n for n in sys.modules
     # The agent slice's entry points: the CLI, the child agent process and
     # the package that holds the agent.
     "antrea_tpu_torch.antctl", "antrea_tpu_torch.dissemination.agent_proc",
-    "antrea_tpu_torch.agent"))
+    "antrea_tpu_torch.agent") + _FLEET_MODULES)
 def test_module_alone_loads_neither_jax_nor_the_jax_package(module):
     r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -128,14 +143,15 @@ def test_no_source_imports_jax_or_the_jax_package():
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
               ROOT / "chip_b3_variants.py", ROOT / "bench_cold_study_torch.py",
               ROOT / "graft_entry_torch.py",
-              ROOT / "tests" / "torch_mesh_ranks.py"]
+              ROOT / "tests" / "torch_mesh_ranks.py",
+              ROOT / "tests" / "torch_fleet_world.py"]
     assert {"mesh.py", "forwarding.py", "topology.py"} <= {f.name
                                                           for f in files}
     rel = {str(f.relative_to(ROOT)) for f in files}
     for sub in ("datapath", "observability", "oracle", "controller",
                 "dissemination", "serving", "native"):
         assert any(r.startswith(f"antrea_tpu_torch/{sub}/") for r in rel), sub
-    for mod in _SERVING_MODULES + _AGENT_MODULES:
+    for mod in _SERVING_MODULES + _AGENT_MODULES + _FLEET_MODULES:
         path = mod.replace(".", "/")
         assert f"{path}.py" in rel or f"{path}/__init__.py" in rel, mod
     seen = []
@@ -575,6 +591,24 @@ _COPIES = {
     "antctl.py": ("__doc__", "_cmd_check", "main"),
     # It also names the modules the port holds (serde, faults).
     "dissemination/__init__.py": ("__doc__",),
+    # The fleet, the status plane, the controller's API and the node
+    # agent's host programs.
+    "simulator/fleet.py": (), "controller/status.py": (),
+    "controller/apiserver.py": (), "controller/certificates.py": (),
+    "controller/egress.py": (), "controller/externalippool.py": (),
+    "controller/externalnode.py": (), "controller/serviceexternalip.py": (),
+    "controller/stats.py": (), "observability/audit.py": (),
+    "agent/packetin.py": (), "agent/multicast.py": (),
+    "agent/nodeportlocal.py": (), "agent/cni.py": (),
+    "agent/secondarynetwork.py": (), "agent/memberlist.py": (),
+    "agent/bgp.py": (), "agent/bgp_wire.py": (),
+    "agent/ipassigner.py": (), "agent/ipsec.py": (),
+    "agent/monitortool.py": (), "agent/route.py": (),
+    "agent/wireguard.py": (), "multicluster/__init__.py": (),
+    "multicluster/core.py": (), "multicluster/gateway.py": (),
+    "clusteridentity.py": (),
+    # Its usage line names the port's module.
+    "agent/gossip.py": ("main",),
 }
 
 
