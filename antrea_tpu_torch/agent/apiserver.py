@@ -286,7 +286,7 @@ class AgentApiServer:
                 # Operator-triggered full sweep (antctl audit --force):
                 # run it synchronously THROUGH the maintenance scheduler
                 # (the one serialization point against drains/overlap —
-                # tools/check_maintenance.py forbids a direct audit_scan
+                # analysis pass `maintenance` forbids a direct audit_scan
                 # call site here), then report the refreshed status with
                 # the sweep's own findings attached.
                 scan = self._dp.maintenance_force_audit(

@@ -82,7 +82,7 @@ antrea_tpu_cache_audit_repairs_total, antrea_tpu_tensor_scrub_total
 {outcome}, antrea_tpu_audit_cursor_coverage_ratio) and the agent API's
 GET /audit route (`antctl audit --server URL [--force]`).
 
-tools/check_audit_plane.py (tier-1, wired like check_commit_plane.py)
+analysis pass `audit-plane` (of the port's analysis plane)
 asserts every mutable device tensor named in `_commit_snapshot` is covered
 by SCRUB_MANIFEST below or explicitly waived in SCRUB_ALLOWLIST with a
 reason — state added by a future PR fails the build until it is scrubbed
@@ -102,7 +102,7 @@ from ..compiler.compile import ACT_ALLOW
 # (digest pinned to the accounted-mutation counter, self-heal by forced
 # full-cache revalidation).  "dft" is scrubbed too although topology lives
 # outside the commit snapshot (install_topology refreshes its golden).
-# Pure literals: tools/check_audit_plane.py parses them dependency-free.
+# Pure literals: analysis pass `audit-plane` parses them dependency-free.
 SCRUB_MANIFEST = {
     "drs": "rule",
     "dsvc": "rule",
@@ -115,7 +115,7 @@ SCRUB_MANIFEST = {
 # an explicit, GATED record.  Deliberately NOT manifest rows — the
 # maintenance scheduler prices the scrub task at len(SCRUB_MANIFEST)
 # digest groups, and these are not extra folds.  Pure literal for
-# tools/check_audit_plane.py, which gates each entry against the field
+# analysis pass `audit-plane`, which gates each entry against the field
 # that motivates it (a dropped field must drop its row and vice versa).
 SCRUB_SUBTENSORS = {
     # Round-7 aggregate tables (ops/match.DimTable.agg): a corrupt
@@ -129,7 +129,7 @@ SCRUB_SUBTENSORS = {
 
 # _commit_snapshot keys that are NOT device tensors, each with the reason
 # it needs no scrub.  A new snapshot key in neither table fails
-# tools/check_audit_plane.py.
+# analysis pass `audit-plane`.
 SCRUB_ALLOWLIST = {
     "gen": "host int; journaled by the settle stage (cookie round)",
     "ps": "host spec object; a re-upload SOURCE, not device state",

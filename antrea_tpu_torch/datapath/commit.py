@@ -532,7 +532,7 @@ class TransactionalDatapath:
     call `_init_commit_plane` at the END of their constructor (after
     persistence restore, so the boot state is the LKG baseline).  The
     public `install_bundle`/`apply_group_delta` live ONLY here —
-    tools/check_commit_plane.py fails the build if an engine grows a
+    analysis pass `commit-plane` fails the build if an engine grows a
     direct tensor-swap entry point outside this plane.
     """
 

@@ -490,7 +490,7 @@ class Datapath(ABC):
         `tenant` rides every row (0 = the default world) so drains
         classify each queued miss in its owner's policy world — the
         tenant id joins the queue exactly as it joins the slot/affinity/
-        shard hashes (datapath/tenancy.py; tools/check_tenant.py fails
+        shard hashes (datapath/tenancy.py; analysis pass `tenant` fails
         the build if an admit path drops it)."""
         return {
             "src_ip": batch.src_ip.astype(np.int64),

@@ -22,7 +22,7 @@ tests test_cache_audit.py used to enumerate by hand):
   * every loop registers a `MaintenanceTask` with a declared budget
     (rows / probes / passes per tick) and a priority;
   * `MaintenanceScheduler.tick(now, budget)` is the ONLY entry point
-    that runs them (tools/check_maintenance.py fails the build on a
+    that runs them (analysis pass `maintenance` fails the build on a
     direct `canary_scan`/`audit_scan`/`maintain` call site outside this
     module or the tests) — deficit-round-robin across tasks,
     budget-clamped, starvation-free (a task deferred for
@@ -58,7 +58,7 @@ from ..config import ConfigError
 from .audit import SCRUB_MANIFEST
 
 # Task inventory: name -> owning plane.  Pure literals on purpose —
-# tools/check_maintenance.py parses this table dependency-free and fails
+# analysis pass `maintenance` parses this table dependency-free and fails
 # the build when a registered task is missing or an off-hot-step loop
 # grows a call site outside the scheduler.
 MAINT_TASKS = {

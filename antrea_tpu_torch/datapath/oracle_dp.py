@@ -73,7 +73,7 @@ class OracleDatapath(TenantedDatapath, MaintainableDatapath,
                      TransactionalDatapath, AuditableDatapath,
                      persist.PersistableDatapath, Datapath):
     # Per-world swap set of the scalar twin (datapath/tenancy; the
-    # tpuflow list's scalar counterpart — tools/check_tenant.py pins the
+    # tpuflow list's scalar counterpart — analysis pass `tenant` pins the
     # required members).  The PipelineOracle object IS the world's
     # rule + state estate here.
     _TENANT_WORLD_FIELDS = (

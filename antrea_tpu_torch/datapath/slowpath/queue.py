@@ -21,7 +21,7 @@ import numpy as np
 # the per-flow volume contribution exactly as the synchronous slow path
 # would have seen them; `tenant` is the owning policy world (0 = the
 # default world — datapath/tenancy.py partitions drains by it, and
-# tools/check_tenant.py fails the build if the schema drops it);
+# analysis pass `tenant` fails the build if the schema drops it);
 # epoch/enq_ts are observability (dump + epoch-age).
 COLUMNS = (
     "src_ip", "dst_ip", "proto", "src_port", "dst_port",

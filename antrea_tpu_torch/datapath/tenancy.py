@@ -40,7 +40,7 @@ the mesh — with three hard guarantees:
                     (parallel/mesh.shard_of_tuples(tenant=)), and the
                     miss queue carries a tenant column so drains
                     classify every row in its owner's world
-                    (tools/check_tenant.py gates all three surfaces).
+                    (analysis pass `tenant` gates all three surfaces).
 
   ISOLATION         per-tenant flow-cache quotas are structural (a
                     tenant's churn storm can only evict rows of its own
@@ -57,7 +57,7 @@ the mesh — with three hard guarantees:
 
 Mechanically the plane is a WORLD SWAP: `TenantWorld` captures the
 complete per-world field set of an engine (`_TENANT_WORLD_FIELDS` on
-each engine class — tools/check_tenant.py pins the required members),
+each engine class — analysis pass `tenant` pins the required members),
 plus the commit plane's per-world slice (degraded/LKG), the audit
 plane's golden digests and the slow-path staleness flag.  `_world_ctx`
 swaps a world in, runs the ordinary engine machinery — step, install,
@@ -97,8 +97,8 @@ from ..ops.match import pad_ruleset_entries
 TENANT_DEFAULT_QUOTA = 1 << 12
 TENANT_QUEUE_FRAC = 4
 
-# Commit-plane per-world slice swapped by _world_ctx (tools/check_tenant
-# pins this literal against datapath/commit.CommitPlane's fields).
+# Commit-plane per-world slice swapped by _world_ctx (analysis pass
+# `tenant` pins this literal against datapath/commit.CommitPlane's fields).
 COMMIT_WORLD_FIELDS = ("degraded", "last_error", "lkg_generation", "lkg_at")
 
 
@@ -200,11 +200,11 @@ class TenantedDatapath:
         # the compile machinery a world rebuild needs exists.
         self._restore_tenant_worlds()
 
-    # -- flight recorder (literal-kind discipline, tools/check_events) -------
+    # -- flight recorder (literal-kind discipline, pass `events`) -----
 
     def _emit(self, kind: str, **fields) -> None:
         """Flight-recorder shim (the per-plane literal-kind discipline
-        tools/check_events.py greps for; engines that define their own
+        analysis pass `events` greps for; engines that define their own
         identical shim shadow this one harmlessly)."""
         emit_into(self, kind, **fields)
 

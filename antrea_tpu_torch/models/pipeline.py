@@ -62,6 +62,28 @@ from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
                          from_numpy, resolve_device, rewalk_hits,
                          ruleset_from_numpy, shard_offsets, to_host)
 
+# Every device->host sync of this module's functions, "function" or
+# "Class.method" -> why it is there.  A pure literal: the analysis plane's
+# host-sync pass holds it against the module's explicit sync calls, and
+# chip_smoke.py's sync census against the syncs the card reports.  Rows
+# for syncs no AST sees start with "implicit:".
+HOST_SYNCS = {
+    "pipeline_step": "the step's read-back of which conditional phases run "
+                     "and the miss count that sizes the round loop; the "
+                     "staged rounds' miss-lane compaction (nonzero) sizes "
+                     "their gathers; two uploads of host ints (the hits' "
+                     "idle-refresh stamp written by index, the n_miss "
+                     "output)",
+    "_slow_onepass": "the one-pass fallback lanes (nonzero of B3's flag "
+                     "column) size the B1 re-walk's gather",
+    "_delta_fixup": "the miss lanes a pending delta covers (nonzero) size "
+                    "their overlay",
+    "tensor_digest": "the scrub digest is a host int: one read-back for all "
+                     "leaves, off the step",
+    "_prune_bucket_counts": "implicit: the histogram's bucket bounds are "
+                            "uploaded from a host tuple on every call",
+}
+
 MISS = -1
 # Generation tag reserved for conntrack-committed (ALLOW) entries; rule
 # generations are taken mod GEN_ETERNAL so they never collide with it.

@@ -21,7 +21,7 @@ shape: bounded, always on, cheap enough to leave running):
     so fault-injected time (dissemination/faults.FaultClock) stamps the
     journal deterministically in the chaos tier;
   * events are TYPED: `emit(kind=...)` accepts only kinds declared in
-    EVENT_KINDS below — tools/check_events.py fails the build on an
+    EVENT_KINDS below — analysis pass `events` fails the build on an
     undeclared kind at any call site, a declared kind with no emit site,
     or a kind missing its README row.
 
@@ -53,7 +53,7 @@ from collections import Counter
 from typing import Callable, Optional
 
 # The typed event schema: kind -> emitting plane + meaning.  Pure
-# literals on purpose — tools/check_events.py parses this dependency-free
+# literals on purpose — analysis pass `events` parses this dependency-free
 # and fails the build when an emit site uses an undeclared kind, a
 # declared kind has no emit site, or a kind has no README row.
 EVENT_KINDS = {
@@ -204,7 +204,7 @@ def emit_into(carrier, kind: str, **fields) -> None:
     """Journal one event into `carrier`'s flight recorder, a no-op when
     it has none — the ONE null-recorder discipline every plane's `_emit`
     shim delegates to (the shims keep the literal kind at their call
-    sites, which is what tools/check_events.py greps)."""
+    sites, which is what analysis pass `events` greps)."""
     rec = getattr(carrier, "_flightrec", None)
     if rec is not None:
         rec.emit(kind=kind, **fields)

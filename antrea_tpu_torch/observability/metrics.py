@@ -11,7 +11,7 @@ render_metrics() is the scrape function; the simulator (or any collector)
 consumes the text directly.
 
 Exposition discipline (enforced by tests/test_prom_exposition.py's strict
-parser and tools/check_metrics.py's README drift check):
+parser and analysis pass `metrics`'s README drift check):
   * every emitted family is declared in METRICS (name -> type) and gets its
     `# TYPE` line from _type_line — an undeclared name cannot be emitted;
   * all label rendering goes through _labels (one escaping/formatting
@@ -23,7 +23,7 @@ from __future__ import annotations
 import bisect
 
 # The complete metric inventory: family name -> Prometheus type.  The ONE
-# registry tools/check_metrics.py diffs against the README "Observability"
+# registry analysis pass `metrics` diffs against the README "Observability"
 # table; render functions emit TYPE lines via _type_line so an unregistered
 # family fails loudly at render time, not silently at scrape time.
 METRICS: dict[str, str] = {

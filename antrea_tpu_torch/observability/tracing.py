@@ -50,7 +50,7 @@ from .metrics import Histogram
 
 # Stage DURATIONS of one realization span, in causal order; each is the
 # gap to the previous stage's stamp (origin: the controller commit).
-# tools/check_events.py asserts this tuple, the README span-stage table
+# analysis pass `events` asserts this tuple, the README span-stage table
 # and the antrea_tpu_policy_realization_seconds registration agree.
 REALIZATION_STAGES = (
     "wire", "queue_wait", "compile", "canary", "swap", "settle",

@@ -53,6 +53,21 @@ from ..utils import ip as iputil
 from . import consumer, pruned_consumer
 
 # "No match" sentinel for first-match indices (the kernel's too).
+# Every device->host sync of this module's functions, "function" or
+# "Class.method" -> why it is there (the contract of models/pipeline.py's
+# HOST_SYNCS: the analysis plane's host-sync pass and chip_smoke.py's sync
+# census hold it).
+HOST_SYNCS = {
+    "delta_overlay": "the lanes a delta slot covers (nonzero) and the "
+                     "distinct (row, slot mask) keys (unique) size the "
+                     "patched-row overlay",
+    "rewalk_hits": "the fallback lanes on plain and on patched rows "
+                   "(nonzero) size B1's two gathers",
+    "_classify_pruned": "one read-back: whether any lane has a candidate "
+                        "and how many fall back; the fallback lanes "
+                        "(nonzero) size the B1 re-walk",
+}
+
 BIG = consumer.BIG
 
 # Aggregated-bitmap pruning.  One aggregate bit summarizes one incidence

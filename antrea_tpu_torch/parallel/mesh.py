@@ -421,6 +421,35 @@ def _cols(a, n: int, i: int):
     return a[..., i * k:(i + 1) * k]
 
 
+# Every field of the rule-set NamedTuples (ops/match.py) that rule_slice
+# does not cut is replicated on each rule shard; "Class.field" -> why.  A
+# pure literal: the analysis plane's mesh pass holds it, rule_slice and
+# rule_join against the NamedTuples' fields.
+MESH_REPLICATED = {
+    "DeviceRuleSet.iso_in": "K8s isolation bits are per packet, not per "
+                            "rule word: every shard resolves with them",
+    "DeviceRuleSet.iso_out": "as iso_in, for the egress direction",
+    "DeviceDirection.action": "indexed by the GLOBAL first-match rule "
+                              "after the combine, on every shard",
+    "DeviceDirection.l7": "indexed by the global rule, like action",
+    "DimTable.bounds": "every shard searches the same interval bounds "
+                       "for the lanes' rows",
+    "DimTable.bounds6": "the v6 interval bounds, like bounds",
+    "IsoTable.bounds": "isolation membership is not rule-indexed",
+    "IsoTable.bounds6": "the v6 isolation bounds, like bounds",
+    "IsoTable.val": "the isolation bit per interval, like bounds",
+    "DeltaTable.lo_f": "a delta slot's address range is the same on "
+                       "every shard; only its rule masks split",
+    "DeltaTable.hi_f": "as lo_f",
+    "DeltaTable.lo6_w": "a v6 slot's address range, as lo_f",
+    "DeltaTable.hi6_w": "as lo6_w",
+    "DeltaTable.sign": "a slot's set / clear, the same on every shard",
+    "DeltaTable.iso": "a slot's isolation patch bits, not rule-indexed",
+    "DeltaTable.n": "the active slot count, one for the whole rule set",
+    "DeltaTable.fam": "a slot's address family, not rule-indexed",
+}
+
+
 def rule_slice(drs_np: m.DeviceRuleSet, n_rule: int, r: int):
     """Rule shard r of a numpy rule set built with word_multiple = n_rule
     (mesh.py:262-306): incidence and aggregate tables split on their

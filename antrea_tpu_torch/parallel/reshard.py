@@ -89,9 +89,9 @@ from ..utils import ip as iputil
 from .mesh import LocalMesh, local_mesh, shard_of_tuples
 
 # Migration rule per per-replica state field, keyed "Class.field".  A pure
-# literal (the JAX package's drift gate parses its twin with
-# ast.literal_eval): every field of FlowCache / AffinityTable must carry a
-# rule, and every rule must name such a field.
+# literal (the analysis pass `reshard` parses it with ast.literal_eval):
+# every field of FlowCache / AffinityTable must carry a rule, and every
+# rule must name such a field.
 RESHARD_MANIFEST = {
     "FlowCache.keys": "row-migrate to (target-ring home, SAME local slot "
                       "— the cache slot hash is D-independent); the key "

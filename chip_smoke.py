@@ -309,6 +309,21 @@ package is missing, or when any phase fails.  Phases, in order:
      read around each call of node-0's engines, the first call of each
      kernel recorded and held to its plain version; B3 must have launched
      in each part.
+ 21. the static-analysis plane and the card's sync census, after phases
+     16-20 have joined: (a) antrea_tpu_torch.analysis.run() over this
+     checkout, clean with an empty BASELINE.analysis_torch.json, its
+     seconds and pass inventory printed; (b) phase 13's one-pass engine
+     and the bare staged fused step (flow_slots=2**22, miss_chunk=256),
+     each warmed with a cold and a warm step of the headline batch, then
+     CENSUS_STEPS (4) steady steps from one cloned state twice: under
+     torch.cuda.set_sync_debug_mode("warn") (utils/sync_census.py: each
+     sync attributed to the innermost frame inside antrea_tpu_torch/) and
+     without it.  Every StepResult field (the engine) or output (the bare
+     step) and the final state bitwise equal; the syncs a step printed by
+     site and line; every sync in models/ or ops/ at a function its
+     module's HOST_SYNCS declares; B3 launched on the engine's steps and
+     B1 on the staged step's (the counts read around each run, equal in
+     both), the first call of each recorded and held to its plain version.
 
 In phase 3 also B3h (B3's hits-only variant, resolve=False) against its
 plain version on B3's inputs: on the whole tables (w0 = 0) and on each half
@@ -5629,6 +5644,223 @@ def drive_fleet(dev):
 
 
 # The phases run by child processes of the script, each by phase_main.
+# ---- phase 21: the static-analysis plane and the card's sync census --------
+# Steady steps of each path the census runs twice (under the sync debug
+# mode and without it), after a cold and a warm step.
+CENSUS_STEPS = 4
+
+
+def result_digest(r) -> str:
+    """sha256 of every field of a StepResult (arrays by their bytes, the
+    rule-id lists and counts by their JSON)."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for f in dataclasses.fields(r):
+        v = getattr(r, f.name)
+        h.update(f.name.encode())
+        if isinstance(v, np.ndarray):
+            h.update(str(v.dtype).encode() + np.ascontiguousarray(v).tobytes())
+        else:
+            h.update(json.dumps(jsonable(v), sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def census_steps(run, n, census):
+    """n steady steps through run(i) -> (digests, seconds per step, (B1, B2,
+    B3, B3h, S1) launches, the census or None), under the sync debug mode
+    when census is set (a SyncCensus), the launch counts read around the
+    steps (never written), the kernels' inputs recorded (KernelInputs)
+    while the census runs."""
+    import contextlib
+
+    import torch
+
+    ki = KernelInputs()
+    before = counts5()
+    outs, times = [], []
+    with census if census is not None else contextlib.nullcontext(), \
+            ki if census is not None else contextlib.nullcontext():
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(run(i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return outs, times, launched(before), ki.seen
+
+
+def drive_census(cps, svc, ps, services, pod_ips, tr, dev):
+    """Phase 21: (a) the port's static-analysis suite over this checkout,
+    clean with an empty baseline; (b) the sync census: phase 13's one-pass
+    engine and the bare staged fused step, each warmed (a cold and a warm
+    step), then CENSUS_STEPS steady steps from one cloned state twice,
+    under torch.cuda.set_sync_debug_mode("warn") and without it: every
+    StepResult field (the engine) or output (the bare step) and the final
+    state bitwise equal, the syncs a step printed by site, every sync in
+    models/ or ops/ at a function HOST_SYNCS declares, B3 launched on the
+    engine's steps and B1 on the staged step's, the first call of each held
+    to its plain version.  -> (record, {path: kernel records}, {path:
+    launches})."""
+    import gc
+
+    import torch
+
+    from antrea_tpu_torch import analysis
+    from antrea_tpu_torch.analysis import host_sync
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.models import pipeline as pl
+    from antrea_tpu_torch.utils.sync_census import SyncCensus
+
+    t21 = time.perf_counter()
+    t0 = time.perf_counter()
+    res = analysis.run()
+    analysis_s = time.perf_counter() - t0
+    baseline, problems = analysis.load_baseline(analysis.REPO)
+    if not res.clean or res.suppressed or baseline or problems:
+        raise SystemExit(
+            "analysis: " + "; ".join([f.render() for f in res.findings]
+                                     + res.errors + problems)
+            + f" ({len(res.suppressed)} suppressed, baseline rows "
+              f"{sorted(baseline)})")
+    log(f"analysis: {len(res.pass_ids)} passes clean over "
+        f"{analysis.REPO} in {analysis_s:.2f} s, empty baseline: "
+        + ", ".join(res.pass_ids))
+    declared = host_sync.declared(analysis.REPO)
+    rec = dict(analysis_s=analysis_s, passes=res.pass_ids)
+    kern, launches, undeclared = {}, {}, []
+
+    def census_of(what, run, reset, final, tags):
+        """Both runs of one path: reset() puts the path's state back to
+        the warm clone, run(i) steps it (-> a thunk of the step's
+        digests, taken after the run), final() digests the state."""
+        census = SyncCensus()
+        got = {}
+        for mode in ("census", "plain"):
+            reset()
+            outs, times, n, seen = census_steps(
+                run, CENSUS_STEPS, census if mode == "census" else None)
+            got[mode] = dict(digests=[o() for o in outs], times=times,
+                             launches=n, final=final())
+            if mode == "census":
+                kern[what] = check_phase19(seen, f"21 {what}", tags,
+                                           phase=21)
+        if (got["census"]["digests"] != got["plain"]["digests"]
+                or got["census"]["final"] != got["plain"]["final"]):
+            raise SystemExit(f"census {what}: the steps under the sync "
+                             f"debug mode differ from the same steps "
+                             f"without it")
+        if got["census"]["launches"] != got["plain"]["launches"]:
+            raise SystemExit(f"census {what}: launches "
+                             f"{got['census']['launches']} under the mode, "
+                             f"{got['plain']['launches']} without it")
+        bad = census.undeclared(declared)
+        sites = {f"{r}:{k}": n / CENSUS_STEPS
+                 for (r, k), n in census.sites.most_common()}
+        held = {f"{r}:{k}": n / CENSUS_STEPS
+                for (r, k), n in census.held().items()}
+        lines = {f"{r}:{k}:{ln}": n / CENSUS_STEPS
+                 for (r, k, ln), n in census.lines.most_common()}
+        med = sorted(got["plain"]["times"])[CENSUS_STEPS // 2]
+        med_c = sorted(got["census"]["times"])[CENSUS_STEPS // 2]
+        out = dict(syncs_per_step=census.total / CENSUS_STEPS,
+                   held_per_step=sum(held.values()), sites=sites,
+                   lines=lines, unattributed=census.unattributed,
+                   frame_matches=census.frame_matches,
+                   launches=got["plain"]["launches"], steady_ms=med * 1e3,
+                   steady_ms_census=med_c * 1e3)
+        log(f"census {what}: {census.total / CENSUS_STEPS:g} syncs a step "
+            f"({out['held_per_step']:g} in models/ and ops/, "
+            f"{census.unattributed} with no package frame; the warning "
+            f"named the attributed frame for {census.frame_matches} of "
+            f"{census.total}); steady {med * 1e3:.3f} ms/step, "
+            f"{med_c * 1e3:.3f} under the mode; bitwise equal with and "
+            f"without the mode; (B1, B2, B3, B3h, S1) launches "
+            f"{got['plain']['launches']} in each run")
+        for site, n in sites.items():
+            log(f"  {n:g} a step  {site}")
+        for site, n in lines.items():
+            log(f"    {n:g} a step  {site}")
+        undeclared.extend(f"{what}: {r}:{k} ({n / CENSUS_STEPS:g} a step)"
+                          for (r, k), n in sorted(bad.items()))
+        launches[what] = got["plain"]["launches"]
+        return out
+
+    # The one-pass engine (phase 13's knobs).
+    kw = dict(flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK,
+              canary_probes=ENGINE_PROBES, topology=node0_spec(pod_ips),
+              fused=True, prune_budget=PRUNE_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = TpuflowDatapath(world_copy(ps), services, device=dev, **kw)
+    hb = engine_batch(tr.src_ip, tr.dst_ip, tr.proto, tr.src_port,
+                      tr.dst_port, pod_ips)
+    for now in NOWS[:2]:
+        eng.step(hb, now)
+    torch.cuda.synchronize()
+    rec["engine_build_warm_s"] = time.perf_counter() - t0
+    s0 = pl.clone_state(eng._state)
+
+    def reset_engine():
+        eng._state = pl.clone_state(s0)
+
+    def step_engine(i):
+        r = eng.step(hb, NOWS[2 + i])
+        return lambda: result_digest(r)
+
+    rec["engine"] = census_of("one-pass engine", step_engine, reset_engine,
+                              lambda: digests([], eng._state)[1], ["B3"])
+    if not launches["one-pass engine"][2]:
+        raise SystemExit(f"census: B3 did not launch on the engine's steps "
+                         f"{launches['one-pass engine']}")
+    del eng, s0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The bare staged fused step.
+    t0 = time.perf_counter()
+    step, state, (drs, dsvc) = pl.make_pipeline(
+        cps, svc, flow_slots=FLOW_SLOTS, miss_chunk=MISS_CHUNK, fused=True,
+        device=dev)
+    lanes = to_lanes(tr, dev)
+    for now in NOWS[:2]:
+        state, _ = step(state, drs, dsvc, *lanes, now, 0)
+    torch.cuda.synchronize()
+    rec["staged_build_warm_s"] = time.perf_counter() - t0
+    s0 = pl.clone_state(state)
+    cur = {}
+
+    def reset_staged():
+        cur["state"] = pl.clone_state(s0)
+
+    def step_staged(i):
+        cur["state"], out = step(cur["state"], drs, dsvc, *lanes,
+                                 NOWS[2 + i], 0)
+        out = {k: v.clone() for k, v in out.items()}
+        return lambda: digests([out], ())[0][0]
+
+    rec["staged"] = census_of("staged step", step_staged, reset_staged,
+                              lambda: digests([], cur["state"])[1], ["B1"])
+    if not launches["staged step"][0]:
+        raise SystemExit(f"census: B1 did not launch on the staged step's "
+                         f"steps {launches['staged step']}")
+    del step, state, drs, dsvc, lanes, s0, cur
+    gc.collect()
+    torch.cuda.empty_cache()
+    if undeclared:
+        raise SystemExit("census: syncs in models/ or ops/ at functions no "
+                         "HOST_SYNCS row declares: " + ", ".join(undeclared))
+    rec["phase_s"] = time.perf_counter() - t21
+    log(f"phase 21 took {rec['phase_s']:.1f} s (analysis "
+        f"{analysis_s:.2f} s, engine built and warmed in "
+        f"{rec['engine_build_warm_s']:.1f} s, the staged step in "
+        f"{rec['staged_build_warm_s']:.1f} s)")
+    return rec, kern, launches
+
+
 PHASE_CHILDREN = (16, 18, 20)
 # A child's torch intra-op threads: several processes share the host's
 # cores, and idle OpenMP threads spin on the cores their neighbours need.
@@ -5975,6 +6207,11 @@ def main() -> int:
         for child in children.values():
             child.stop()
 
+    # 21. The static-analysis suite over this checkout, and the sync census
+    # of the one-pass engine's and the bare staged step's steady steps.
+    census21, k21, l21 = drive_census(cps, svc, ps, services, pod_ips, tr,
+                                      dev)
+
     def p17(tag, k=k17):
         return {f"{shape} {name}": at(r) for shape, recs in k.items()
                 for name, r in recs.items() if name.startswith(tag)}
@@ -5989,6 +6226,15 @@ def main() -> int:
                     launches_phase20=sum(v[i] for v in l20.values()),
                     launches_phase20_by_part={k: v[i]
                                               for k, v in l20.items()})
+
+    def l21_of(i):
+        return dict(launches_phase21=sum(v[i] for v in l21.values()),
+                    launches_phase21_by_path={k: v[i]
+                                              for k, v in l21.items()})
+
+    def p21(tag):
+        return {f"{path} {name}": at(r) for path, recs in k21.items()
+                for name, r in recs.items() if name.split()[0] == tag}
 
     def p19(tag, k=k19):
         return {name: at(r) for name, r in k.items()
@@ -6037,7 +6283,8 @@ def main() -> int:
             launches_phase17=sum(v[0] for v in l17.values()),
             launches_phase17_by_shape={k: v[0] for k, v in l17.items()},
             phase17=p17("B1"), **l18_of(0), phase18=p17("B1", k18),
-            phase19=p19("B1"), phase20=p19("B1", k20)),
+            phase19=p19("B1"), phase20=p19("B1", k20), **l21_of(0),
+            phase21=p21("B1")),
         rec("B2 pruned consumer", "antrea_tpu_torch/csrc/pruned_consumer.cu",
             "antrea_tpu/ops/match.py:1517", sp_launches[1], b2[256],
             **rows_bounds(b2[256]), at_B32768=at(b2[32768]),
@@ -6048,7 +6295,7 @@ def main() -> int:
             launches_phase17_canary=mesh17["1x2"]["canary_launches"][1],
             phase17=p17("B2"), **l18_of(1), phase18=p17("B2", k18),
             phase19=p19("B2"), phase20=p19("B2", k20),
-            tenant_rows=at(k16["b2"])),
+            tenant_rows=at(k16["b2"]), **l21_of(1)),
         rec("B3 one-pass", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854", op_launches[2], b3["cold"],
             batch=B, **{k: v for k, v in at(b3["cold"]).items()
@@ -6067,7 +6314,8 @@ def main() -> int:
                 "launches_in_tenant_worlds"][2],
             tenant_rows=at(k16["b3"]),
             launches_phase17=sum(v[2] for v in l17.values()), **l18_of(2),
-            phase19=p19("B3"), phase20=p19("B3", k20)),
+            phase19=p19("B3"), phase20=p19("B3", k20), **l21_of(2),
+            phase21=p21("B3")),
         rec("B3 one-pass, hits-only", "antrea_tpu_torch/csrc/onepass.cu",
             "antrea_tpu/ops/match.py:1854 (resolve=False)",
             mesh11["onepass"][1][3], b3h["cold"], batch=B,
@@ -6079,12 +6327,14 @@ def main() -> int:
             launches_phase16=sum(v[3] for v in l16.values()),
             launches_phase17=sum(v[3] for v in l17.values()),
             launches_phase17_by_shape={k: v[3] for k, v in l17.items()},
-            phase17=p17("B3h"), **l18_of(3), phase18=p17("B3h", k18)),
+            phase17=p17("B3h"), **l18_of(3), phase18=p17("B3h", k18),
+            **l21_of(3)),
         rec("S1 consumer2", "antrea_tpu_torch/csrc/consumer2.cu",
             "bench_cold_study.py:129", s1_launches, s1[32768],
             at_B256=at(s1[256]), study_case4_ms=study_s * 1e3,
             launches_phase16=sum(v[4] for v in l16.values()),
-            launches_phase17=sum(v[4] for v in l17.values()), **l18_of(4)),
+            launches_phase17=sum(v[4] for v in l17.values()), **l18_of(4),
+            **l21_of(4)),
         # Phase 15: the same kernels on the dual-stack tables' v6 rows;
         # launches on the dual-stack walk (B1) and pruned classify (B2).
         rec("B1 consumer, dual-stack rows",
@@ -6111,7 +6361,8 @@ def main() -> int:
                     "profile": profiles, "knob_step_ms": knob_ms,
                     "dual_stack": dual, "tenants": tenants,
                     "mesh_engine": mesh17, "resize": resize18,
-                    "agent": agent19, "fleet": fleet20}))
+                    "agent": agent19, "fleet": fleet20,
+                    "census": census21}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1453,3 +1453,31 @@ def test_fleet_agent_on_the_card_equals_cpu(cuda, tmp_path):
     assert len(got) == len(want) == 4
     for k, (rg, rc) in enumerate(zip(got, want)):
         _same_results(rg, rc, f"step {k}")
+
+
+def test_engine_step_syncs_only_where_host_syncs_declares(cuda):
+    """One steady one-pass engine step of a small world under
+    torch.cuda.set_sync_debug_mode("warn") (utils/sync_census.py): every
+    sync whose innermost package frame lies in models/ or ops/ is at a
+    function its module's HOST_SYNCS declares, and B3 launched in it."""
+    from antrea_tpu_torch.datapath import TpuflowDatapath
+    from antrea_tpu_torch.ops import onepass as op
+    from antrea_tpu_torch.utils.sync_census import SyncCensus
+
+    cluster, services = _engine_world()
+    eng = TpuflowDatapath(cluster.ps, services, device=cuda,
+                          flow_slots=1 << 12, aff_slots=1 << 8,
+                          miss_chunk=64, canary_probes=0, fused=True,
+                          prune_budget=2)
+    b = _engine_batch(cluster, services, 3)
+    for now in (100, 101):
+        eng.step(b, now)
+    fresh = _engine_batch(cluster, services, 4, n=64)
+    b.src_ip[:64], b.dst_ip[:64] = fresh.src_ip, fresh.dst_ip
+    before = op.launches
+    with SyncCensus() as census:
+        r = eng.step(b, 102)
+    assert r.n_miss > 0 and op.launches == before + 1
+    assert census.held(), census.sites
+    assert census.undeclared() == {}, census.sites
+    assert census.unattributed == 0, census.sites

@@ -117,6 +117,16 @@ _FLEET_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
     "agent.wireguard", "multicluster", "multicluster.core",
     "multicluster.gateway", "clusteridentity"))
 
+# The static-analysis plane and the sync census: stdlib-only (the census
+# imports torch when it starts, never at import).
+_ANALYSIS_MODULES = tuple(f"antrea_tpu_torch.{m}" for m in (
+    "analysis", "analysis.core", "analysis.__main__", "analysis.host_sync",
+    "analysis.mesh", "analysis.metrics", "analysis.phases",
+    "analysis.reshard", "analysis.caches", "analysis.telemetry",
+    "analysis.threads", "analysis.bounded_buffer", "analysis.tenant",
+    "analysis.maintenance", "analysis.commit_plane", "analysis.audit_plane",
+    "analysis.events", "analysis.canonical_shape", "utils.sync_census"))
+
 _IMPORT_ONE = """
 import importlib, json, sys
 importlib.import_module(sys.argv[1])
@@ -130,9 +140,23 @@ print(json.dumps(sorted(n for n in sys.modules
     # The agent slice's entry points: the CLI, the child agent process and
     # the package that holds the agent.
     "antrea_tpu_torch.antctl", "antrea_tpu_torch.dissemination.agent_proc",
-    "antrea_tpu_torch.agent") + _FLEET_MODULES)
+    "antrea_tpu_torch.agent") + _FLEET_MODULES + _ANALYSIS_MODULES)
 def test_module_alone_loads_neither_jax_nor_the_jax_package(module):
     r = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+def test_analysis_import_loads_no_torch():
+    """The analysis plane runs on images without torch: importing it (and
+    the sync census module) loads neither torch nor numpy."""
+    code = ("import sys, json; import antrea_tpu_torch.analysis, "
+            "antrea_tpu_torch.analysis.__main__, "
+            "antrea_tpu_torch.utils.sync_census; "
+            "print(json.dumps(sorted(n for n in sys.modules if n.split('.')[0]"
+            " in ('torch', 'numpy', 'jax', 'antrea_tpu'))))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
@@ -609,6 +633,17 @@ _COPIES = {
     "clusteridentity.py": (),
     # Its usage line names the port's module.
     "agent/gossip.py": ("main",),
+    # The analysis passes carried over: their anchors name the port's
+    # paths (check), their docstrings the port.
+    "analysis/__init__.py": ("__doc__",),
+    "analysis/audit_plane.py": ("__doc__", "check"),
+    "analysis/bounded_buffer.py": ("check",),
+    "analysis/canonical_shape.py": ("__doc__", "_scan_function", "check"),
+    "analysis/commit_plane.py": ("__doc__", "check"),
+    "analysis/events.py": ("__doc__", "check"),
+    "analysis/maintenance.py": ("__doc__", "check"),
+    "analysis/tenant.py": ("__doc__", "check"),
+    "analysis/threads.py": ("__doc__", "check"),
 }
 
 
