@@ -67,6 +67,7 @@ from ..compiler.topology import FWD_TUNNEL, Topology, compile_topology
 from ..config import ConfigError
 from ..models import forwarding as fwd
 from ..models import pipeline as pl
+from ..observability import tracing
 from ..observability.flightrec import emit_into
 from ..observability.metrics import Histogram
 from ..observability.telemetry import TelemetryPlane
@@ -260,6 +261,8 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         # Wall time of step() as the caller sees it (dispatch, device walk
         # and the read-back of the outputs).
         self.step_hist = Histogram()
+        # Step spans (enable_step_spans): the recorder, None while off.
+        self._step_spans = None
         if self._topo is None:
             self._topo = Topology()
         self._compile_rules()
@@ -531,31 +534,53 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                 i += n
         return o
 
+    def enable_step_spans(self, slots: int = 4096) -> tracing.StepSpans:
+        """Time every later step in host spans (observability/tracing
+        STEP_SPANS) into a fresh recorder of `slots` records -> it."""
+        self._step_spans = tracing.StepSpans(slots)
+        return self._step_spans
+
+    def disable_step_spans(self) -> Optional[tracing.StepSpans]:
+        """Spans off -> the recorder they went to, or None."""
+        sp, self._step_spans = self._step_spans, None
+        return sp
+
     def step(self, batch: PacketBatch, now: int, *, valid=None) -> StepResult:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         self._maintenance.observe(now)
         if self._realization is not None:
             self._realization.first_hit(self._gen, batch.size)
+        sp = self._step_spans
+        if sp is None and tracing.profiling():
+            # Spans off under a running profiler: a recorder of this
+            # step alone, so the profile names the engine's layers.
+            sp = tracing.StepSpans(len(tracing.STEP_SPANS))
+        if sp is not None:
+            sp.begin(t0)
+            tracing.SLOT.sp = sp
         try:
             return self._step(batch, now, valid=valid)
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter_ns()
+            dt = (t1 - t0) * 1e-9
             self.step_hist.observe(dt)
             if self._telemetry is not None:
                 # The same wall seconds into every (scope, regime) the
                 # batch classified under (_telemetry_account queued them).
                 self._telemetry.observe_step(dt)
+            if sp is not None:
+                tracing.SLOT.sp = None
+                sp.end(t1)
 
     def _step(self, batch: PacketBatch, now: int, valid=None) -> StepResult:
+        sp = tracing.SLOT.sp
+        if sp is not None:
+            sp.enter("engine.upload")
         v6 = self._v6_lanes(batch)
         # Byte lengths clamped once: a negative length never decrements a
         # counter.
         lens = np.maximum(batch.lens(), 0)
-        state, out = fwd.pipeline_step_full(
-            self._state,
-            self._drs,
-            self._dsvc,
-            self._dft,
+        lanes = (
             self._flipped(batch.src_ip),
             self._flipped(batch.dst_ip),
             self._lane(batch.proto),
@@ -567,15 +592,25 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             self._lane(batch.flags()),
             self._lane(batch.arp_ops()) if batch.arp_op is not None else None,
             self._lane(lens) if self._flow_stats else None,
-            meta=self._meta_step,
-            v6=v6,
-            valid=(None if valid is None
-                   else torch.from_numpy(np.asarray(valid, bool)).to(
-                       self._device)),
         )
+        valid = (None if valid is None
+                 else torch.from_numpy(np.asarray(valid, bool)).to(
+                     self._device))
+        if sp is not None:
+            sp.leave()
+            sp.enter("engine.walk")
+        state, out = fwd.pipeline_step_full(
+            self._state, self._drs, self._dsvc, self._dft, *lanes,
+            meta=self._meta_step, v6=v6, valid=valid)
         self._state = state
         self._state_mutations += 1
+        if sp is not None:
+            sp.leave()
+            sp.enter("engine.readback")
         o = self._to_host(out)
+        if sp is not None:
+            sp.leave()
+            sp.enter("engine.account")
         self._evictions += int(o["n_evict"])
         self._prune_account(o)
         pending = None
@@ -598,6 +633,14 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._count_metrics(o, in_ids, out_ids, lens, pending=pending)
         if self._deny is not None:
             self._deny_verdicts(batch, o["code"], pending, now)
+        if sp is not None:
+            sp.leave()
+            sp.enter("engine.rule_ids")
+        ingress_rule = self._rule_ids_in(in_ids, o["ingress_rule"])
+        egress_rule = self._rule_ids_out(out_ids, o["egress_rule"])
+        if sp is not None:
+            sp.leave()
+            sp.enter("engine.result")
         unflip = iputil.unflip_u32_array
         dnat_key = peer_key = None
         if self._dual_stack:
@@ -607,7 +650,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
                 k if (kind == FWD_TUNNEL and port != -1) else 0
                 for k, kind, port in zip(self._wide_keys(o["peer_w"]),
                                          o["fwd_kind"], o["out_port"])]
-        return StepResult(
+        res = StepResult(
             code=o["code"],
             est=o["est"],
             pending=pending,
@@ -618,8 +661,8 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             svc_idx=o["svc_idx"],
             dnat_ip=unflip(o["dnat_ip_f"]),
             dnat_port=o["dnat_port"],
-            ingress_rule=self._rule_ids_in(in_ids, o["ingress_rule"]),
-            egress_rule=self._rule_ids_out(out_ids, o["egress_rule"]),
+            ingress_rule=ingress_rule,
+            egress_rule=egress_rule,
             committed=o["committed"],
             n_miss=int(o["n_miss"]),
             spoofed=o["spoofed"],
@@ -638,6 +681,9 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             dnat_key=dnat_key,
             peer_key=peer_key,
         )
+        if sp is not None:
+            sp.leave()
+        return res
 
     def stats(self) -> DatapathStats:
         return DatapathStats(

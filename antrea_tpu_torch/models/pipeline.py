@@ -55,6 +55,7 @@ import torch
 from ..apis.controlplane import PROTO_TCP
 from ..compiler.compile import ACT_ALLOW, ACT_REJECT, CompiledPolicySet
 from ..compiler.services import ServiceTables
+from ..observability import tracing
 from ..ops import hashing, onepass
 from ..ops.match import (BIG, PRUNE_HIST_BOUNDS, DeviceRuleSet, StaticMeta,
                          _delta_matches, _patch_agg, _patch_iso, _resolve,
@@ -878,6 +879,9 @@ def pipeline_step(
         raise ValueError(
             "the one-kernel fast path (onepass) requires the narrow v4 "
             "key layout and an aggregate-pruned meta (prune_budget > 0)")
+    sp = tracing.SLOT.sp
+    if sp is not None:
+        sp.enter("walk.probe")
     flow, aff = state.flow, state.aff
     dev = src_f.device
     B = src_f.shape[0]
@@ -967,6 +971,8 @@ def pipeline_step(
     any_p, any_c, any_t, n_miss = torch.stack([
         p_need.any().long(), conf_need.any().long(), td.any().long(),
         miss.sum()]).tolist()
+    if sp is not None:
+        sp.leave()
 
     def partner_probe(keys, mask):
         """Each lane's partner tuple (the other direction of its hit
@@ -1081,6 +1087,8 @@ def pipeline_step(
         # Every rank of a rule group runs the same rounds: they hold the
         # same state and lanes, and each round's combine is collective.
         for r in range(rounds):
+            if sp is not None:
+                sp.enter("walk.classify")
             idx = midx[r * M:(r + 1) * M]
             valid_m = idx < B
             safe = idx.clamp(0, B - 1)
@@ -1145,6 +1153,8 @@ def pipeline_step(
                  snat_m, dsr_m, rows["committed"]], dim=1).to(_I32)
             if img_w is not None:
                 img_w[tgt] = dnat_w
+            if sp is not None:
+                sp.leave()
             if meta.phases & PH_COMMIT:
                 lv = (lens[safe] if meta.count_flow_stats
                       and lens is not None else None)
@@ -1214,6 +1224,9 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
     entry at zero, and both high limbs at zero.
     -> (evictions, reclaims, the guard's suppressed inserts or None),
     int32 scalars."""
+    sp = tracing.SLOT.sp
+    if sp is not None:
+        sp.enter("walk.commit")
     flow, aff = state.flow, state.aff
     dump = meta.flow_slots
     A = meta.key_words - 2
@@ -1269,6 +1282,8 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
     _scatter_last(aff.ts, learn["aslot"],
                   torch.full((m,), now, dtype=_I32, device=slot.device),
                   learn_mask, adump)
+    if sp is not None:
+        sp.leave()
     return n_evict, n_reclaim, n_chance
 
 
@@ -1350,6 +1365,9 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     -> (the miss lanes' images (B, 9), evictions, reclaims, (skips,
     fallbacks, candidate histogram), second chance's suppressed inserts or
     None)."""
+    sp = tracing.SLOT.sp
+    if sp is not None:
+        sp.enter("walk.classify")
     mm = meta.match
     N = meta.flow_slots
     lb = _lb_phase(meta, state.aff, dsvc, h, src_f, dst_f, proto, dport, now)
@@ -1483,6 +1501,8 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
         prune = (zero, zero, torch.zeros(len(PRUNE_HIST_BOUNDS) + 2,
                                          dtype=_I32, device=zero.device))
 
+    if sp is not None:
+        sp.leave()
     n_evict = n_reclaim = zero
     sc = None
     if meta.phases & PH_COMMIT:

@@ -38,12 +38,24 @@ bounded drop-oldest span table served at `GET /realization?uid=`
 `realization.json` in the support bundle, and a `realization` event in
 the flight recorder per closed span.  Bookkeeping cost is budgeted by
 the maintenance scheduler's `observability` task.
+
+Step spans (StepSpans) time the data plane's hot call instead: one tree
+of host spans per engine step (STEP_SPANS), from the engine's step()
+through the column uploads, the pipeline walk's probe, classify and
+commit, the read-back, the counters, the rule-id mapping and the
+StepResult's assembly.  Off by default (TpuflowDatapath.enable_step_spans
+turns them on); off, a span boundary costs one `is None` check.  Under a
+running torch.profiler each span also opens a record_function range of
+its name, spans on or off, so the profiler's trace, which shares a clock
+with the device's, charges device idle time and device work to the
+engine's own layers.
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Optional
 
 from .metrics import Histogram
@@ -63,6 +75,23 @@ _HIST_STAGES = REALIZATION_STAGES + ("total",)
 # Commit-plane stamp names in transaction order (tracked per commit, then
 # grafted onto every span the commit realized).
 _COMMIT_STAMPS = ("start", "compile", "canary", "swap", "settle")
+
+# The spans of one engine step, each with its parent (None: the root).
+# Opened by TpuflowDatapath.step / _step (engine.*) and by
+# models/pipeline.py (walk.*); tests/test_torch_step_spans.py holds every
+# name to a site in the source and every site to a name here.
+STEP_SPANS = (
+    ("engine.step", None),
+    ("engine.upload", "engine.step"),
+    ("engine.walk", "engine.step"),
+    ("walk.probe", "engine.walk"),
+    ("walk.classify", "engine.walk"),
+    ("walk.commit", "engine.walk"),
+    ("engine.readback", "engine.step"),
+    ("engine.account", "engine.step"),
+    ("engine.rule_ids", "engine.step"),
+    ("engine.result", "engine.step"),
+)
 
 
 class RealizationTracer:
@@ -356,4 +385,117 @@ class RealizationTracer:
             "p99_s": (self.hist["total"].quantile(0.99)
                       if self.hist["total"].count else None),
             "last_resize": self.last_resize,
+        }
+
+
+# -- step spans ----------------------------------------------------------------
+
+
+class _Slot(threading.local):
+    """The recorder of the step running on this thread (None: spans off).
+    The engine sets it for the length of a step; the pipeline's functions,
+    which have no engine handle, read it.  Per thread, so a mesh engine's
+    rule-shard threads see None."""
+
+    sp = None
+
+
+SLOT = _Slot()
+
+_profiler = None
+
+
+def profiling() -> bool:
+    """Whether a torch.profiler session is recording (torch is imported
+    on the first call, never at import)."""
+    global _profiler
+    if _profiler is None:
+        import torch.autograd.profiler as prof
+
+        _profiler = prof
+    return _profiler._is_profiler_enabled
+
+
+class StepSpans:
+    """Host spans of an engine's steps: per-name totals and a bounded
+    drop-oldest ring of the most recent span records.
+
+    A step is begin(t0) ... end(t1) around enter(name) / leave() pairs
+    that nest; every span of a step carries the step's sequence number.
+    A record is (seq, name, parent, start_ns, end_ns) on the
+    time.perf_counter_ns clock; the totals per name are its count, total
+    seconds and self seconds (its duration less its children's).
+    Nothing is written anywhere: the caller reads stats() / records().
+    Single-threaded like the engine's step."""
+
+    def __init__(self, slots: int = 4096):
+        if slots <= 0:
+            raise ValueError(f"step span slots must be positive, got {slots}")
+        self.slots = int(slots)
+        self._ring: deque = deque(maxlen=self.slots)
+        self.dropped_total = 0
+        self.steps = 0
+        # name -> [count, total ns, self ns]
+        self._totals: dict = {n: [0, 0, 0] for n, _ in STEP_SPANS}
+        # Open spans, innermost last: [name, start ns, children's ns,
+        # the profiler range or None].
+        self._stack: list = []
+
+    def _open(self, name: str, t0: int) -> None:
+        rf = None
+        if profiling():
+            import torch
+
+            rf = torch.autograd.profiler.record_function(name)
+            rf.__enter__()
+        self._stack.append([name, t0, 0, rf])
+
+    def _close(self, t1: int) -> None:
+        name, t0, child, rf = self._stack.pop()
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        dur = t1 - t0
+        parent = None
+        if self._stack:
+            top = self._stack[-1]
+            top[2] += dur
+            parent = top[0]
+        tot = self._totals[name]
+        tot[0] += 1
+        tot[1] += dur
+        tot[2] += dur - child
+        if len(self._ring) == self.slots:
+            self.dropped_total += 1
+        self._ring.append((self.steps, name, parent, t0, t1))
+
+    def begin(self, t0: int) -> None:
+        """A step starts at t0 (perf_counter_ns): open its root span."""
+        self.steps += 1
+        self._open("engine.step", t0)
+
+    def enter(self, name: str) -> None:
+        self._open(name, time.perf_counter_ns())
+
+    def leave(self) -> None:
+        self._close(time.perf_counter_ns())
+
+    def end(self, t1: int) -> None:
+        """The step ends at t1: close the root, and any span an exception
+        left open, there."""
+        while self._stack:
+            self._close(t1)
+
+    def records(self) -> list:
+        """The ring's span records, oldest first."""
+        return list(self._ring)
+
+    def stats(self) -> dict:
+        return {
+            "steps": self.steps,
+            "slots": self.slots,
+            "records": len(self._ring),
+            "dropped_total": self.dropped_total,
+            "spans": {n: {"count": c, "total_s": t * 1e-9,
+                          "self_s": s * 1e-9}
+                      for n, (c, t, s) in self._totals.items()},
         }

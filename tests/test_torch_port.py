@@ -165,6 +165,7 @@ def test_analysis_import_loads_no_torch():
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "antrea_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
+              ROOT / "chip_step_spans.py",
               ROOT / "chip_b3_variants.py", ROOT / "bench_cold_study_torch.py",
               ROOT / "graft_entry_torch.py",
               ROOT / "tests" / "torch_mesh_ranks.py",
