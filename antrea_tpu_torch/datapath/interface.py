@@ -46,12 +46,54 @@ class DatapathType(str, enum.Enum):
     ORACLE = "oracle"
 
 
+class RuleIdView:
+    """One step's rule ids, not yet resolved: the step's own (B,) index
+    column and the id table of the rule list that step ran under (its ids,
+    "" read as None, and a trailing None).  Lane i is table[idx[i]], or
+    None where idx[i] lies outside the ids; a later bundle or tenant swap
+    does not change it.  The column must not be written again."""
+
+    __slots__ = ("idx", "table")
+
+    def __init__(self, idx: np.ndarray, table: np.ndarray):
+        self.idx = idx
+        self.table = table
+
+    def tolist(self) -> list:
+        n = len(self.table) - 1
+        return self.table[np.where((self.idx >= 0) & (self.idx < n),
+                                   self.idx, n)].tolist()
+
+
+class _RuleIdField:
+    """A StepResult rule-id field: set to a list or to a RuleIdView, it
+    reads as the list, a view resolved on the first read and the list kept
+    in its place.  So a step costs O(1) for its attribution, and a result
+    that nobody reads frees no lists."""
+
+    def __set_name__(self, owner, name):
+        self._name = name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            # No default: the dataclass takes the field as required.
+            raise AttributeError(self._name)
+        v = obj.__dict__[self._name]
+        if isinstance(v, RuleIdView):
+            v = obj.__dict__[self._name] = v.tolist()
+        return v
+
+    def __set__(self, obj, value):
+        obj.__dict__[self._name] = value
+
+
 @dataclass
 class StepResult:
     """Batched verdict output; all arrays shape (B,).
 
     rule ids are stable string identities (compiler.ir.rule_id); None where
-    no explicit rule decided (default allow / K8s default deny).
+    no explicit rule decided (default allow / K8s default deny).  They read
+    as lists; an engine may set them as RuleIdViews, resolved on read.
     """
 
     code: np.ndarray  # 0 allow / 1 drop / 2 reject
@@ -60,8 +102,8 @@ class StepResult:
     dnat_ip: np.ndarray  # u32, post-DNAT destination; on reply=1 packets:
     #   the UN-DNAT rewrite (frontend ip the reply's SOURCE is restored to)
     dnat_port: np.ndarray
-    ingress_rule: list  # Optional[str] per packet
-    egress_rule: list
+    ingress_rule: list = _RuleIdField()  # Optional[str] per packet
+    egress_rule: list = _RuleIdField()
     committed: np.ndarray  # 0/1 — conntrack commit happened this step
     n_miss: int
     # 0/1 — the lane was a cache miss ADMITTED to the async miss queue

@@ -79,7 +79,8 @@ from ..utils import ip as iputil
 from . import persist
 from .audit import AuditableDatapath
 from .commit import TransactionalDatapath
-from .interface import Datapath, DatapathStats, DatapathType, StepResult
+from .interface import (Datapath, DatapathStats, DatapathType, RuleIdView,
+                        StepResult)
 from .maintenance import MaintainableDatapath
 from .slowpath import ADMIT_HOLD
 from .tenancy import TenantedDatapath, TenantSpec
@@ -91,20 +92,22 @@ def _rid(ids: list, idx: int):
 
 
 class _RuleIds:
-    """_rid over a whole (B,) index column at once: the ids as an object
-    array with a trailing None, built once per rule list."""
+    """_rid over a whole (B,) index column, deferred: a RuleIdView over the
+    column and the ids as an object array with a trailing None, built once
+    per rule list."""
 
     def __init__(self):
         self._ids = None
         self._arr = None
 
-    def __call__(self, ids: list, idx: np.ndarray) -> list:
+    def __call__(self, ids: list, idx: np.ndarray) -> RuleIdView:
+        # idx must be the step's own column (_to_host allocates one each
+        # step): the view reads it for as long as the result lives.
         if ids is not self._ids:
             self._arr = np.array([x if x else None for x in ids] + [None],
                                  dtype=object)
             self._ids = ids
-        n = len(ids)
-        return self._arr[np.where((idx >= 0) & (idx < n), idx, n)].tolist()
+        return RuleIdView(idx, self._arr)
 
 
 class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,

@@ -14,8 +14,9 @@ Builds the benchmark cell's world, traffic and engine as flowbench does
   window   S seconds of steps with spans on and the benchmark's walk span
            (flowbench/trace.Spans, ended by a device synchronize), in the
            benchmark's loop: its engine_host_ms (step less walk) beside
-           the sum of the host spans and engine.step's self time, and the
+           the sum of the host spans and engine.step's self time, the
            release of a step's result (after step() returns), timed
+           alone, and the first read of both its rule-id fields, timed
            alone;
   profile  8 steps under torch.profiler, each inside the benchmark's
            flowbench.step range, as its traced stretch runs them: the
@@ -269,6 +270,16 @@ def main() -> int:
             d0 = time.perf_counter()
             r = new
             rel.append(time.perf_counter() - d0)
+        # The first read of a step's attribution, as the benchmark's
+        # check reads its sampled steps after the window (where a step
+        # resolves its ids on read, this is where they are resolved).
+        first = []
+        for _ in range(20):
+            r = eng.step(stream.batch(t), stream.now(t))
+            t += 1
+            d0 = time.perf_counter()
+            r.ingress_rule, r.egress_rule
+            first.append(time.perf_counter() - d0)
         del new, r
         out["window"] = {
             "steps": n, "dropped": st["dropped_total"],
@@ -279,6 +290,7 @@ def main() -> int:
             "outside_root_ms": float(np.mean(lat) * 1e3 - ms["engine.step"]),
             "release_ms": float(np.mean(rel) * 1e3),
             "release_ms_median": float(np.median(rel) * 1e3),
+            "first_read_ms": float(np.median(first) * 1e3),
             "span_ms": ms, "self_ms": self_ms}
 
         # profile: the benchmark's traced stretch, spans on.
