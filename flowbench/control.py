@@ -3,7 +3,8 @@ stated guarantee broken (reference.datapath's control "slot_hit": a lane
 hits whatever entry holds its flow-cache slot, so a packet can take
 another flow's cached verdict) in the program's place, judged by the same
 comparison as a run.  It needs no program run: the plain replay's answers
-stand for a sound program's.
+stand for a sound program's, and its Service first packets' endpoints
+feed the generator's closed loop as a program's would.
 
     python3 -m flowbench.control --workload <name> --steps <n> --seeds <s>...
 
@@ -39,8 +40,9 @@ def control_readings(cfg: dict, mix: dict, seed: int, steps: int,
     n_miss, checked = [], {}
     for t in range(total):
         o = sound.step(sound.lanes(stream.columns(t)), stream.now(t),
-                       t in keep)
+                       t in keep or stream.services)
         n_miss.append(o.pop("n_miss"))
+        stream.observe(t, o)
         if t in keep:
             checked[t] = o
     rec = dict(plain=plain, stream=stream, total_steps=total, n_miss=n_miss,

@@ -8,7 +8,19 @@ found by name: BENCHMARK.json's entries name a configuration file (whose
 `world` names its shape's module flowbench/worlds/<world>.py), a mix file
 flowbench/traffic/<traffic>.json that the one generator
 (flowbench/stream.py) reads, and, per metric, a reader
-flowbench/metrics/<metric>.py."""
+flowbench/metrics/<metric>.py.
+
+The traffic is closed loop: after every step (warm-up, window, traced
+stretch) the generator observes the result, and for a mix with Service
+connections reads the code, dnat_ip and dnat_port of their first packets,
+so that their replies come from the endpoint the program chose (a mix
+without them observes nothing).  The check stays independent all the
+same, since the reference decides the endpoint again: a program that
+picks another endpoint fails `lanes_off` on the checked steps' first
+packets, and then its replies come from an endpoint the reference never
+committed, so the reference misses where the program hits and
+`steps_miss_count_off` fails on every step that carries them; one that
+reports one endpoint and caches another fails `lanes_off`."""
 
 from __future__ import annotations
 
@@ -138,7 +150,9 @@ def run_cell(cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
     n_miss = []
     c0 = time.perf_counter()
     for t in range(stream.warm_steps):
-        n_miss.append(eng.step(stream.batch(t), stream.now(t)).n_miss)
+        r = eng.step(stream.batch(t), stream.now(t))
+        n_miss.append(r.n_miss)
+        stream.observe(t, r)
     t = stream.warm_steps
     sync()
     parts["warm"] = time.perf_counter() - c0
@@ -163,6 +177,7 @@ def run_cell(cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
             lat.append(s1 - s0)
             n_miss.append(r.n_miss)
             res.offer(t, r)
+            stream.observe(t, r)
             t += 1
             if s1 >= end:
                 break
@@ -209,8 +224,9 @@ def _traced_stretch(eng, stream, t, calls, sync, n_miss) -> dict:
         h0 = time.perf_counter()
         for i in range(TRACED_STEPS):
             with torch.profiler.record_function("flowbench.step"):
-                n_miss.append(eng.step(stream.batch(t + i),
-                                       stream.now(t + i)).n_miss)
+                r = eng.step(stream.batch(t + i), stream.now(t + i))
+                n_miss.append(r.n_miss)
+                stream.observe(t + i, r)
         sync()
         h1 = time.perf_counter()
     calls.on = False

@@ -18,14 +18,44 @@ A connection's class is drawn by `share` from `classes`, each of a `kind`:
 - local_out: a local Pod to a Pod of another node, on a port of `ports`;
 - external_in / external_out: an address outside the cluster (11.0.0.0 to
   126.255.255.255) to a local Pod / from one, on a port of `ports`; with
-  `sources`, the outside addresses are that many.
+  `sources`, the outside addresses are that many;
+- service: a local Pod to a ClusterIP frontend of the world's Services
+  (`plain["services"]`), on the frontend's own protocol and port (the
+  kind draws nothing from `ports`).  `popularity` 0 draws the frontends
+  uniformly; s > 0 by Zipf rank-s over a seeded permutation of the
+  Services.  A remote client's Service traffic reaches this node already
+  load-balanced by its own node, which is policy_in's shape.
 
 Client ports are uniform in 1024-65535.  Everything is drawn before the
 window: `templates` batches, step t takes template t % templates with
 every client port rotated by a prime per pass over the templates, so no
 connection repeats.  A lane's ingress port is its source's: a local Pod's
 ofport, the tunnel for another node's Pod, the gateway for the outside.
-Step t runs at now = now_start + now_step * t."""
+Step t runs at now = now_start + now_step * t.
+
+Replies of Service connections close the loop.  The endpoint that answers
+is the one the datapath chose for the connection's first packet: (flow
+hash & 0x7FFFFFFF) mod the endpoint count, or, under ClientIP affinity,
+the client's pin in the direct-mapped affinity table at that moment,
+which depends on every earlier miss; only the datapath knows it.  So
+observe(t, result) keeps, for step t's Service first packets, the
+reported code, dnat_ip and dnat_port (nothing else of the result), and a
+later Service packet drawn as a reply is the endpoint's packet (dnat_ip:
+dnat_port to the client, entering at the endpoint's port), where the
+first packet was an allowed DNAT.  Otherwise (a Service without
+endpoints rejects, policy denies, or the connection opened before step
+0 and its first packet was never sent) it is the client's forward packet
+again.  columns(t) builds every step from these records, so a replay of
+the run after it sees the very lanes the program saw.
+
+The check stays independent of what the program reports: a program that
+picks another endpoint than the reference fails `lanes_off` on the first
+packets of the checked steps; its replies then come from an endpoint the
+reference never committed, so the reference misses where the program hits
+and `steps_miss_count_off` fails on every step that carries them; and one
+that reports one endpoint and caches another fails `lanes_off` on the
+first packets.  A mix without a service class observes nothing, and its
+columns(t) are the templates' arrays as before."""
 
 from __future__ import annotations
 
@@ -33,7 +63,9 @@ import numpy as np
 
 from .world import sub_seed
 
-KINDS = ("policy_in", "local_out", "external_in", "external_out")
+KINDS = ("policy_in", "local_out", "external_in", "external_out",
+         "service")
+ALLOW = 0
 _ROTATE = 20011
 _PORTS = 64512          # client ports 1024..65535
 _EXT = (0x0B000000, 0x7F000000)
@@ -88,6 +120,64 @@ def _admitted(policy: dict, local: np.ndarray):
             np.asarray(flat, np.int64).reshape(-1, 2))
 
 
+def _service(k: dict, plain: dict, local: np.ndarray, rng, q: int):
+    """q Service connections: clients uniform over the local Pods,
+    frontends uniform (popularity 0) or Zipf rank-s over a seeded
+    permutation of the Services -> (clients, frontend IPs, [[proto,
+    port]])."""
+    svcs = plain["services"]
+    if not svcs:
+        raise ValueError("service: the world has no Services")
+    front = np.asarray([[_u32(v["ip"]), v["proto"], v["port"]]
+                        for v in svcs], np.int64)
+    s = float(k.get("popularity", 0))
+    if s < 0:
+        raise ValueError("service: popularity must be 0 or more")
+    client = local[rng.integers(0, len(local), q)]
+    if s == 0:
+        f = rng.integers(0, len(svcs), q)
+    else:
+        p = np.arange(1, len(svcs) + 1, dtype=float) ** -s
+        f = rng.permutation(len(svcs))[rng.choice(len(svcs), q, p=p / p.sum())]
+    return client, front[f, 0], front[f, 1:]
+
+
+# One observed Service first packet as a u64: its endpoint's address
+# (bits 32-63) and port (16-31), and the port its replies enter at (0-15),
+# where it was an allowed DNAT; 0 where not.
+_IP, _PORT, _IN = 32, 16, 0xFFFF
+
+
+class _InPorts:
+    """An address -> the port its packets enter at: a local Pod's ofport,
+    the tunnel for another node's Pod, the gateway for the outside.  A
+    table over the span of the Pods' addresses (at most a /8's)."""
+
+    def __init__(self, plain: dict):
+        lp = np.asarray([[_u32(ip), p] for ip, p in
+                         plain["topology"]["local_pods"]], np.int64)
+        pods = np.asarray(plain["pod_ips"], np.int64)
+        self.lo = int(min(pods.min(), lp[:, 0].min()))
+        span = int(max(pods.max(), lp[:, 0].max())) - self.lo + 1
+        if span > 1 << 24 or lp[:, 1].max() > 0xFFFF:
+            raise ValueError("Pods beyond a /8, or an ofport beyond 16 bits")
+        self.tab = np.full(span, OFPORT_GATEWAY, np.uint16)
+        self.tab[pods - self.lo] = OFPORT_TUNNEL
+        self.tab[lp[:, 0] - self.lo] = lp[:, 1]
+
+    def __call__(self, ip) -> np.ndarray:
+        k = np.asarray(ip, np.int64) - self.lo
+        inside = (k >= 0) & (k < len(self.tab))
+        return np.where(inside, self.tab[np.where(inside, k, 0)],
+                        OFPORT_GATEWAY).astype(np.int32)
+
+
+def _col(result, name: str) -> np.ndarray:
+    """A column of a StepResult or of a dict of columns."""
+    v = result[name] if isinstance(result, dict) else getattr(result, name)
+    return np.asarray(v)
+
+
 class Stream:
     def __init__(self, mix: dict, plain: dict, seed: int):
         self.batch_size = b = int(mix["batch"])
@@ -102,12 +192,13 @@ class Stream:
                              "0 < life_steps < templates")
         rng = np.random.default_rng(sub_seed(seed, "traffic"))
         c = self._connections(mix, plain, rng, R * n)
-        lp = sorted((_u32(ip), p) for ip, p in plain["topology"]["local_pods"])
-        ports = (np.asarray([a for a, _ in lp], np.int64),
-                 np.asarray([p for _, p in lp], np.int64))
-        pods = np.sort(np.asarray(plain["pod_ips"], np.int64))
-        c["cin"] = self._in_port(c["client"], ports, pods)
-        c["sin"] = self._in_port(c["server"], ports, pods)
+        self._in_port = _InPorts(plain)
+        c["cin"] = self._in_port(c["client"])
+        c["sin"] = self._in_port(c["server"])
+        self.services = any(k["kind"] == "service" for k in mix["classes"])
+        # A Service connection's rank among its step's Service connections.
+        rank = (np.cumsum(c["svc"].reshape(R, n), axis=1) - 1).reshape(-1)
+        self._obs = []
         self.templates = []
         share = float(mix["reply_share"])
         for r in range(R):
@@ -118,10 +209,22 @@ class Stream:
             rep = np.concatenate([np.zeros(n, bool),
                                   c["replies"][conn[n:]]
                                   & (rng.random(b - n) < share)])
+            # A Service reply is the client's forward packet in the
+            # template; columns(t) turns it round where observe() saw the
+            # endpoint.  The later lanes are drawn alike, so their order
+            # is free: Service replies go last, by age, to be turned
+            # round in slices.
+            svc_rep = rep & c["svc"][conn]
+            if self.services:
+                o = np.lexsort((age, svc_rep[n:]))
+                age, blk = age[o], blk[o]
+                conn[n:], rep[n:], svc_rep[n:] = (conn[n:][o], rep[n:][o],
+                                                  svc_rep[n:][o])
+            rep &= ~svc_rep
 
             def pick(fwd, back):
                 return np.where(rep, c[back][conn], c[fwd][conn])
-            self.templates.append(dict(
+            T = dict(
                 src_ip=pick("client", "server"),
                 dst_ip=pick("server", "client"),
                 proto=c["proto"][conn], fixed=c["server_port"][conn],
@@ -129,16 +232,21 @@ class Stream:
                 reply=rep.astype(np.int32),
                 off=np.concatenate([np.zeros(n, np.uint32),
                                     (blk < 0).astype(np.uint32)]),
-                in_port=pick("cin", "sin")))
-
-    @staticmethod
-    def _in_port(src, ports: tuple, pods: np.ndarray) -> np.ndarray:
-        lk, lp = ports
-        i = np.minimum(np.searchsorted(lk, src), len(lk) - 1)
-        j = np.minimum(np.searchsorted(pods, src), len(pods) - 1)
-        src = src.astype(np.int64)
-        return np.where(lk[i] == src, lp[i], np.where(
-            pods[j] == src, OFPORT_TUNNEL, OFPORT_GATEWAY)).astype(np.int32)
+                in_port=pick("cin", "sin"))
+            if self.services:
+                first = np.nonzero(c["svc"][r * n:(r + 1) * n])[0]
+                T["svc_first"] = first
+                T["svc_front"] = (c["server"][r * n + first].astype(np.int64),
+                                  c["server_port"][r * n + first])
+                # The replies, lanes svc_from on: each one's connection's
+                # rank among its step's Service ones, and the slice of
+                # them of each age.
+                lo = b - int(svc_rep.sum())
+                a = age[lo - n:]
+                T["svc_from"], T["svc_rank"] = lo, rank[conn[lo:]]
+                T["svc_ages"] = [(int(g), slice(*np.searchsorted(a, [g, g + 1])))
+                                 for g in np.unique(a)]
+            self.templates.append(T)
 
     @staticmethod
     def _connections(mix: dict, plain: dict, rng, m: int) -> dict:
@@ -147,12 +255,13 @@ class Stream:
         cls = rng.choice(len(classes), size=m, p=w / w.sum())
         local = np.asarray(plain["local_ips"], np.int64)
         others = np.setdiff1d(np.asarray(plain["pod_ips"], np.int64), local)
-        mport = np.asarray(mix["ports"], np.int64).reshape(-1, 2)
+        mport = np.asarray(mix.get("ports", []), np.int64).reshape(-1, 2)
         out = {k: np.zeros(m, np.uint32 if k in ("client", "server")
                            else np.int32)
                for k in ("client", "server", "proto", "server_port",
                          "client_port")}
         out["replies"] = np.zeros(m, bool)
+        out["svc"] = np.zeros(m, bool)
         adm = None
         for i, k in enumerate(classes):
             sel = np.nonzero(cls == i)[0]
@@ -162,7 +271,11 @@ class Stream:
             kind = k["kind"]
             if kind not in KINDS:
                 raise ValueError(f"unknown traffic kind {kind!r}")
-            pt = mport[rng.integers(0, len(mport), q)]
+            if kind == "service":
+                client, server, pt = _service(k, plain, local, rng, q)
+                out["svc"][sel] = True
+            else:
+                pt = mport[rng.integers(0, len(mport), q)]
             if kind == "policy_in":
                 if adm is None:
                     adm = _admitted(plain["policy"], local)
@@ -180,7 +293,7 @@ class Stream:
                 pt = np.where(own[:, None],
                               qports[np.minimum(j, len(qports) - 1)]
                               if len(qports) else pt, pt)
-            else:
+            elif kind != "service":
                 ext = rng.integers(*_EXT, q)
                 if "sources" in k:
                     ext = rng.integers(*_EXT, int(k["sources"]))[
@@ -202,10 +315,34 @@ class Stream:
     def now(self, t: int) -> int:
         return self.now_start + self.now_step * t
 
+    def observe(self, t: int, result) -> None:
+        """Keep step t's Service first packets' reported code, dnat_ip and
+        dnat_port (a StepResult, or a dict of columns such as the
+        reference's): the endpoint of each allowed DNAT, and the port its
+        replies enter at.  Steps are observed in order, each once."""
+        if not self.services:
+            return
+        if t != len(self._obs):
+            raise ValueError(f"observe({t}) after {len(self._obs)} steps")
+        T = self.templates[t % self.period]
+        j = T["svc_first"]
+        ip = _col(result, "dnat_ip")[j].astype(np.int64) & 0xFFFFFFFF
+        port = _col(result, "dnat_port")[j].astype(np.int64)
+        vip, vport = T["svc_front"]
+        ok = (_col(result, "code")[j] == ALLOW) & ((ip != vip)
+                                                   | (port != vport))
+        rec = np.zeros(len(j), np.uint64)
+        ip, port = ip[ok], port[ok]
+        u = np.uint64
+        rec[ok] = ((ip.astype(u) << _IP) | (port.astype(u) << _PORT)
+                   | self._in_port(ip).astype(u))
+        self._obs.append(rec)
+
     def columns(self, t: int) -> dict:
         """Step t's columns (src_ip, dst_ip, proto, src_port, dst_port,
         in_port) as numpy arrays; the ports are new, the rest the
-        template's own (read only)."""
+        template's own (read only), but for a Service mix's replies, which
+        need observe() of the steps before t."""
         T = self.templates[t % self.period]
         w = t // self.period
         r0, r1 = (w * _ROTATE) % _PORTS, ((w - 1) * _ROTATE) % _PORTS
@@ -214,9 +351,36 @@ class Stream:
         s = T["base"] + np.uint32(r0) + np.uint32((r1 - r0) % 2**32) * T["off"]
         s = np.minimum(s, s - np.uint32(_PORTS)).view(np.int32) + 1024
         d = T["reply"] * (T["fixed"] - s)
-        return {"src_ip": T["src_ip"], "dst_ip": T["dst_ip"],
-                "proto": T["proto"], "src_port": s + d,
-                "dst_port": T["fixed"] - d, "in_port": T["in_port"]}
+        out = {"src_ip": T["src_ip"], "dst_ip": T["dst_ip"],
+               "proto": T["proto"], "src_port": s + d,
+               "dst_port": T["fixed"] - d, "in_port": T["in_port"]}
+        if self.services:
+            self._replies(t, T, out)
+        return out
+
+    def _replies(self, t: int, T: dict, out: dict) -> None:
+        """Turn step t's Service replies round, each to come from the
+        endpoint its connection's first packet was sent to."""
+        if t - 1 >= len(self._obs):
+            raise ValueError(f"columns({t}) of a Service mix needs "
+                             f"observe() of steps 0-{t - 1}")
+        lo = T["svc_from"]
+        rec = np.zeros(len(T["svc_rank"]), np.uint64)
+        for age, sl in T["svc_ages"]:
+            if t >= age:
+                rec[sl] = self._obs[t - age][T["svc_rank"][sl]]
+        ok = rec != 0
+        src, dst, inp = (out[k].copy() for k in ("src_ip", "dst_ip",
+                                                 "in_port"))
+        sp, dp = out["src_port"], out["dst_port"]
+        client, cport = src[lo:].copy(), sp[lo:].copy()
+        src[lo:] = np.where(ok, (rec >> _IP).astype(np.uint32), client)
+        sp[lo:] = np.where(ok, ((rec >> _PORT) & 0xFFFF).astype(np.int32),
+                           cport)
+        inp[lo:] = np.where(ok, (rec & _IN).astype(np.int32), inp[lo:])
+        dst[lo:] = np.where(ok, client, dst[lo:])
+        dp[lo:] = np.where(ok, cport, dp[lo:])
+        out.update(src_ip=src, dst_ip=dst, in_port=inp)
 
     def batch(self, t: int):
         """Step t's PacketBatch, the program's input."""

@@ -1,11 +1,16 @@
 """Small worlds for the CPU tests of the benchmark: the cells' own shapes
 (the scale tests' Namespaces and policies, node-0's span and topology, the
 connection-churn mix's classes and proportions) at a size a test run
-holds, with a flow cache small enough that slots collide."""
+holds, with a flow cache small enough that slots collide; and the same
+worlds with ClusterIP Services (service_world.py), with an affinity table
+small enough that pins collide."""
 
 import copy
+import sys
 
 import pytest
+
+import service_world
 
 ENGINE = {"fused": True, "prune_budget": 4, "flow_slots": 1 << 11,
           "aff_slots": 1 << 5, "miss_chunk": 256, "ct_timeout_s": 3600,
@@ -50,3 +55,36 @@ SMALL_MIX = {"batch": 512, "new_per_step": 64, "life_steps": 4,
 @pytest.fixture
 def small():
     return small_config(), copy.deepcopy(SMALL_MIX)
+
+
+# Services over the small worlds' Pods: with and without ClientIP
+# affinity, two without endpoints, on TCP and UDP.
+SERVICES = {"count": 40, "endpoints": [1, 4], "no_endpoints": 2,
+            "affinity_share": 0.4, "affinity_s": 10800, "seed": 3,
+            "ports": [[6, 80, 8080], [6, 443, 8443], [17, 53, 5353],
+                      [6, 80, 80]]}
+
+
+def service_config(kind="one_ns"):
+    """small_config(kind) with Services (flowbench.worlds.service_world,
+    which the fixture below provides)."""
+    cfg = small_config(kind)
+    cfg["world"] = "service_world"
+    cfg["services"] = copy.deepcopy(SERVICES)
+    return cfg
+
+
+# SMALL_MIX with a class of local Pods to Services, skewed frontends.
+SVC_MIX = copy.deepcopy(SMALL_MIX)
+SVC_MIX["classes"] = [dict(k, share=k["share"] * 0.6)
+                      for k in SVC_MIX["classes"]] + [
+    {"name": "to_service", "kind": "service", "share": 0.4,
+     "replies": True, "popularity": 1.0}]
+
+
+@pytest.fixture(autouse=True)
+def service_world_module(monkeypatch):
+    """The tests' Service world, found by build_world as a world module
+    of the name service_world, as a cell's would be."""
+    monkeypatch.setitem(sys.modules, "flowbench.worlds.service_world",
+                        service_world)

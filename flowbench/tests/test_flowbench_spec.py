@@ -10,7 +10,7 @@ from pathlib import Path
 
 import pytest
 
-from conftest import small_config
+from conftest import SVC_MIX, service_config, small_config
 from flowbench import harness
 from flowbench.reference.datapath import Replay
 from flowbench.world import build_world, plain_world
@@ -107,6 +107,58 @@ def test_adding_a_cell_takes_new_files_only(tmp_path):
         "assert c['allowed'] == 0 and c['replies'] == 0, c;"
         "o = harness.cell_spec(b, b['workloads'][0]['name'], Path('.'));"
         "assert 'hot_steps' not in o['per_layer'];"
+        "assert harness.HERE == Path('flowbench').resolve()")
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    after = {p: p.read_bytes() for p in (root / "flowbench").rglob("*")
+             if p.is_file() and p in before}
+    assert after == before
+
+
+def test_adding_a_service_cell_takes_new_files_only(tmp_path):
+    """A copy of the benchmark grows a world of ClusterIP Services, its
+    configuration, a mix with a service class and a cell by new files and
+    new entries; every file already there is byte for byte the same, and
+    the new cell runs end to end on the CPU, correct against the
+    reference, its Service replies hitting the reply entries their first
+    packets left."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "flowbench", root / "flowbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    before = {p: p.read_bytes() for p in (root / "flowbench").rglob("*")
+              if p.is_file()}
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    shutil.copy(ROOT / "flowbench/tests/service_world.py",
+                root / "flowbench/worlds/proxied.py")
+    cfg = service_config()
+    cfg["world"] = "proxied"
+    (root / "flowbench/configs/proxied.json").write_text(json.dumps(cfg))
+    (root / "flowbench/traffic/to_services.json").write_text(
+        json.dumps(SVC_MIX))
+    bench["configs"].append({"name": "proxied", "source": "x",
+                             "file": "flowbench/configs/proxied.json",
+                             "reduced": [], "why": "x"})
+    bench["workloads"].append({"name": "proxied.to_services",
+                               "config": "proxied", "traffic": "to_services",
+                               "chips": 1, "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    code = (
+        "import sys, time; from pathlib import Path; sys.path.insert(0, '.');"
+        f"sys.path.append({str(ROOT)!r});"
+        "from flowbench import harness;"
+        "b = harness.load_bench(Path('.'));"
+        "s = harness.cell_spec(b, 'proxied.to_services', Path('.'));"
+        "rec = harness.run_cell(s['config'], s['mix'], 2**31 + 3, 0.5, False,"
+        " 'cpu', time.perf_counter());"
+        "assert len(rec['plain']['services']) == 40;"
+        "c = harness.compare(rec, 'cpu');"
+        "line = harness.result_line(rec, s, False, 'cpu', 1, c);"
+        "assert line['correct'], line;"
+        "o = [r for t, r in sorted(rec['checked'].items())];"
+        "rep = sum(int(((r.svc_idx >= 0) & (r.reply == 1)).sum()) for r in o);"
+        "assert rep > 0, c;"
         "assert harness.HERE == Path('flowbench').resolve()")
     r = subprocess.run([sys.executable, "-c", code], cwd=root,
                        capture_output=True, text=True, timeout=300)

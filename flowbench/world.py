@@ -1,8 +1,10 @@
 """A cell's world, made from its configuration file: the PolicySet, the
 Services and the agent's node topology as the program takes them, and the
 same inputs as plain data for the reference (flowbench/reference/) and the
-traffic generator (flowbench/stream.py), which read nothing of the
-program.
+traffic generator (flowbench/stream.py).  The reference reads nothing of
+the program; the generator reads nothing of it but, in a mix with Service
+connections, the endpoint the program reported for each one's first
+packet (its code, dnat_ip and dnat_port), which its replies come from.
 
 A configuration names its world's shape by `world`: the module
 flowbench/worlds/<world>.py, whose build(config) returns the inputs.  A
