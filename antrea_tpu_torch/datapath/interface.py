@@ -161,6 +161,14 @@ class StepResult:
     # lists because v6 addresses exceed any numpy integer lane width.
     dnat_key: list = None  # post-DNAT dst (reply lanes: un-DNAT rewrite)
     peer_key: list = None  # tunnel peer (FWD_TUNNEL lanes; else 0)
+    # The step's Service LB counters, {name: int} in the order of
+    # models/pipeline.LB_STATS, over its classified misses: lanes resolved
+    # to a Service (lb), of a Service with ClientIP affinity (lb_aff),
+    # decided by a live pin (aff_hit), rejected for want of endpoints
+    # (no_ep); pins written (aff_learn), and those that overwrote a live
+    # pin of another (client, Service) key (aff_overwrite).  None where the
+    # step counted nothing: an engine without Services, an async fast step.
+    lb: dict = None
 
 
 class Datapath(ABC):

@@ -224,6 +224,9 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         self._prune_classified = 0
         self._prune_retunes = 0
         self._prune_hist = Histogram(bounds=PRUNE_HIST_BOUNDS)
+        # The Service LB's counters over every synchronous step
+        # (lb_stats()); shared by the tenant worlds, as the services are.
+        self._lb_totals = dict.fromkeys(pl.LB_STATS, 0)
         self._gates = gates
         # Per-entry traffic counters ride the FlowExporter gate.
         self._flow_stats = gates.enabled("FlowExporter")
@@ -599,12 +602,17 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
         valid = (None if valid is None
                  else torch.from_numpy(np.asarray(valid, bool)).to(
                      self._device))
+        meta = self._meta_step
+        if self._services and meta.phases & pl.PH_LB:
+            # The Service LB's counters ride the step's read-back, on an
+            # engine that holds Services only.
+            meta = meta._replace(lb_stats=True)
         if sp is not None:
             sp.leave()
             sp.enter("engine.walk")
         state, out = fwd.pipeline_step_full(
             self._state, self._drs, self._dsvc, self._dft, *lanes,
-            meta=self._meta_step, v6=v6, valid=valid)
+            meta=meta, v6=v6, valid=valid)
         self._state = state
         self._state_mutations += 1
         if sp is not None:
@@ -616,6 +624,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             sp.enter("engine.account")
         self._evictions += int(o["n_evict"])
         self._prune_account(o)
+        lb = self._lb_account(o)
         pending = None
         if self._async:
             # The fast step's miss lanes into the bounded queue; their
@@ -683,6 +692,7 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             tc_port=o["tc_port"],
             dnat_key=dnat_key,
             peer_key=peer_key,
+            lb=lb,
         )
         if sp is not None:
             sp.leave()
@@ -805,6 +815,28 @@ class TpuflowDatapath(TenantedDatapath, MaintainableDatapath,
             new = self._prune_tuner.observe(classified, fb)
             if new != self._prune_budget:
                 self._retune_prune(new)
+
+    # -- the Service LB's counters ---------------------------------------------
+
+    def lb_stats(self) -> Optional[dict]:
+        """The Service LB's counters (models/pipeline.LB_STATS), summed
+        over the synchronous steps since construction (an async engine's
+        fast step runs no LB, and its drains are not counted); None while
+        the engine holds no Services."""
+        if not self._services:
+            return None
+        return dict(self._lb_totals)
+
+    def _lb_account(self, o: dict) -> Optional[dict]:
+        """One step's lb_stats output -> StepResult.lb, folded into the
+        totals; None where the step did not count."""
+        c = o.get("lb_stats")
+        if c is None:
+            return None
+        lb = dict(zip(pl.LB_STATS, c.tolist()))
+        for k, v in lb.items():
+            self._lb_totals[k] += v
+        return lb
 
     def _retune_prune(self, budget: int) -> None:
         """Swap the prune K rung: a meta-only change (the aggregate tables

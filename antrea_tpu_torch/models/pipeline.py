@@ -160,6 +160,16 @@ PH_EVICT = 16
 PH_CLS_SUM = 32
 PH_ALL = PH_SLOW | PH_LB | PH_CLS | PH_COMMIT | PH_EVICT | PH_CLS_SUM
 
+# The Service LB's counters of a step (PipelineMeta.lb_stats), in the order
+# of the step's lb_stats output.  Over the lanes that take the LB's answer
+# (the step's classified misses): those resolved to a Service, those of a
+# Service with ClientIP affinity, those a live pin decided, and those
+# rejected for want of endpoints; then the pins the commit wrote (each
+# slot's winning learn once) and those of them that overwrote a live pin
+# (younger than its Service's timeout) of another (client, Service) key.
+LB_STATS = ("lb", "lb_aff", "aff_hit", "no_ep", "aff_learn",
+            "aff_overwrite")
+
 _I32 = torch.int32
 
 
@@ -303,6 +313,8 @@ class PipelineMeta(NamedTuple):
     # Flow-cache key row width: 4 (v4: [src, dst, pp, pg]) or 10
     # (dual-stack: [s0..s3, d0..d3, pp, pg]).
     key_words: int = 4
+    # The Service LB's counters (LB_STATS): the lb_stats output.
+    lb_stats: bool = False
 
     @property
     def pref_mask(self) -> int:
@@ -761,25 +773,45 @@ def _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now, aff_slots,
         "client": src_f if saddr is None else saddr,
         "svc": svc_idx,
         "ep": ep_col + 1,  # stored +1: 0 means empty slot
+        # Affinity consulted, and a live pin taken (the LB's counters).
+        "on": aff_on,
+        "hit": aff_hit,
     }
     return svc_idx, no_ep, dnat_ip, dnat_port, snat, dsr, dnat_w, learn
 
 
 def _lb_phase(meta, aff, dsvc, h, src_f, dst_f, proto, dport, now,
               wide=None):
-    """_service_lb under PH_LB; with it masked, no service resolution: lanes
-    keep their literal destination (and words) and nothing learns."""
+    """_service_lb under PH_LB, in the walk.lb span; with it masked, no
+    service resolution: lanes keep their literal destination (and words)
+    and nothing learns."""
+    sp = tracing.SLOT.sp
+    if sp is not None:
+        sp.enter("walk.lb")
     if meta.phases & PH_LB:
-        return _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now,
-                           meta.aff_slots, wide=wide)
-    z = torch.zeros_like(src_f)
-    svc_idx = torch.full_like(src_f, MISS)
-    learn = {"mask": torch.zeros_like(src_f, dtype=torch.bool),
-             "aslot": torch.zeros_like(src_f, dtype=torch.int64),
-             "client": src_f if wide is None else wide[0],
-             "svc": svc_idx, "ep": z}
-    return (svc_idx, torch.zeros_like(src_f, dtype=torch.bool), dst_f, dport,
-            z, z, None if wide is None else wide[1], learn)
+        lb = _service_lb(aff, dsvc, h, src_f, dst_f, proto, dport, now,
+                         meta.aff_slots, wide=wide)
+    else:
+        z = torch.zeros_like(src_f)
+        svc_idx = torch.full_like(src_f, MISS)
+        no = torch.zeros_like(src_f, dtype=torch.bool)
+        learn = {"mask": no,
+                 "aslot": torch.zeros_like(src_f, dtype=torch.int64),
+                 "client": src_f if wide is None else wide[0],
+                 "svc": svc_idx, "ep": z, "on": no, "hit": no}
+        lb = (svc_idx, torch.zeros_like(src_f, dtype=torch.bool), dst_f,
+              dport, z, z, None if wide is None else wide[1], learn)
+    if sp is not None:
+        sp.leave()
+    return lb
+
+
+def _lb_counts(lb, lanes):
+    """The LB's lane counters (LB_STATS[:4]) of _lb_phase's result over
+    the lanes that take its answer, (4,) int32."""
+    svc_idx, no_ep, *_, learn = lb
+    return (torch.stack([svc_idx >= 0, learn["on"], learn["hit"], no_ep])
+            & lanes).sum(dim=1, dtype=_I32)
 
 
 def _svc_ref_of(svc_idx, dsvc):
@@ -865,7 +897,9 @@ def pipeline_step(
     meta.telemetry adds the tel_* outputs: the probe split of the valid
     lanes (hit, stale: the key matched but the entry aged out, miss), the
     one-pass dispatch's TEL_HALF_BLOCK count, and the inserts second chance
-    suppressed.  prune_exclude ((B,) bool, None for none) marks lanes whose
+    suppressed.  meta.lb_stats adds lb_stats, the Service LB's counters
+    (LB_STATS, (6,) int32) over the step's classified misses.
+    prune_exclude ((B,) bool, None for none) marks lanes whose
     prune evidence and probe counters another dispatch owns (the mesh
     engine's spilled lanes, metered by their home-routed retry): they
     classify and serve as usual but count in neither.
@@ -1060,19 +1094,24 @@ def pipeline_step(
              torch.zeros(len(PRUNE_HIST_BOUNDS) + 2, dtype=_I32, device=dev))
     # Second chance's suppressed inserts (meta.telemetry).
     n_chance = zero[0]
+    # The Service LB's counters (meta.lb_stats), summed over the rounds.
+    lbc = (torch.zeros(len(LB_STATS), dtype=_I32, device=dev)
+           if meta.lb_stats else None)
 
     # ---- slow path: ServiceLB + classify + commit, misses only ----
     # With PH_SLOW masked (the async fast step) misses keep the fast-path
     # image and nothing commits.
     slow = n_miss > 0 and bool(meta.phases & PH_SLOW)
     if slow and meta.onepass:
-        fresh, n_evict, n_reclaim, prune, sc = _slow_onepass(
+        fresh, n_evict, n_reclaim, prune, sc, lbc1 = _slow_onepass(
             state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h, slot,
             miss, mr, kr0, ts0, now, gen_w, meta, valid, no_commit,
             hit_combine, lens, prune_exclude)
         img[:B] = torch.where(miss[:, None], fresh, img[:B])
         if sc is not None:
             n_chance = n_chance + sc
+        if lbc1 is not None:
+            lbc = lbc1
     elif slow:
         rounds = -(-n_miss // M)
         # Affinity lookups see the start-of-batch table in every round;
@@ -1103,9 +1142,12 @@ def pipeline_step(
             if A == 8:
                 wide_m = (saddr[safe], daddr[safe], is6[safe])
 
+            lb = _lb_phase(meta, aff_snap, dsvc, h[safe], s_f, d_f, p_m,
+                           dp_m, now, wide=wide_m)
             (svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, dnat_w,
-             learn) = _lb_phase(meta, aff_snap, dsvc, h[safe], s_f, d_f,
-                                p_m, dp_m, now, wide=wide_m)
+             learn) = lb
+            if lbc is not None:
+                lbc[:4] += _lb_counts(lb, valid_m)
             if A == 8:
                 # The post-DNAT words double as the classifier's v6 lanes.
                 v6_m = (wide_m[0], dnat_w, wide_m[2])
@@ -1158,12 +1200,15 @@ def pipeline_step(
             if meta.phases & PH_COMMIT:
                 lv = (lens[safe] if meta.count_flow_stats
                       and lens is not None else None)
-                ev, rc, sc = _commit(state, slot[safe], rows, learn,
-                                     learn["mask"] & valid_m, now, gen_w,
-                                     meta, lv)
+                ev, rc, sc, census = _commit(
+                    state, slot[safe], rows, learn, learn["mask"] & valid_m,
+                    now, gen_w, meta, lv,
+                    dsvc.aff_timeout if lbc is not None else None)
                 n_evict, n_reclaim = n_evict + ev, n_reclaim + rc
                 if sc is not None:
                     n_chance = n_chance + sc
+                if census is not None:
+                    lbc[4:] += census
 
     cols = img[:B].t().contiguous()
     out = {
@@ -1203,11 +1248,14 @@ def pipeline_step(
               if slow and meta.onepass and meta.phases & PH_CLS else 0)
         out.update(tel, tel_dma_hb=torch.tensor(hb, dtype=_I32, device=dev),
                    tel_chance_bumps=n_chance)
+    if lbc is not None:
+        # The key exists iff meta.lb_stats.
+        out["lb_stats"] = lbc
     return state, out
 
 
 def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
-            lv=None):
+            lv=None, aff_timeout=None):
     """In place: commit a set of lanes' forward and reply rows
     (_fused_pack_rows output, narrow or wide) interleaved per lane [fwd_i,
     rev_i], so last-writer-wins resolves collisions in per-lane insert
@@ -1221,9 +1269,13 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
     per-state timeout, or a denial of another generation) counts as a
     reclaim, not an eviction.  Under meta.count_flow_stats a forward entry
     starts at one packet of its lane's length (lv, None for 0), a reply
-    entry at zero, and both high limbs at zero.
+    entry at zero, and both high limbs at zero.  Given aff_timeout (the
+    Services' affinity timeouts, dsvc.aff_timeout), the learn census reads
+    each winning learn's target row before the scatters: the pins written
+    and those that overwrite a live pin of another (client, Service) key.
     -> (evictions, reclaims, the guard's suppressed inserts or None),
-    int32 scalars."""
+    int32 scalars, and the learn census, (2,) int32 (LB_STATS[4:]), or
+    None."""
     sp = tracing.SLOT.sp
     if sp is not None:
         sp.enter("walk.commit")
@@ -1261,6 +1313,24 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
             overwrote = overwrote & ~dead
         n_evict = overwrote.sum(dtype=_I32)
 
+    adump = meta.aff_slots
+    census = None
+    if aff_timeout is not None:
+        # Each slot's winning learn once; it overwrites a live pin where
+        # the row it lands on is younger than its own Service's timeout
+        # and holds another client or Service.
+        win = _winner_mask(adump, learn["aslot"], learn_mask, adump)
+        tgt = torch.where(win, learn["aslot"], adump)
+        o_svc = aff.key_svc[tgt]
+        o_tmo = aff_timeout[o_svc.clamp(0, aff_timeout.shape[0] - 1).long()]
+        live = (aff.ep[tgt] > 0) & ((now - aff.ts[tgt]) <= o_tmo)
+        other = aff.key_client[tgt] != learn["client"]
+        if other.dim() == 2:
+            other = other.any(dim=1)
+        other = other | (o_svc != learn["svc"])
+        census = torch.stack([win, win & live & other]).sum(dim=1,
+                                                             dtype=_I32)
+
     if meta.count_flow_stats:
         z = torch.zeros(m, dtype=_I32, device=slot.device)
         lv = z if lv is None else lv.clamp_min(0)
@@ -1274,7 +1344,6 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
     _scatter_last(flow.meta, slot2, meta2, ins2, dump)
     _scatter_last(flow.ts, slot2, torch.full((2 * m,), now, dtype=_I32,
                                              device=slot.device), ins2, dump)
-    adump = meta.aff_slots
     _scatter_last(aff.key_client, learn["aslot"], learn["client"], learn_mask,
                   adump)
     _scatter_last(aff.key_svc, learn["aslot"], learn["svc"], learn_mask, adump)
@@ -1284,7 +1353,7 @@ def _commit(state, slot, rows, learn, learn_mask, now, gen_w, meta,
                   learn_mask, adump)
     if sp is not None:
         sp.leave()
-    return n_evict, n_reclaim, n_chance
+    return n_evict, n_reclaim, n_chance, census
 
 
 def _onepass_probes(drs, dsvc, src_f, proto, svc_idx, dnat_ip, dnat_port,
@@ -1364,7 +1433,7 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     interleaved commit of every lane's rows.
     -> (the miss lanes' images (B, 9), evictions, reclaims, (skips,
     fallbacks, candidate histogram), second chance's suppressed inserts or
-    None)."""
+    None, the LB's counters (LB_STATS, under meta.lb_stats) or None)."""
     sp = tracing.SLOT.sp
     if sp is not None:
         sp.enter("walk.classify")
@@ -1372,6 +1441,7 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     N = meta.flow_slots
     lb = _lb_phase(meta, state.aff, dsvc, h, src_f, dst_f, proto, dport, now)
     svc_idx, no_ep, dnat_ip, dnat_port, snat_m, dsr_m, _dw, learn = lb
+    lbc = _lb_counts(lb, miss) if meta.lb_stats else None
     nc = (torch.zeros_like(miss) if no_commit is None else no_commit)
     pv = torch.ones_like(miss) if valid is None else valid  # counted lanes
     if prune_exclude is not None:
@@ -1504,12 +1574,16 @@ def _slow_onepass(state, drs, dsvc, src_f, dst_f, proto, sport, dport, pp, h,
     if sp is not None:
         sp.leave()
     n_evict = n_reclaim = zero
-    sc = None
+    sc = census = None
     if meta.phases & PH_COMMIT:
-        n_evict, n_reclaim, sc = _commit(
+        n_evict, n_reclaim, sc, census = _commit(
             state, slot, rows, learn, learn["mask"] & miss, now, gen_w, meta,
-            lens if meta.count_flow_stats else None)
-    return fresh, n_evict, n_reclaim, prune, sc
+            lens if meta.count_flow_stats else None,
+            dsvc.aff_timeout if meta.lb_stats else None)
+    if lbc is not None:
+        lbc = torch.cat([lbc, census if census is not None
+                         else torch.zeros(2, dtype=_I32, device=lbc.device)])
+    return fresh, n_evict, n_reclaim, prune, sc, lbc
 
 
 def _delta_fixup(drs, tabs, iv, aux, delta_fb, miss, src_f, dnat_ip, n: int,

@@ -41,14 +41,14 @@ the maintenance scheduler's `observability` task.
 
 Step spans (StepSpans) time the data plane's hot call instead: one tree
 of host spans per engine step (STEP_SPANS), from the engine's step()
-through the column uploads, the pipeline walk's probe, classify and
-commit, the read-back, the counters, the rule-id mapping and the
-StepResult's assembly.  Off by default (TpuflowDatapath.enable_step_spans
-turns them on); off, a span boundary costs one `is None` check.  Under a
-running torch.profiler each span also opens a record_function range of
-its name, spans on or off, so the profiler's trace, which shares a clock
-with the device's, charges device idle time and device work to the
-engine's own layers.
+through the column uploads, the pipeline walk's probe, classify (the
+Service LB inside it) and commit, the read-back, the counters, the
+rule-id mapping and the StepResult's assembly.  Off by default
+(TpuflowDatapath.enable_step_spans turns them on); off, a span boundary
+costs one `is None` check.  Under a running torch.profiler each span also
+opens a record_function range of its name, spans on or off, so the
+profiler's trace, which shares a clock with the device's, charges device
+idle time and device work to the engine's own layers.
 """
 
 from __future__ import annotations
@@ -86,6 +86,7 @@ STEP_SPANS = (
     ("engine.walk", "engine.step"),
     ("walk.probe", "engine.walk"),
     ("walk.classify", "engine.walk"),
+    ("walk.lb", "walk.classify"),
     ("walk.commit", "engine.walk"),
     ("engine.readback", "engine.step"),
     ("engine.account", "engine.step"),

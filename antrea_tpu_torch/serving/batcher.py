@@ -29,9 +29,9 @@ jitted step:
     rings always outrank deadline-due ones so a deadline storm cannot
     grow memory (depth-flush dominates).
   * **De-interleave** — results return lane-exactly to submitters
-    (verdict fields scattered back per ticket, `n_miss` summed once per
-    dispatch), so oracle parity holds regardless of how lanes were
-    coalesced.
+    (verdict fields scattered back per ticket, `n_miss` and the Service
+    LB's counters `lb` summed once per dispatch), so oracle parity holds
+    regardless of how lanes were coalesced.
 """
 
 from __future__ import annotations
@@ -386,6 +386,11 @@ class ServingBatcher:
             v = getattr(res, f.name)
             if f.name == "n_miss":
                 out[f.name] = int(v)
+            elif f.name == "lb":
+                # The dispatch's, as its n_miss; absent where it counted
+                # none.
+                if v is not None:
+                    out[f.name] = dict(v)
             elif v is None:
                 out[f.name] = None
             elif isinstance(v, list):
@@ -423,6 +428,10 @@ class ServingBatcher:
             v0 = getattr(res0, f.name)
             if f.name == "n_miss":
                 kw[f.name] = int(sum(int(g[0].n_miss) for g in groups.values()))
+            elif f.name == "lb":
+                lbs = [g[0].lb for g in groups.values() if g[0].lb is not None]
+                kw[f.name] = ({k: sum(c[k] for c in lbs) for k in lbs[0]}
+                              if lbs else None)
             elif v0 is None:
                 kw[f.name] = None
             elif isinstance(v0, list):

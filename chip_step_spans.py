@@ -6,7 +6,9 @@ split, and the device's work and idle time by the span it falls under.
         [--seed N] [--seconds S] [--blocks K] [--block-steps N]
 
 Builds the benchmark cell's world, traffic and engine as flowbench does
-(flowbench/harness.py), steps its warm-up, then:
+(flowbench/harness.py), steps its warm-up (every step's result observed by
+the generator, as the benchmark's loop does, so that a Service mix's
+replies come from the endpoints the engine chose), then:
 
   cost     K blocks of N steps, spans off and on in turn (no profiler):
            packets a second of each block, and the recorder's own
@@ -178,6 +180,13 @@ def analyse(prof, steps: int) -> dict:
     }
 
 
+def step(eng, stream, t: int):
+    """Step t of the cell's stream, its result observed."""
+    r = eng.step(stream.batch(t), stream.now(t))
+    stream.observe(t, r)
+    return r
+
+
 def bookkeeping_us(n: int = 20000) -> float:
     """Host microseconds of one step's span bookkeeping, spans nested as
     the engine's step nests them, no profiler and no work between."""
@@ -191,6 +200,9 @@ def bookkeeping_us(n: int = 20000) -> float:
             if k == "engine.walk":
                 for w in ("walk.probe", "walk.classify", "walk.commit"):
                     rec.enter(w)
+                    if w == "walk.classify":
+                        rec.enter("walk.lb")
+                        rec.leave()
                     rec.leave()
             rec.leave()
         rec.end(time.perf_counter_ns())
@@ -212,7 +224,7 @@ def main() -> int:
     sync = torch.cuda.synchronize
     t = 0
     for t in range(stream.warm_steps):
-        eng.step(stream.batch(t), stream.now(t))
+        step(eng, stream, t)
     t = stream.warm_steps
     sync()
     out = {"workload": a.workload, "seed": a.seed,
@@ -227,7 +239,7 @@ def main() -> int:
             eng.enable_step_spans(a.block_steps * len(NAMES))
         t0 = time.perf_counter()
         for _ in range(a.block_steps):
-            eng.step(stream.batch(t), stream.now(t))
+            step(eng, stream, t)
             t += 1
         dt = time.perf_counter() - t0
         eng.disable_step_spans()
@@ -252,6 +264,7 @@ def main() -> int:
             r = eng.step(b, stream.now(t))
             s1 = time.perf_counter()
             lat.append(s1 - s0)
+            stream.observe(t, r)
             t += 1
             if s1 >= end:
                 break
@@ -265,7 +278,7 @@ def main() -> int:
         # The release of a step's result, timed alone.
         rel = []
         for _ in range(40):
-            new = eng.step(stream.batch(t), stream.now(t))
+            new = step(eng, stream, t)
             t += 1
             d0 = time.perf_counter()
             r = new
@@ -275,7 +288,7 @@ def main() -> int:
         # resolves its ids on read, this is where they are resolved).
         first = []
         for _ in range(20):
-            r = eng.step(stream.batch(t), stream.now(t))
+            r = step(eng, stream, t)
             t += 1
             d0 = time.perf_counter()
             r.ingress_rule, r.egress_rule
@@ -300,7 +313,7 @@ def main() -> int:
         with torch.profiler.profile(activities=acts) as prof:
             for i in range(PROFILED):
                 with torch.profiler.record_function("flowbench.step"):
-                    eng.step(stream.batch(t + i), stream.now(t + i))
+                    step(eng, stream, t + i)
             sync()
         t += PROFILED
         s = summarize(prof, PROFILED)
@@ -316,7 +329,7 @@ def main() -> int:
             SyncCensus() as census:
         for i in range(PROFILED):
             with torch.profiler.record_function("flowbench.step"):
-                eng.step(stream.batch(t + i), stream.now(t + i))
+                step(eng, stream, t + i)
         sync()
     c = analyse(prof, PROFILED)
     out["census"] = {
